@@ -13,7 +13,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    time the kernel, the plain version and one PyTorch library call computing
    the same product, each over rotating copies of the weights so that every
    launch reads them from device memory, as a serving tick does: device time
-   per call (replayed from a CUDA graph) and wall time per eager call;
+   per call (replayed from a CUDA graph) and wall time per eager call; check
+   that two kernel calls on the same inputs are bitwise equal, and report the
+   kernel's time over its bound and its achieved GB/s (the bytes the bound
+   counts over its device time);
 4. the main path: compose ``exp=dreamer_v3 env=dummy`` at the S preset (full
    width), build the agent on the card from the seed, write a checkpoint and
    its config.yaml into a temporary run dir, and serve it through
@@ -21,8 +24,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the kernels' launch counts are zeroed just before and read just after, and
    every kernel must have been launched at least once per tick. Then the
    batched serve step on the card is held against the same step on the CPU
-   (the plain path) on the same weights, observations and noise. Last,
-   serving ticks are profiled (device time by kernel, busy share);
+   (the plain path) on the same weights, observations and noise. Last, under
+   torch.profiler (only now: once it has run, later eager launches cost more
+   host time), each phase-3 shape's device time by kernel name, with its
+   kernel launches per call counted in a captured CUDA graph, then serving
+   ticks (device time by kernel, the LN-GRU kernel's launches by name, busy
+   share);
 5. print the ``kernels`` JSON line, the card line, and the final result line.
 """
 
@@ -138,13 +145,78 @@ def time_device(fn, weights, replays: int = 20) -> float:
     return start.elapsed_time(end) / (replays * calls)
 
 
+def gru_bytes(B: int, K: int, H: int) -> int:
+    """Bytes one step must move: each input read once, the output written once."""
+    n = 3 * H
+    return 4 * (B * K + B * H + K * n + 3 * n + B * H)
+
+
 def gru_bound(B: int, K: int, H: int) -> tuple:
     n = 3 * H
-    bytes_moved = 4 * (B * K + B * H + K * n + 3 * n + B * H)
     flops = 2 * B * K * n + 12 * B * n
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S
+    t_bytes = gru_bytes(B, K, H) / PEAK_BYTES_PER_S
     t_ops = flops / PEAK_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def graph_kernel_launches(fn) -> int:
+    """Kernels one ``fn()`` launches: the kernel nodes of a CUDA graph that
+    captures one call, counted through the CUDA runtime."""
+    import ctypes
+
+    for name in ("libcudart.so.12", "libcudart.so"):
+        try:
+            rt = ctypes.CDLL(name)  # the runtime torch loaded
+            break
+        except OSError:
+            continue
+    else:
+        raise RuntimeError("libcudart not found: cannot count a graph's kernel nodes")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if rt.cudaGraphGetNodes(raw, None, ctypes.byref(count)) != 0:
+        raise RuntimeError("cudaGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if rt.cudaGraphGetNodes(raw, nodes, ctypes.byref(count)) != 0:
+        raise RuntimeError("cudaGraphGetNodes failed")
+    kernels = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        rt.cudaGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        kernels += kind.value == 0  # cudaGraphNodeTypeKernel
+    del graph
+    return kernels
+
+
+def device_ms_by_kernel(fn, weights, calls: int = 8) -> dict:
+    """Device ms per launch of each kernel ``fn(w)`` runs, by name, under
+    torch.profiler, eager, cycling through ``weights``. The calls are traced
+    in a second profiler step, after a warm-up step; a kernel's time is the
+    mean over the launches the trace holds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):  # warm-up step, then the traced step
+            for i in range(calls):
+                fn(weights[i % len(weights)])
+            torch.cuda.synchronize()
+            prof.step()
+    total, count = {}, {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA and not ev.name.startswith("ProfilerStep"):
+            total[ev.name] = total.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+            count[ev.name] = count.get(ev.name, 0) + 1
+    return {name: total[name] / count[name] for name in total}
 
 
 def check_gru(device) -> dict:
@@ -159,6 +231,13 @@ def check_gru(device) -> dict:
         if not (err <= GRU_ATOL and torch.isfinite(out).all()):
             raise AssertionError(f"LN-GRU kernel vs plain at {preset} B={B}: max abs err {err} > {GRU_ATOL}")
         row = {"preset": preset, "B": B, "K": K, "H": H, "max_abs_err": err}
+        # no float atomics and fixed summation orders: a second call on the
+        # same inputs gives the same bits
+        again = ln_gru_step(inp, hx, w, b, scale, bias)
+        torch.cuda.synchronize()
+        row["bitwise_equal"] = bool(torch.equal(out, again))
+        if not row["bitwise_equal"]:
+            raise AssertionError(f"LN-GRU kernel at {preset} B={B}: two calls on the same inputs differ")
         if (preset, B) == ("S", 4):
             args = [t.clone().requires_grad_(True) for t in (inp, hx, w, b, scale, bias)]
             g_out = torch.randn(B, H, device=device, generator=torch.Generator(device).manual_seed(0))
@@ -180,10 +259,28 @@ def check_gru(device) -> dict:
         for prefix, fn in fns.items():
             row[f"{prefix}call_ms"] = time_calls(fn, weights, 200 if K * H < 4_000_000 else 50)
         row["bound_ms"], row["bound_by"] = gru_bound(B, K, H)
+        row["kernel_over_bound"] = row["ms"] / row["bound_ms"]
+        row["achieved_GBps"] = gru_bytes(B, K, H) / (row["ms"] * 1e-3) / 1e9
         del weights
         rows.append(row)
         print(f"[chip-smoke] ln_gru {json.dumps(row)}", flush=True)
     return {"rows": rows, "max_abs_err": max(r["max_abs_err"] for r in rows)}
+
+
+def profile_gru(rows: list, device) -> None:
+    """Adds to each phase-3 row the kernels one call launches (counted in a
+    captured graph) and their device time by name (torch.profiler). Run after
+    the serving phase, as the tick profile is: once the profiler has run in a
+    process, later eager launches cost more host time, which would slow the
+    served ticks."""
+    for row in rows:
+        inp, hx, w, b, scale, bias = gru_case(row["B"], row["K"], row["H"], seed=row["B"] + row["K"], device=device)
+        row["launches_per_call"] = graph_kernel_launches(lambda: ln_gru_step(inp, hx, w, b, scale, bias))
+        row["device_ms_by_kernel"] = device_ms_by_kernel(
+            lambda wi: ln_gru_step(inp, hx, wi, b, scale, bias), [w, w.clone()]
+        )
+        print(f"[chip-smoke] ln_gru profile {row['preset']} B={row['B']}: {row['launches_per_call']} launches "
+              f"per call, device ms {json.dumps(row['device_ms_by_kernel'])}", flush=True)
 
 
 def main_path(out_dir: str) -> dict:
@@ -336,6 +433,8 @@ def profile_ticks(ckpt: str, ticks: int = 32) -> dict:
         "device_busy_share": device_ms / (wall_ms / ticks) if device_ms > 0 else None,
         "kernels_per_tick": launches / ticks,
         "top_device_ms": top,
+        # the port's own launches by name, wherever they rank
+        "ln_gru_device_ms": {name: ms for name, ms in by_kernel.items() if "ln_gru" in name},
     }
     print(f"[chip-smoke] serve tick profile: {json.dumps(out)}", flush=True)
     return out
@@ -363,6 +462,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         path = main_path(tmp)
         parity = serve_step_parity(path["ckpt"])
+        profile_gru(gru["rows"], device)
         profile = profile_ticks(path["ckpt"])
 
     main_row = next(r for r in gru["rows"] if (r["preset"], r["B"], r["K"], r["H"]) == MAIN_SHAPE)
@@ -380,6 +480,8 @@ def main() -> int:
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
+            "kernel_over_bound": main_row["kernel_over_bound"],
+            "launches_per_call": main_row["launches_per_call"],
             "call_ms": main_row["call_ms"],
             "plain_call_ms": main_row["plain_call_ms"],
         }

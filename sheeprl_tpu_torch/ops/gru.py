@@ -23,6 +23,8 @@ This module holds four things:
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Tuple
 
 import torch
@@ -35,8 +37,43 @@ LN_GRU = KernelSpec(
     replaces="sheeprl_tpu/ops/gru.py:77",
 )
 
-# blocks the split-K GEMM aims to keep in flight: two per SM of an H100
-_TARGET_BLOCKS = 264
+# batch rows of a block's tile: the kernel is built for these two
+_ROW_TILES = (4, 16)
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How ``csrc/ln_gru.cu`` cuts one call: ``tile_b`` batch rows a block,
+    ``groups`` column groups (``col_group`` columns of each third of 3H), and a
+    cluster of ``cluster`` blocks along K per (group, row tile), each block
+    taking ``k_chunk`` rows of K."""
+
+    tile_b: int
+    groups: int
+    cluster: int
+    k_chunk: int
+
+
+def _launch_plan(
+    B: int, K: int, H: int, col_group: int, stage_k: int, max_cluster: int, sms: int
+) -> LaunchPlan:
+    """The cluster along K grows (by powers of two, up to ``max_cluster``)
+    while the grid still fits one block on each of the card's ``sms`` SMs and
+    K has a whole stage for each block: on an H100, one block an SM, each
+    streaming the longest run of K, pulls W fastest (PERF.md). Each K chunk is
+    a whole number of ``stage_k`` rows and none is empty."""
+    tile_b = _ROW_TILES[0] if B <= _ROW_TILES[0] else _ROW_TILES[1]
+    groups = -(-H // col_group)
+    tiles = groups * -(-B // tile_b)
+    k_stages = -(-K // stage_k)
+    cluster = 1
+    while 2 * cluster <= min(max_cluster, k_stages) and 2 * cluster * tiles <= sms:
+        cluster *= 2
+    while True:
+        k_chunk = -(-k_stages // cluster) * stage_k
+        if cluster == 1 or (cluster - 1) * k_chunk < K:
+            return LaunchPlan(tile_b, groups, cluster, k_chunk)
+        cluster //= 2
 
 
 def ln_gru_step_plain(
@@ -67,16 +104,6 @@ def ln_gru_step_plain(
     return (update * cand + (1.0 - update) * hidden).to(hx.dtype)
 
 
-def _split_k(B: int, K: int, N: int, tile_b: int, tile_n: int, tile_k: int) -> Tuple[int, int]:
-    """(splits, k_per_split): enough K chunks to keep ~_TARGET_BLOCKS blocks in
-    flight, each chunk a multiple of the kernel's K tile."""
-    tiles = -(-N // tile_n) * -(-B // tile_b)
-    k_tiles = -(-K // tile_k)
-    splits = max(1, min(k_tiles, -(-_TARGET_BLOCKS // tiles)))
-    k_per_split = -(-k_tiles // splits) * tile_k
-    return -(-K // k_per_split), k_per_split
-
-
 def _check_operands(inp, hx, w, b, scale, bias) -> None:
     tensors = {"inp": inp, "hx": hx, "w": w, "b": b, "scale": scale, "bias": bias}
     device = inp.device
@@ -104,31 +131,38 @@ def _check_operands(inp, hx, w, b, scale, bias) -> None:
         raise ValueError("ln_gru_step: empty batch")
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _kernel() -> Tuple[ctypes.CDLL, Tuple[int, int, int]]:
-    """The built library with its entry point typed, and its (B, N, K) tiles."""
+    """The built library with its entry point typed, and its plan constants
+    (col_group, stage_k, max_cluster)."""
     lib = load(LN_GRU)
     fn = lib.ln_gru_forward
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return lib, (lib.ln_gru_tile_b(), lib.ln_gru_tile_n(), lib.ln_gru_tile_k())
+    return lib, (lib.ln_gru_col_group(), lib.ln_gru_stage_k(), lib.ln_gru_max_cluster())
 
 
 def _launch(inp, hx, w, b, scale, bias, eps: float) -> torch.Tensor:
     """Run the CUDA kernel on [B,K] / [B,H] float32 CUDA tensors."""
     _check_operands(inp, hx, w, b, scale, bias)
-    lib, (tile_b, tile_n, tile_k) = _kernel()
+    lib, consts = _kernel()
     B, K = inp.shape
     H = hx.shape[-1]
-    N = 3 * H
-    splits, k_per_split = _split_k(B, K, N, tile_b, tile_n, tile_k)
-    partial = torch.empty((splits, B, N), dtype=torch.float32, device=inp.device)
+    plan = _launch_plan(B, K, H, *consts, _sm_count(inp.device))
+    # the gates [B,3H] between the two launches, then the LayerNorm partials
+    # [B, groups, 2]
+    scratch = torch.empty(B * (3 * H + 2 * plan.groups), dtype=torch.float32, device=inp.device)
     out = torch.empty((B, H), dtype=torch.float32, device=inp.device)
     stream = torch.cuda.current_stream(inp.device).cuda_stream
     err = lib.ln_gru_forward(
         inp.data_ptr(), hx.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
-        bias.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        B, K, H, splits, k_per_split, float(eps), stream,
+        bias.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        B, K, H, plan.tile_b, plan.cluster, plan.k_chunk, float(eps), stream,
     )
     if err != 0:
         raise RuntimeError(f"ln_gru_forward launch failed with cudaError {err}")

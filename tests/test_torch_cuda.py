@@ -8,7 +8,8 @@ machine that has only torch: from the repo root,
 (``--noconftest``: tests/conftest.py imports jax). The hand-written kernel is
 held against its plain PyTorch version on the card with TF32 off; the sums over
 K are split across blocks on the card and taken in another order by cuBLAS, so
-they agree to 1e-4 (``chip_smoke.py`` measures ~2e-6).
+they agree to 1e-4 (``chip_smoke.py`` measures ~2e-6). Both orders are fixed,
+so two calls of the kernel on the same inputs agree bit for bit.
 """
 
 from __future__ import annotations
@@ -64,6 +65,68 @@ def test_kernel_matches_plain(cuda, B, K, H):
     gp = torch.autograd.grad(ln_gru_step_plain(*targs), targs, g)
     for a, b in zip(gk, gp):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_two_calls_are_bitwise_equal(cuda):
+    """No float atomics: the split-K and LayerNorm sums run in a fixed order."""
+    args = _case(4, 1024, 512, cuda, seed=1)
+    assert torch.equal(ln_gru_step(*args), ln_gru_step(*args))
+    args = _case(64, 2816, 2048, cuda, seed=2)
+    assert torch.equal(ln_gru_step(*args), ln_gru_step(*args))
+
+
+@pytest.mark.parametrize("B", [300, 1024])
+def test_ragged_row_tiles(cuda, B):
+    args = _case(B, 1024, 512, cuda, seed=B)
+    torch.testing.assert_close(ln_gru_step(*args), ln_gru_step_plain(*args), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("B,K,H", [(3, 40, 25), (5, 161, 33), (1, 1, 1)])
+def test_odd_widths_take_the_scalar_path(cuda, B, K, H):
+    """3H not a multiple of 4: W's rows are not 16-byte aligned."""
+    args = _case(B, K, H, cuda, seed=K)
+    torch.testing.assert_close(ln_gru_step(*args), ln_gru_step_plain(*args), rtol=1e-4, atol=1e-4)
+
+
+def test_operands_off_16_byte_alignment(cuda):
+    """Contiguous views whose storage offset breaks 16-byte alignment: inp
+    (always copied 4 bytes at a time) and W (which then takes the scalar path)."""
+    B, K, H = 4, 1024, 512
+    args = _case(B, K, H, cuda, seed=3)
+    ref = ln_gru_step_plain(*args)
+    inp = torch.empty(B * K + 1, device=cuda)[1:].view(B, K)
+    inp.copy_(args[0])
+    w = torch.empty(K * 3 * H + 3, device=cuda)[3:].view(K, 3 * H)
+    w.copy_(args[2])
+    assert inp.is_contiguous() and inp.data_ptr() % 16 and w.data_ptr() % 16
+    torch.testing.assert_close(ln_gru_step(inp, *args[1:]), ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ln_gru_step(inp, args[1], w, *args[3:]), ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("B", [4, 16])
+def test_kernel_replays_from_a_cuda_graph(cuda, B):
+    """Many calls back to back in one graph, replayed: blocks of one call exit
+    while the next call's clusters start, so a cluster that let a block leave
+    before its neighbours finished reading its shared memory would fault or
+    read garbage here."""
+    args = _case(B, 1024, 512, cuda, seed=4)
+    expected = ln_gru_step(*args)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        ln_gru_step(*args)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [ln_gru_step(*args) for _ in range(16)]
+    for _ in range(5):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(out, expected) for out in outs)
+    args[0].mul_(0.5)  # the graph reads its inputs anew on each replay
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(outs[-1], ln_gru_step(*args))
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):

@@ -20,7 +20,7 @@ import torch
 
 from sheeprl_tpu.ops.gru import fused_ln_gru_step, ln_gru_step_reference
 from sheeprl_tpu_torch.ops import LN_GRU, ln_gru_step, ln_gru_step_plain
-from sheeprl_tpu_torch.ops.gru import _split_k
+from sheeprl_tpu_torch.ops.gru import _ROW_TILES, _launch_plan
 
 ATOL = 1e-5
 
@@ -104,15 +104,55 @@ def test_dispatch_refuses_other_devices():
         ln_gru_step(*args)
 
 
+# the kernel's plan constants (csrc/ln_gru.cu: kColGroup, kStageK, kMaxCluster),
+# and an H100's SM count
+COL_GROUP, STAGE_K, MAX_CLUSTER, SMS = 32, 32, 8, 132
+
+
+def _check_plan(B, K, H):
+    plan = _launch_plan(B, K, H, COL_GROUP, STAGE_K, MAX_CLUSTER, SMS)
+    # a portable cluster size the kernel is built for
+    assert plan.cluster in (1, 2, 4, 8) and plan.cluster <= MAX_CLUSTER
+    # K chunks: whole stages, none empty, together covering K
+    assert plan.k_chunk > 0 and plan.k_chunk % STAGE_K == 0
+    assert plan.cluster * plan.k_chunk >= K
+    assert (plan.cluster - 1) * plan.k_chunk < K
+    # column groups cover each third of 3H, none empty
+    assert plan.groups * COL_GROUP >= H
+    assert (plan.groups - 1) * COL_GROUP < H
+    # a row tile the kernel is built for; K is split only while the grid
+    # fits one block on each SM
+    assert plan.tile_b in _ROW_TILES
+    assert plan.cluster == 1 or plan.groups * plan.cluster * -(-B // plan.tile_b) <= SMS
+    return plan
+
+
 @pytest.mark.parametrize(
     "B,K,H",
-    [(1, 512, 256), (4, 1024, 512), (64, 1024, 512), (4, 1664, 1024), (4, 2816, 2048), (16, 5120, 4096), (33, 14, 8)],
+    [(1, 512, 256), (4, 1024, 512), (64, 1024, 512), (4, 1664, 1024), (4, 2816, 2048), (16, 5120, 4096), (33, 14, 8)]
+    # ragged row tiles, odd H (the kernel's 4-byte path), K that ends inside a
+    # stage, and the smallest call
+    + [(300, 1024, 512), (1024, 1024, 512), (3, 40, 24), (2, 35, 25), (5, 161, 33), (1, 1, 1)],
 )
 def test_split_k_covers_k_in_whole_tiles(B, K, H):
-    """The split-K plan of the CUDA wrapper: chunks are whole K tiles, none is
-    empty, together they cover K."""
-    tile_b, tile_n, tile_k = 16, 64, 32
-    splits, k_per_split = _split_k(B, K, 3 * H, tile_b, tile_n, tile_k)
-    assert k_per_split % tile_k == 0
-    assert splits * k_per_split >= K
-    assert (splits - 1) * k_per_split < K
+    """The launch plan of the CUDA wrapper: the cluster that splits K is a legal
+    size, its K chunks are whole stages, none is empty, together they cover K,
+    and the column groups cover each third of 3H."""
+    _check_plan(B, K, H)
+
+
+@pytest.mark.parametrize(
+    "B,K,H,plan",
+    [
+        # DV3 S at 4 slots: one row tile and a full cluster of 8 along K, so
+        # 128 blocks each stream a contiguous run of 128 K rows
+        (4, 1024, 512, (4, 16, 8, 128)),
+        (16, 1024, 512, (16, 16, 8, 128)),
+        (4, 2816, 2048, (4, 64, 2, 1408)),  # L
+        (4, 5120, 4096, (4, 128, 1, 5120)),  # XL: one block a column group
+        (1024, 1024, 512, (16, 16, 1, 1024)),  # the imagination batch
+    ],
+)
+def test_launch_plan_at_the_dreamer_shapes(B, K, H, plan):
+    got = _check_plan(B, K, H)
+    assert (got.tile_b, got.groups, got.cluster, got.k_chunk) == plan

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no module of sheeprl_tpu_torch, and not
-chip_smoke.py, imports jax, flax, optax or the JAX package.
+"""The PyTorch port stands alone: no module of sheeprl_tpu_torch, and neither
+chip_smoke.py nor ln_gru_breakdown.py, imports jax, flax, optax or the JAX
+package.
 
 tests/conftest.py imports jax in this process and moves the working
 directory, so the import check runs in a fresh subprocess with PYTHONPATH set
@@ -24,8 +25,11 @@ PACKAGE = REPO / "sheeprl_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chex", "orbax", "sheeprl_tpu")
 
 
+SCRIPTS = ["chip_smoke", "ln_gru_breakdown"]  # the port's scripts at the root of the repo
+
+
 def _sources():
-    return sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PACKAGE.rglob("*.py")) + [REPO / f"{name}.py" for name in SCRIPTS]
 
 
 def _module_names():
@@ -40,7 +44,7 @@ def _module_names():
 
 
 def test_importing_every_module_loads_no_jax():
-    modules = _module_names() + ["chip_smoke"]
+    modules = _module_names() + SCRIPTS
     script = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
