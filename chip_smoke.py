@@ -17,20 +17,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
    that two kernel calls on the same inputs are bitwise equal, and report the
    kernel's time over its bound and its achieved GB/s (the bytes the bound
    counts over its device time);
-4. the main path: compose ``exp=dreamer_v3 env=dummy`` at the S preset (full
-   width), build the agent on the card from the seed, write a checkpoint and
-   its config.yaml into a temporary run dir, and serve it through
-   ``serve_main`` with 4 slots and 4 concurrent env sessions of 512 steps;
-   the kernels' launch counts are zeroed just before and read just after, and
-   every kernel must have been launched at least once per tick. Then the
-   batched serve step on the card is held against the same step on the CPU
-   (the plain path) on the same weights, observations and noise. Last, under
-   torch.profiler (only now: once it has run, later eager launches cost more
-   host time), each phase-3 shape's device time by kernel name, with its
-   kernel launches per call counted in a captured CUDA graph, then serving
-   ticks (device time by kernel, the LN-GRU kernel's launches by name, busy
-   share);
-5. print the ``kernels`` JSON line, the card line, and the final result line.
+4. the serving path: compose ``exp=dreamer_v3 env=dummy`` at the S preset
+   (full width), build the agent on the card from the seed, write a
+   checkpoint and its config.yaml into a temporary run dir, and serve it
+   through ``serve_main`` with 4 slots and 4 concurrent env sessions of 512
+   steps; the kernels' launch counts are zeroed just before and read just
+   after, and every kernel must have been launched at least once per tick.
+   Then the batched serve step on the card is held against the same step on
+   the CPU (the plain path) on the same weights, observations and noise;
+5. the training path (the slice's main path) through the entry points:
+   ``run`` trains DV3 S at full width (``env=dummy``, 4 envs, batch 16 x 64,
+   horizon 15) for a few gradient steps and writes a checkpoint, ``run``
+   resumes from it for a few more, ``evaluation`` plays a test episode of
+   it; the launch counts are zeroed just before each and read just after,
+   and each gradient step must have launched the LN-GRU kernel 64 + 15 times
+   besides one launch per batched policy step. Then one gradient step on the
+   card against the same step on the CPU (TF32 off, T=16, B=4), and the
+   seconds per gradient step at 16 x 64, eager;
+6. the profiles, under torch.profiler and only now (once it has run, later
+   eager launches cost more host time): each phase-3 shape's device time by
+   kernel name, with its kernel launches per call counted in a captured CUDA
+   graph; serving ticks (device time by kernel, the LN-GRU kernel's launches
+   by name, busy share); a training step (the same, and its kernel count);
+7. print the ``kernels`` JSON line, the card line, and the final result line.
+
+Phase 3 also covers the training shapes of the kernel: B = 16 (the posterior
+scan) and B = 1024 (imagination's 16 x 64 rows), forward and gradient.
 """
 
 from __future__ import annotations
@@ -71,10 +83,14 @@ GRU_SHAPES = [
     ("S", 4, 1024, 512),
     ("S", 16, 1024, 512),
     ("S", 64, 1024, 512),
+    ("S", 1024, 1024, 512),  # imagination: B*T = 16*64 rows
     ("L", 4, 2816, 2048),
     ("XL", 4, 5120, 4096),
 ]
 MAIN_SHAPE = ("S", 4, 1024, 512)  # serving: 4 slots at the S preset
+# training: the posterior scan's batch, then imagination's rows
+TRAIN_SHAPES = [("S", 16, 1024, 512), ("S", 1024, 1024, 512)]
+GRAD_SHAPES = [MAIN_SHAPE, *TRAIN_SHAPES]
 
 SLOTS = 4
 SESSIONS = 4
@@ -238,14 +254,14 @@ def check_gru(device) -> dict:
         row["bitwise_equal"] = bool(torch.equal(out, again))
         if not row["bitwise_equal"]:
             raise AssertionError(f"LN-GRU kernel at {preset} B={B}: two calls on the same inputs differ")
-        if (preset, B) == ("S", 4):
+        if (preset, B, K, H) in GRAD_SHAPES:
             args = [t.clone().requires_grad_(True) for t in (inp, hx, w, b, scale, bias)]
             g_out = torch.randn(B, H, device=device, generator=torch.Generator(device).manual_seed(0))
             grads_k = torch.autograd.grad(ln_gru_step(*args), args, g_out)
             grads_p = torch.autograd.grad(ln_gru_step_plain(*args), args, g_out)
             gerr = max(float((a - p).abs().max()) for a, p in zip(grads_k, grads_p))
             if gerr > GRU_ATOL:
-                raise AssertionError(f"LN-GRU gradient vs plain at S B=4: max abs err {gerr}")
+                raise AssertionError(f"LN-GRU gradient vs plain at {preset} B={B}: max abs err {gerr}")
             row["grad_max_abs_err"] = gerr
         copies = max(2, math.ceil(2 * L2_BYTES / (4 * K * 3 * H)))
         weights = [w.clone() for _ in range(copies)]
@@ -347,6 +363,255 @@ def main_path(out_dir: str) -> dict:
         if count < summary["ticks"]:
             raise AssertionError(f"kernel {name} launched {count} times in {summary['ticks']} ticks")
     return {"summary": summary, "launches": launches, "ckpt": ckpt}
+
+
+TRAIN_ENVS = 4
+# the exp's learning_starts (1024 policy steps, 256 iterations of 4 envs) and
+# replay ratio (1: every iteration of 4 policy steps takes 4 gradient steps)
+LEARNING_STARTS_ITERS = 256
+STEADY_ITERS = 16  # iterations after the first training one: the steady-state window
+FIRST_ITERS = LEARNING_STARTS_ITERS + STEADY_ITERS
+# a resumed run waits learning_starts iterations again (acting with the
+# player); its replay-ratio governor, restored from the checkpoint, skips the
+# first training iteration, and the next 3 take 4 gradient steps each
+RESUME_ITERS = FIRST_ITERS + LEARNING_STARTS_ITERS + 4
+GRU_CALLS_PER_GRAD_STEP = 64 + 15  # the posterior scan over T, imagination over the horizon
+# one gradient step on the card vs on the CPU (TF32 off): the losses and
+# gradient norms pass through 16 recurrent steps, a 15-step rollout and
+# cuDNN/cuBLAS against the CPU's kernels; each within 1e-3 of the CPU's value,
+# relative to its size (or to 1e-3 for the ones smaller than that)
+TRAIN_STEP_RTOL = 1e-3
+# the parameters after the steps: Adam's first steps move each weight by about
+# its learning rate whatever the gradient's size, so a gradient within
+# rounding of 0 may step either way on each side. Every weight lies within
+# 2 lr a step of the CPU's, and all but a few within 1e-5 (a wrong update, a
+# missing one or a wrong clip scale moves most weights by about lr = 1e-4)
+TRAIN_PARAM_ATOL = 1e-5
+TRAIN_PARAM_SHARE = 0.999
+
+
+def train_overrides(run_dir: str = "") -> list:
+    """DV3 S at full width with the exp's batch, sequence, replay ratio,
+    learning_starts and buffer size; ``run_dir`` holds the run's logs and
+    checkpoints. The buffer keeps its rows in memory (``buffer.memmap=False``)
+    rather than in files under the run's directory."""
+    return [
+        "exp=dreamer_v3",
+        "env=dummy",
+        "algo.cnn_keys.encoder=[rgb]",
+        "algo.mlp_keys.encoder=[state]",
+        "env.capture_video=False",
+        f"env.num_envs={TRAIN_ENVS}",
+        "algo.per_rank_batch_size=16",
+        "algo.per_rank_sequence_length=64",
+        "buffer.memmap=False",
+        *([f"hydra.run.dir={run_dir}"] if run_dir else []),
+    ]
+
+
+def _check_train_run(name: str, summary: dict, launches: int) -> None:
+    need = GRU_CALLS_PER_GRAD_STEP * summary["gradient_steps"] + summary["player_calls"]
+    print(f"[chip-smoke] train {name}: {summary['gradient_steps']} gradient steps, {summary['player_calls']} "
+          f"player calls, {summary['policy_steps']} policy steps in {summary['wall_seconds']:.2f}s "
+          f"(train {summary['train_seconds']:.2f}s, env {summary['env_seconds']:.2f}s); LN-GRU launches "
+          f"{launches} (need >= {need}); metrics {json.dumps(summary['metrics'])}", flush=True)
+    if summary["gradient_steps"] < 1 or launches < need:
+        raise AssertionError(f"train {name}: {summary['gradient_steps']} gradient steps, {launches} launches < {need}")
+    if not all(math.isfinite(v) for v in summary["metrics"].values()):
+        raise AssertionError(f"train {name}: non-finite metrics {summary['metrics']}")
+
+
+def train_path(out_dir: str) -> dict:
+    """The training slice's main path through the entry points a user calls:
+    train, resume from the last checkpoint, evaluate it. The launch counts are
+    zeroed just before each run and read just after."""
+    from sheeprl_tpu_torch.cli import evaluation, run
+
+    overrides = train_overrides(os.path.join(out_dir, "train"))
+    out = {}
+    for spec in KERNELS:
+        spec.launches = 0
+    first = run(overrides + [f"algo.total_steps={TRAIN_ENVS * FIRST_ITERS}"])
+    out["train"] = {"summary": first, "launches": {spec.name: spec.launches for spec in KERNELS}}
+    _check_train_run("first run", first, LN_GRU.launches)
+    if first["gradient_steps"] < 4:
+        raise AssertionError(f"the first run took {first['gradient_steps']} gradient steps, fewer than 4")
+    for spec in KERNELS:
+        spec.launches = 0
+    resumed = run(overrides + [f"algo.total_steps={TRAIN_ENVS * RESUME_ITERS}",
+                               f"checkpoint.resume_from={first['checkpoint']}"])
+    out["resume"] = {"summary": resumed, "launches": {spec.name: spec.launches for spec in KERNELS}}
+    _check_train_run("resumed run", resumed, LN_GRU.launches)
+    if not resumed["log_dir"].endswith("version_1"):
+        raise AssertionError(f"the resumed run wrote {resumed['log_dir']}, not the run's version_1")
+    for spec in KERNELS:
+        spec.launches = 0
+    reward = evaluation([f"checkpoint_path={resumed['checkpoint']}", "env.capture_video=False"])
+    out["evaluation"] = {"reward": reward, "launches": {spec.name: spec.launches for spec in KERNELS}}
+    print(f"[chip-smoke] evaluation: reward {reward}, LN-GRU launches {LN_GRU.launches}", flush=True)
+    if not (math.isfinite(reward) and LN_GRU.launches >= 1):
+        raise AssertionError(f"evaluation: reward {reward}, {LN_GRU.launches} launches")
+    # the steady-state window of the first run: the iterations after the first
+    # training one, without set-up, prefill, checkpoint writes or the test episode
+    if first["steady_gradient_steps"] != first["steady_policy_steps"] or first["steady_policy_steps"] < 4 * STEADY_ITERS:
+        raise AssertionError(f"the steady window took {first['steady_gradient_steps']} gradient steps in "
+                             f"{first['steady_policy_steps']} policy steps, not one each at replay ratio 1")
+    out["seconds_per_gradient_step"] = first["train_seconds"] / first["gradient_steps"]
+    out["env_steps_per_s"] = first["steady_policy_steps"] / first["steady_seconds"]
+    print(f"[chip-smoke] train: {out['seconds_per_gradient_step']:.4f} s per gradient step in the loop, "
+          f"{out['env_steps_per_s']:.3f} env steps/s in the steady window of the first run "
+          f"({first['steady_policy_steps']} policy steps, {first['steady_gradient_steps']} gradient steps in "
+          f"{first['steady_seconds']:.3f}s)", flush=True)
+    return out
+
+
+def _s_trainers(devices, T: int, B: int, seed: int = 0):
+    """DV3 S trainers (the same weights from a seed) on each device, TF32 off,
+    and one random batch of [T, B] rows on the CPU."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import DV3Trainer, build_optimizers
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.interop.flax_to_torch import agent_to_flax
+    from sheeprl_tpu_torch.parallel.fabric import Fabric
+    from sheeprl_tpu_torch.utils.env import make_env
+
+    cfg = compose(train_overrides())
+    space = make_env(cfg, 0, 0)().observation_space
+    trainers, weights = {}, None
+    for accel in devices:
+        fabric = Fabric(accelerator=accel, float32_matmul_precision="highest")
+        agent = build_agent(fabric, (2,), False, cfg, space, seed, weights)
+        weights = weights or agent_to_flax(agent)
+        trainers[accel] = DV3Trainer(agent, cfg, build_optimizers(cfg, agent))
+    rng = np.random.default_rng(seed)
+    terminated = (rng.uniform(size=(T, B, 1)) < 0.05).astype(np.float32)
+    batch = {
+        "rgb": rng.integers(0, 256, (T, B, 3, 64, 64)).astype(np.uint8),
+        "state": rng.standard_normal((T, B, 10)).astype(np.float32),
+        "actions": np.eye(2, dtype=np.float32)[rng.integers(0, 2, (T, B))],
+        "rewards": rng.standard_normal((T, B, 1)).astype(np.float32),
+        "terminated": terminated,
+        "truncated": np.zeros((T, B, 1), np.float32),
+        "is_first": np.concatenate([np.zeros((1, B, 1), np.float32), terminated[:-1]]),
+    }
+    return trainers, {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _state_gap(card, cpu) -> dict:
+    """The card trainer's state against the CPU's after the same steps: every
+    parameter (the target critic's too) by its largest gap and by the share
+    of entries within TRAIN_PARAM_ATOL, the worst leaf, and Moments relative
+    to their size."""
+    ours = {k: v.detach().cpu() for k, v in card.agent.state_dict().items()}
+    theirs = cpu.agent.state_dict()
+    gaps = {k: (ours[k] - v).abs() for k, v in theirs.items()}
+    worst_leaf = max(gaps, key=lambda k: float(gaps[k].max()))
+    flat = torch.cat([g.reshape(-1) for g in gaps.values()])
+    moments = max(
+        abs(float(card.moments[k]) - float(cpu.moments[k])) / max(abs(float(cpu.moments[k])), 1e-3)
+        for k in cpu.moments
+    )
+    return {
+        "param_max_abs_gap": float(flat.max()),
+        "param_share_within_atol": float((flat <= TRAIN_PARAM_ATOL).float().mean()),
+        "worst_leaf": worst_leaf,
+        "moments_rel_gap": moments,
+    }
+
+
+def train_step_parity(steps: int = 2) -> dict:
+    """Two gradient steps on the card vs on the CPU at DV3 S width (T=16,
+    B=4): the same weights, batches and noise. Every loss and gradient norm of
+    each step (the second one's are taken at the weights the first update
+    left), then the parameters, the target critic and Moments after the last
+    one: what the card's Adam, clipping, target EMA and Moments did."""
+    T, B = 16, 4
+    trainers, batch = _s_trainers(("gpu", "cpu"), T, B)
+    lr = max(group["lr"] for opt in trainers["cpu"].optimizers.values() for group in opt.param_groups)
+    worst, per_step = 0.0, []
+    for step in range(steps):
+        noise = trainers["cpu"].draw_noise(T, B, torch.Generator().manual_seed(1 + step))
+        metrics = {}
+        for accel, trainer in trainers.items():
+            dev = trainer.device
+            out = trainer.train_step({k: v.to(dev) for k, v in batch.items()}, step,
+                                     {k: v.to(dev) for k, v in noise.items()})
+            metrics[accel] = {k: float(v) for k, v in out.items()}
+        gap = max(abs(metrics["gpu"][k] - v) / max(abs(v), 1e-3) for k, v in metrics["cpu"].items())
+        if not all(math.isfinite(v) for v in metrics["gpu"].values()):
+            raise AssertionError(f"train step {step} on the card: non-finite metrics {metrics['gpu']}")
+        worst = max(worst, gap)
+        per_step.append({"worst_rel_err": gap, "card": metrics["gpu"], "cpu": metrics["cpu"]})
+    state = _state_gap(trainers["gpu"], trainers["cpu"])
+    print(f"[chip-smoke] train steps card vs CPU (T={T}, B={B}, {steps} steps): worst relative err of the "
+          f"metrics {worst} (bar {TRAIN_STEP_RTOL}); state after the last step {json.dumps(state)} (bars: every "
+          f"parameter within {steps} x 2 lr = {steps * 2 * lr:.1e}, a share >= {TRAIN_PARAM_SHARE} within "
+          f"{TRAIN_PARAM_ATOL}, Moments within {TRAIN_STEP_RTOL}); steps {json.dumps(per_step)}", flush=True)
+    if worst > TRAIN_STEP_RTOL:
+        raise AssertionError(f"train steps on the card disagree with the CPU: worst relative err {worst}")
+    if not (state["param_max_abs_gap"] <= steps * 2 * lr and state["param_share_within_atol"] >= TRAIN_PARAM_SHARE
+            and state["moments_rel_gap"] <= TRAIN_STEP_RTOL):
+        raise AssertionError(f"the card's updates disagree with the CPU's: {state}")
+    return {"worst_rel_err": worst, "state": state, "steps": per_step, "T": T, "B": B}
+
+
+def time_train_steps(steps: int = 5) -> tuple:
+    """Seconds per gradient step of DV3 S at the preset's batch (16 x 64), eager,
+    with TF32 as the config's float32 matmul precision sets it. Returns the
+    timing and the warm trainer with its batch, for the profile."""
+    from sheeprl_tpu_torch.parallel.fabric import apply_matmul_precision
+
+    T, B = 64, 16
+    trainers, batch = _s_trainers(("gpu",), T, B, seed=2)
+    trainer = trainers["gpu"]
+    apply_matmul_precision("high")  # the config's float32_matmul_precision
+    batch = {k: v.to(trainer.device) for k, v in batch.items()}
+    generator = torch.Generator(trainer.device).manual_seed(3)
+    for cum in range(2):  # warm-up: cuDNN plans, the allocator
+        trainer.train_step(batch, cum, trainer.draw_noise(T, B, generator))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for cum in range(2, 2 + steps):
+        trainer.train_step(batch, cum, trainer.draw_noise(T, B, generator))
+    torch.cuda.synchronize()
+    out = {"T": T, "B": B, "steps": steps, "seconds_per_gradient_step": (time.perf_counter() - t0) / steps}
+    print(f"[chip-smoke] train step timing: {json.dumps(out)}", flush=True)
+    return out, (trainer, batch, generator)
+
+
+def profile_train_steps(warm: tuple, steps: int = 3) -> dict:
+    """Under torch.profiler (last: it slows later eager launches), the
+    device's busy share of a gradient step, its device time by kernel and the
+    LN-GRU kernel's launches per step by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer, batch, generator = warm
+    T, B = batch["rewards"].shape[:2]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for cum in range(10, 10 + steps):
+            trainer.train_step(batch, cum, trainer.draw_noise(T, B, generator))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    by_kernel, count = {}, {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3 / steps
+            count[ev.name] = count.get(ev.name, 0) + 1
+    device_ms = sum(by_kernel.values())
+    out = {
+        "steps": steps,
+        "step_wall_ms": wall_ms,
+        "step_device_ms": device_ms if device_ms > 0 else None,
+        "device_busy_share": device_ms / wall_ms if device_ms > 0 else None,
+        "kernels_per_step": sum(count.values()) / steps,
+        "top_device_ms": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12],
+        "ln_gru_device_ms": {n: ms for n, ms in by_kernel.items() if "ln_gru" in n},
+        "ln_gru_launches_per_step": {n: c / steps for n, c in count.items() if "ln_gru" in n},
+    }
+    print(f"[chip-smoke] train step profile: {json.dumps(out)}", flush=True)
+    return out
 
 
 def serve_step_parity(ckpt: str) -> dict:
@@ -462,17 +727,31 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         path = main_path(tmp)
         parity = serve_step_parity(path["ckpt"])
+        train = train_path(tmp)
+        train_parity = train_step_parity()
+        train_timing, warm = time_train_steps()
         profile_gru(gru["rows"], device)
         profile = profile_ticks(path["ckpt"])
+        train_timing["profile"] = profile_train_steps(warm)
+        del warm
 
     main_row = next(r for r in gru["rows"] if (r["preset"], r["B"], r["K"], r["H"]) == MAIN_SHAPE)
+    train_rows = [r for r in gru["rows"] if (r["preset"], r["B"], r["K"], r["H"]) in TRAIN_SHAPES]
+    keep = ("B", "K", "H", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err",
+            "grad_max_abs_err", "launches_per_call", "call_ms")
     kernels = [
         {
             "name": LN_GRU.name,
             "route": LN_GRU.route,
             "source": f"sheeprl_tpu_torch/csrc/{LN_GRU.source}",
             "replaces": LN_GRU.replaces,
-            "launches": path["launches"][LN_GRU.name],
+            # the training slice's main path: the first training run
+            "launches": train["train"]["launches"][LN_GRU.name],
+            "launches_by_path": {
+                "serve": path["launches"][LN_GRU.name],
+                **{name: train[name]["launches"][LN_GRU.name] for name in ("train", "resume", "evaluation")},
+            },
+            "train_rows": [{k: r[k] for k in keep} for r in train_rows],
             "max_abs_err": gru["max_abs_err"],
             "ms": main_row["ms"],
             "kernel_ms": main_row["ms"],
@@ -492,6 +771,7 @@ def main() -> int:
             json.dump(
                 {"card": card, "torch": torch.__version__, "gru": gru, "serve": path["summary"],
                  "launches": path["launches"], "serve_parity": parity, "serve_profile": profile,
+                 "train": train, "train_parity": train_parity, "train_timing": train_timing,
                  "kernels": kernels},
                 f, indent=2,
             )

@@ -1,14 +1,21 @@
-"""``python -m sheeprl_tpu_torch <verb> [overrides]``. Verbs: ``serve``."""
+"""``python -m sheeprl_tpu_torch [verb] [overrides]``.
+
+- ``exp=<name> [overrides]`` (no verb): train;
+- ``evaluation checkpoint_path=<ckpt or run dir> [overrides]``: one test episode;
+- ``serve checkpoint_path=<ckpt or run dir> [serve.* overrides]``: serve a policy.
+"""
 
 from __future__ import annotations
 
 import sys
 from typing import List, Optional
 
-USAGE = """usage: python -m sheeprl_tpu_torch serve checkpoint_path=<ckpt or run dir> [serve.* overrides]
+USAGE = """usage:
+  python -m sheeprl_tpu_torch exp=dreamer_v3 env=dummy [overrides]      train
+  python -m sheeprl_tpu_torch evaluation checkpoint_path=<ckpt or run dir>
+  python -m sheeprl_tpu_torch serve checkpoint_path=<ckpt or run dir> [serve.* overrides]
 
-Serves a Dreamer-V3 checkpoint (written by this package or by sheeprl_tpu) on a
-CUDA device; pass fabric.accelerator=cpu to serve on the CPU."""
+Runs on a CUDA device; pass fabric.accelerator=cpu to run on the CPU."""
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -17,6 +24,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(USAGE)
         return 0 if argv else 2
     verb, rest = argv[0], argv[1:]
+    if "=" in verb:
+        from sheeprl_tpu_torch.cli import run
+
+        run(argv)
+        return 0
+    if verb == "evaluation":
+        from sheeprl_tpu_torch.cli import evaluation
+
+        evaluation(rest)
+        return 0
     if verb == "serve":
         if any(a in ("-h", "--help") for a in rest):
             from sheeprl_tpu_torch.serve import main as serve_module

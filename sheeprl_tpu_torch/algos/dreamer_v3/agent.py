@@ -15,10 +15,9 @@ parameters one to one, and checkpoints hold the Flax layout as numpy trees:
   variance 1/fan_avg, and scaled uniform heads), drawn from an explicit
   ``torch.Generator``.
 
-This slice holds the player half (encoder, recurrent model, posterior and prior,
-actor) to parity with the JAX package. ``build_agent`` builds every module —
-decoder, reward, continue, critic and target critic too — so that parameter
-trees and checkpoints are whole.
+The RSSM unrolls (``dynamic_scan`` over the sequence, ``imagination_scan`` over
+the horizon) and ``PlayerDV3`` step the recurrent cell through the LayerNorm-GRU
+op, which is the hand-written kernel on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -28,10 +27,16 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from sheeprl_tpu_torch.models.models import LayerNormGRUCell, resolve_activation
+from sheeprl_tpu_torch.utils.distribution import (
+    Distribution,
+    Independent,
+    Normal,
+    OneHotCategorical,
+    OneHotCategoricalStraightThrough,
+)
 from sheeprl_tpu_torch.utils.utils import symlog
 
 # truncated normal on [-2, 2] standard deviations has this standard deviation
@@ -422,16 +427,38 @@ def stochastic_state(
     """Straight-through sample (``gumbel`` noise, flat like ``logits``) or mode of
     the [..., S, D] categorical stack. Returns flat [..., S*D]."""
     shaped = logits.reshape(*logits.shape[:-1], -1, discrete)
+    dist = OneHotCategoricalStraightThrough(logits=shaped)
     if sample:
         if gumbel is None:
             raise ValueError("stochastic_state(sample=True) needs its Gumbel noise")
-        idx = torch.argmax(shaped + gumbel.reshape(shaped.shape), dim=-1)
-        onehot = F.one_hot(idx, discrete).to(shaped.dtype)
-        probs = torch.softmax(shaped, dim=-1)
-        out = onehot + probs - probs.detach()
+        out = dist.rsample(gumbel.reshape(shaped.shape))
     else:
-        out = F.one_hot(torch.argmax(shaped, dim=-1), discrete).to(shaped.dtype)
+        out = dist.mode
     return out.reshape(*out.shape[:-2], -1)
+
+
+def categorical_kl(post_logits: torch.Tensor, prior_logits: torch.Tensor, discrete: int) -> torch.Tensor:
+    """KL(Cat(post) || Cat(prior)) summed over the stochastic variables; flat
+    [..., S*D] logits in, [...] out."""
+    post = OneHotCategorical(logits=post_logits.reshape(*post_logits.shape[:-1], -1, discrete))
+    prior = OneHotCategorical(logits=prior_logits.reshape(*prior_logits.shape[:-1], -1, discrete))
+    return torch.sum(post.probs * (post.logits - prior.logits), dim=(-2, -1))
+
+
+def actor_dists(agent: "DV3Agent", pre_dist: List[torch.Tensor]) -> List[Distribution]:
+    """The actor heads' distributions from their raw outputs: one
+    independent tanh-mean scaled normal for continuous control, else one
+    straight-through categorical (with uniform mixing) per discrete head."""
+    cfg = agent.actor_cfg
+    if agent.is_continuous:
+        mean, std_raw = torch.chunk(pre_dist[0], 2, dim=-1)
+        std = (cfg["max_std"] - cfg["min_std"]) * torch.sigmoid(std_raw + cfg["init_std"]) + cfg["min_std"]
+        return [Independent(Normal(torch.tanh(mean), std), 1)]
+    unimix = cfg.get("unimix", 0.01)
+    return [
+        OneHotCategoricalStraightThrough(logits=unimix_logits(logits, logits.shape[-1], unimix))
+        for logits in pre_dist
+    ]
 
 
 def actor_sample(
@@ -441,39 +468,54 @@ def actor_sample(
     greedy: bool = False,
 ) -> torch.Tensor:
     """Concatenated actions from the raw actor outputs (one-hot blocks for
-    discrete dims, clipped tanh-mean scaled normal for continuous control).
+    discrete dims, the clipped sample of the normal for continuous control).
 
     ``noise`` is standard normal noise of the action's shape (continuous) or
     Gumbel noise of the concatenated logits' shape (discrete); greedy sampling
     takes none."""
-    cfg = agent.actor_cfg
+    dists = actor_dists(agent, pre_dist)
     if agent.is_continuous:
-        mean, std_raw = torch.chunk(pre_dist[0], 2, dim=-1)
-        mean = torch.tanh(mean)
-        std = (cfg["max_std"] - cfg["min_std"]) * torch.sigmoid(std_raw + cfg["init_std"]) + cfg[
-            "min_std"
-        ]
-        actions = mean if greedy else mean + std * noise
-        clip = cfg.get("action_clip", 1.0)
+        actions = dists[0].mode if greedy else dists[0].rsample(noise)
+        clip = agent.actor_cfg.get("action_clip", 1.0)
         if clip and clip > 0:
             limit = torch.full_like(actions, clip)
             scale = limit / torch.maximum(limit, torch.abs(actions))
             actions = actions * scale.detach()
         return actions
-    if not greedy and noise is None:
+    if greedy:
+        return torch.cat([dist.mode for dist in dists], dim=-1)
+    if noise is None:
         raise ValueError("actor_sample: sampled discrete actions need their Gumbel noise")
-    gumbels = None if greedy else torch.split(noise, [p.shape[-1] for p in pre_dist], dim=-1)
-    outs = []
-    for i, logits in enumerate(pre_dist):
-        logits = unimix_logits(logits, logits.shape[-1], cfg.get("unimix", 0.01))
-        if greedy:
-            outs.append(F.one_hot(torch.argmax(logits, dim=-1), logits.shape[-1]).to(logits.dtype))
-        else:
-            idx = torch.argmax(logits + gumbels[i], dim=-1)
-            onehot = F.one_hot(idx, logits.shape[-1]).to(logits.dtype)
-            probs = torch.softmax(logits, dim=-1)
-            outs.append(onehot + probs - probs.detach())
-    return torch.cat(outs, dim=-1)
+    gumbels = torch.split(noise, [p.shape[-1] for p in pre_dist], dim=-1)
+    return torch.cat([dist.rsample(g) for dist, g in zip(dists, gumbels)], dim=-1)
+
+
+def draw_actor_noise(
+    agent: "DV3Agent", shape: Sequence[int], generator: Optional[torch.Generator], device
+) -> torch.Tensor:
+    """Noise for :func:`actor_sample` over ``shape`` leading dims: one normal
+    draw per continuous action, one Gumbel draw per logit of the discrete heads."""
+    size = (*shape, int(np.sum(agent.actions_dim)))
+    if agent.is_continuous:
+        return torch.randn(size, device=device, generator=generator)
+    return draw_gumbel(size, generator, device)
+
+
+def draw_gumbel(shape: Sequence[int], generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """Standard Gumbel noise: ``argmax(logits + g)`` is a categorical draw."""
+    u = torch.rand(tuple(shape), device=device, generator=generator)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+
+
+def actor_logprob_entropy(
+    agent: "DV3Agent", pre_dist: List[torch.Tensor], actions: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Log-prob of the concatenated ``actions`` under the actor heads, [..., 1],
+    and the heads' total entropy, [...]."""
+    dists = actor_dists(agent, pre_dist)
+    blocks = [actions] if agent.is_continuous else torch.split(actions, list(agent.actions_dim), dim=-1)
+    lp = torch.stack([dist.log_prob(act) for dist, act in zip(dists, blocks)], dim=-1).sum(dim=-1, keepdim=True)
+    return lp, torch.stack([dist.entropy() for dist in dists], dim=-1).sum(dim=-1)
 
 
 # ---------------------------------------------------------------------------------
@@ -536,9 +578,7 @@ class DV3Agent(nn.Module):
         if not self.learnable_initial_recurrent_state:
             w = w.detach()
         h0 = torch.tanh(w).expand(*batch_shape, self.recurrent_state_size)
-        prior_logits = self.world_model["transition_model"](h0)
-        prior_logits = unimix_logits(prior_logits, self.discrete_size, self.unimix)
-        z0 = stochastic_state(prior_logits, self.discrete_size, sample=False)
+        z0 = stochastic_state(self._prior_logits(h0), self.discrete_size, sample=False)
         return h0, z0
 
     def _representation(
@@ -550,12 +590,168 @@ class DV3Agent(nn.Module):
         return logits, stochastic_state(logits, self.discrete_size, gumbel)
 
     def _transition(self, h: torch.Tensor, gumbel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        logits = self.world_model["transition_model"](h)
-        logits = unimix_logits(logits, self.discrete_size, self.unimix)
+        logits = self._prior_logits(h)
         return logits, stochastic_state(logits, self.discrete_size, gumbel)
 
     def _recurrent(self, z: torch.Tensor, a: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         return self.world_model["recurrent_model"](torch.cat([z, a], dim=-1), h)
+
+    def _prior_logits(self, h: torch.Tensor) -> torch.Tensor:
+        logits = self.world_model["transition_model"](h)
+        return unimix_logits(logits, self.discrete_size, self.unimix)
+
+    def dynamic_scan(
+        self,
+        embedded: torch.Tensor,
+        actions: torch.Tensor,
+        is_first: torch.Tensor,
+        gumbel: torch.Tensor,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Posterior/prior unroll over the sequence: a Python loop over T whose
+        recurrent step is the LayerNorm-GRU kernel on a CUDA tensor.
+
+        ``embedded`` [T, B, E], ``actions`` [T, B, A] (the action that led to
+        each observation), ``is_first`` [T, B, 1], ``gumbel`` [T, B, S*D] the
+        posterior samples' noise. Returns (recurrent states, posteriors,
+        posterior logits, prior logits), time-major, stochastic states flat."""
+        T, B = embedded.shape[:2]
+        h0, z0 = self.initial_state((B,))
+        h = torch.zeros((B, self.recurrent_state_size), dtype=embedded.dtype, device=embedded.device)
+        z = torch.zeros((B, self.stoch_state_size), dtype=embedded.dtype, device=embedded.device)
+        actions = actions.to(embedded.dtype)
+        is_first = is_first.to(embedded.dtype)
+        if self.decoupled_rssm:
+            # the posterior reads the observation alone: all T at once
+            post_all, z_all = self._representation(h0, embedded, gumbel)
+        hs, zs, posts, priors = [], [], [], []
+        for t in range(T):
+            first = is_first[t]
+            a = (1 - first) * actions[t]
+            # masked arithmetic gives fresh contiguous rows, never h0's stride-0 view
+            h = ((1 - first) * h + first * h0).contiguous()
+            z = (1 - first) * z + first * z0
+            h = self._recurrent(z, a, h)
+            priors.append(self._prior_logits(h))
+            if self.decoupled_rssm:
+                post, z = post_all[t], z_all[t]
+            else:
+                post, z = self._representation(h, embedded[t], gumbel[t])
+            hs.append(h)
+            zs.append(z)
+            posts.append(post)
+        return torch.stack(hs), torch.stack(zs), torch.stack(posts), torch.stack(priors)
+
+    def imagination_scan(
+        self,
+        z0: torch.Tensor,
+        h0: torch.Tensor,
+        horizon: int,
+        transition_noise: torch.Tensor,
+        action_noise: torch.Tensor,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Latent imagination from ``z0`` [N, S*D] and ``h0`` [N, H]: the actor
+        acts on detached latents while gradients flow through the dynamics
+        (the continuous-control pathwise objective needs them).
+        ``transition_noise`` [horizon, N, S*D] is the prior samples' Gumbel
+        noise, ``action_noise`` [horizon + 1, N, A] the actor's. Returns
+        (latents [horizon+1, N, L], actions [horizon+1, N, A])."""
+        latent = torch.cat([z0, h0], dim=-1)
+        a = actor_sample(self, self.actor(latent.detach()), action_noise[0])
+        latents, actions = [latent], [a]
+        z, h = z0, h0.contiguous()
+        for t in range(horizon):
+            h = self._recurrent(z, a, h)
+            _, z = self._transition(h, transition_noise[t])
+            latent = torch.cat([z, h], dim=-1)
+            a = actor_sample(self, self.actor(latent.detach()), action_noise[t + 1])
+            latents.append(latent)
+            actions.append(a)
+        return torch.stack(latents), torch.stack(actions)
+
+
+def player_step(
+    agent: DV3Agent,
+    obs: Dict[str, torch.Tensor],
+    action: torch.Tensor,
+    h: torch.Tensor,
+    z: torch.Tensor,
+    repr_noise: torch.Tensor,
+    action_noise: Optional[torch.Tensor],
+    greedy: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One acting step over a batch of normalized observations: encoder,
+    recurrent step, posterior sample, actor. Returns (actions, h, z)."""
+    embedded = agent.encoder(obs)
+    h = agent._recurrent(z, action, h)
+    _, z = agent._representation(h, embedded, repr_noise)
+    pre = agent.actor(torch.cat([z, h], dim=-1))
+    return actor_sample(agent, pre, action_noise, greedy=greedy), h, z
+
+
+class PlayerDV3:
+    """The env-interaction wrapper: holds each env's carry (previous action,
+    recurrent and stochastic state) and steps every env at once.
+
+    ``get_actions`` takes the posterior's Gumbel noise and the actor's noise as
+    arguments, or draws them from ``generator``."""
+
+    def __init__(self, agent: DV3Agent, num_envs: int, cnn_keys: Sequence[str], mlp_keys: Sequence[str]):
+        self.agent = agent
+        self.num_envs = num_envs
+        self.cnn_keys = tuple(cnn_keys)
+        self.mlp_keys = tuple(mlp_keys)
+        self.actions: Optional[torch.Tensor] = None
+        self.recurrent_state: Optional[torch.Tensor] = None
+        self.stochastic_state: Optional[torch.Tensor] = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.agent.initial_recurrent_state.device
+
+    @torch.no_grad()
+    def init_states(self, reset_envs: Optional[Sequence[int]] = None) -> None:
+        """A full reset (``reset_envs`` empty or None, or no state yet), or a
+        reset of the listed envs, as a ``where`` over a mask."""
+        h0, z0 = self.agent.initial_state((self.num_envs,))
+        if reset_envs is None or len(reset_envs) == 0 or self.actions is None:
+            act_dim = int(np.sum(self.agent.actions_dim))
+            self.actions = torch.zeros((self.num_envs, act_dim), dtype=torch.float32, device=self.device)
+            # h0 is a stride-0 view of one row: the kernel takes contiguous rows
+            self.recurrent_state = h0.contiguous()
+            self.stochastic_state = z0
+            return
+        mask = torch.zeros((self.num_envs, 1), dtype=torch.float32)
+        mask[torch.as_tensor(list(reset_envs), dtype=torch.long)] = 1.0
+        m = mask.to(self.device) > 0
+        self.actions = self.actions * (~m).to(self.actions.dtype)
+        self.recurrent_state = torch.where(m, h0, self.recurrent_state)
+        self.stochastic_state = torch.where(m, z0, self.stochastic_state)
+
+    @torch.no_grad()
+    def get_actions(
+        self,
+        obs: Dict[str, torch.Tensor],
+        noise: Optional[Dict[str, torch.Tensor]] = None,
+        greedy: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        if noise is None:
+            n = self.num_envs
+            noise = {"repr": draw_gumbel((n, self.agent.stoch_state_size), generator, self.device)}
+            if not greedy:
+                noise["act"] = draw_actor_noise(self.agent, (n,), generator, self.device)
+        actions, self.recurrent_state, self.stochastic_state = player_step(
+            self.agent,
+            obs,
+            self.actions,
+            self.recurrent_state,
+            self.stochastic_state,
+            noise["repr"],
+            None if greedy else noise["act"],
+            greedy,
+        )
+        self.actions = actions
+        return actions
 
 
 def build_agent(

@@ -15,11 +15,11 @@ from typing import Any, Dict, Sequence, Tuple
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.algos.dreamer_v3.agent import DV3Agent, actor_sample, build_agent
+from sheeprl_tpu_torch.algos.dreamer_v3.agent import DV3Agent, build_agent, player_step
 from sheeprl_tpu_torch.envs import spaces
+from sheeprl_tpu_torch.envs.spaces import action_space_dims
 from sheeprl_tpu_torch.serve.policy import NoiseSpec, ServePolicy, space_obs_spec
 from sheeprl_tpu_torch.utils.env import make_env
-from sheeprl_tpu_torch.utils.registry import register_serve_policy
 
 
 def dv3_init_slots(agent: DV3Agent, n: int) -> Dict[str, torch.Tensor]:
@@ -59,11 +59,9 @@ def dv3_step_slots(
         else:
             norm[k] = v.reshape(S, -1)
     with torch.no_grad():
-        embedded = agent.encoder(norm)
-        h = agent._recurrent(carry["z"], carry["action"], carry["h"])
-        _, z = agent._representation(h, embedded, noise["repr"])
-        pre = agent.actor(torch.cat([z, h], dim=-1))
-        actions = actor_sample(agent, pre, noise.get("act"), greedy=greedy)
+        actions, h, z = player_step(
+            agent, norm, carry["action"], carry["h"], carry["z"], noise["repr"], noise.get("act"), greedy
+        )
     if agent.is_continuous:
         env_action = actions.reshape(S, *action_shape)
     else:
@@ -76,18 +74,6 @@ def dv3_step_slots(
     return env_action, {"action": actions, "h": h, "z": z}
 
 
-def action_space_dims(action_space) -> Tuple[Tuple[int, ...], bool]:
-    """(actions_dim, is_continuous) of a Box / Discrete / MultiDiscrete space."""
-    if isinstance(action_space, spaces.Box):
-        return tuple(int(s) for s in action_space.shape), True
-    if isinstance(action_space, spaces.MultiDiscrete):
-        return tuple(int(n) for n in action_space.nvec.tolist()), False
-    if isinstance(action_space, spaces.Discrete):
-        return (int(action_space.n),), False
-    raise NotImplementedError(f"action space {action_space!r} is not supported")
-
-
-@register_serve_policy(algorithms=["dreamer_v3", "dreamer_v3_decoupled"])
 def get_serve_policy(fabric, cfg: Dict[str, Any], state: Dict[str, Any]) -> ServePolicy:
     env = make_env(cfg, cfg.seed, 0, None, "serve-probe")()
     observation_space = env.observation_space

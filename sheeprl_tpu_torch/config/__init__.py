@@ -4,6 +4,8 @@ from sheeprl_tpu_torch.config.composer import (
     MissingMandatoryValue,
     compose,
     deep_merge,
+    explicit_overrides,
+    repoint_targets,
     yaml_load,
 )
 from sheeprl_tpu_torch.config.dotdict import dotdict, get_by_path, set_by_path
@@ -15,6 +17,8 @@ __all__ = [
     "MissingMandatoryValue",
     "compose",
     "deep_merge",
+    "explicit_overrides",
+    "repoint_targets",
     "yaml_load",
     "dotdict",
     "get_by_path",

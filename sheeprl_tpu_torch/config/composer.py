@@ -435,3 +435,27 @@ def compose(
     extra_dirs: Optional[Sequence[os.PathLike]] = None,
 ) -> dotdict:
     return Composer(extra_dirs).compose(overrides, config_name)
+
+
+def repoint_targets(node: Any) -> Any:
+    """``_target_``/``cls`` paths of the JAX package -> the port's modules (a
+    config.yaml the JAX package wrote, read by the port)."""
+    if isinstance(node, dict):
+        out = {}
+        for k, v in node.items():
+            if k in ("_target_", "cls") and isinstance(v, str) and v.startswith("sheeprl_tpu."):
+                v = "sheeprl_tpu_torch." + v[len("sheeprl_tpu.") :]
+            out[k] = repoint_targets(v)
+        return out
+    if isinstance(node, list):
+        return [repoint_targets(v) for v in node]
+    return node
+
+
+def explicit_overrides(overrides: Sequence[str]) -> Dict[str, Any]:
+    """The dotted key -> parsed value map of the explicit value overrides
+    (``a.b=c`` and ``+a.b=c``; group selections and deletions excluded)."""
+    _, dotted, additions, _ = Composer()._split_overrides(overrides)
+    merged = dict(dotted)
+    merged.update(additions)
+    return merged

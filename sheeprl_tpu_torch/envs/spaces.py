@@ -1,6 +1,6 @@
 """Small observation/action space classes (the subset of ``gymnasium.spaces`` the
-port's environments use: shapes, dtypes, bounds), so the serving path needs no
-gymnasium."""
+port's environments use: shapes, dtypes, bounds, uniform sampling), so the port
+needs no gymnasium."""
 
 from __future__ import annotations
 
@@ -13,6 +13,9 @@ class Space:
     shape: Tuple[int, ...] = ()
     dtype: np.dtype = np.dtype(np.float32)
 
+    def sample(self, rng: np.random.Generator):
+        raise NotImplementedError(f"{type(self).__name__}.sample")
+
 
 class Box(Space):
     def __init__(self, low, high, shape: Optional[Sequence[int]] = None, dtype=np.float32) -> None:
@@ -22,6 +25,10 @@ class Box(Space):
         self.shape = tuple(int(s) for s in shape)
         self.low = np.broadcast_to(np.asarray(low, self.dtype), self.shape).copy()
         self.high = np.broadcast_to(np.asarray(high, self.dtype), self.shape).copy()
+
+    def sample(self, rng: np.random.Generator) -> np.ndarray:
+        """Uniform over the bounds (both must be finite)."""
+        return rng.uniform(self.low, self.high).astype(self.dtype)
 
     def __repr__(self) -> str:
         return f"Box({self.shape}, {self.dtype})"
@@ -33,6 +40,9 @@ class Discrete(Space):
         self.shape = ()
         self.dtype = np.dtype(np.int64)
 
+    def sample(self, rng: np.random.Generator) -> np.int64:
+        return np.int64(rng.integers(self.n))
+
     def __repr__(self) -> str:
         return f"Discrete({self.n})"
 
@@ -42,6 +52,9 @@ class MultiDiscrete(Space):
         self.nvec = np.asarray(nvec, dtype=np.int64)
         self.shape = tuple(self.nvec.shape)
         self.dtype = np.dtype(np.int64)
+
+    def sample(self, rng: np.random.Generator) -> np.ndarray:
+        return rng.integers(self.nvec).astype(self.dtype)
 
     def __repr__(self) -> str:
         return f"MultiDiscrete({self.nvec.tolist()})"
@@ -65,3 +78,14 @@ class Dict(Space):
 
     def __repr__(self) -> str:
         return f"Dict({self.spaces})"
+
+
+def action_space_dims(action_space: Space) -> Tuple[Tuple[int, ...], bool]:
+    """(actions_dim, is_continuous) of a Box / Discrete / MultiDiscrete space."""
+    if isinstance(action_space, Box):
+        return tuple(int(s) for s in action_space.shape), True
+    if isinstance(action_space, MultiDiscrete):
+        return tuple(int(n) for n in action_space.nvec.tolist()), False
+    if isinstance(action_space, Discrete):
+        return (int(action_space.n),), False
+    raise NotImplementedError(f"action space {action_space!r} is not supported")

@@ -58,20 +58,6 @@ SERVE_DEFAULTS: Dict[str, Any] = {
 }
 
 
-def _repoint_targets(node: Any) -> Any:
-    """``_target_``/``cls`` paths of the JAX package -> the port's modules."""
-    if isinstance(node, dict):
-        out = {}
-        for k, v in node.items():
-            if k in ("_target_", "cls") and isinstance(v, str) and v.startswith("sheeprl_tpu."):
-                v = "sheeprl_tpu_torch." + v[len("sheeprl_tpu.") :]
-            out[k] = _repoint_targets(v)
-        return out
-    if isinstance(node, list):
-        return [_repoint_targets(v) for v in node]
-    return node
-
-
 def _check_unported(cfg) -> None:
     serve = cfg.serve
     unported = []
@@ -100,7 +86,7 @@ def build_serve_cfg(overrides: Sequence[str]):
     the dotdict cfg with ``checkpoint_path`` resolved and ``serve`` populated."""
     import yaml
 
-    from sheeprl_tpu_torch.config import dotdict, set_by_path, yaml_load
+    from sheeprl_tpu_torch.config import dotdict, repoint_targets, set_by_path, yaml_load
     from sheeprl_tpu_torch.resilience.discovery import resolve_checkpoint_path
 
     kv = dict(o.split("=", 1) for o in overrides if "=" in o)
@@ -114,7 +100,7 @@ def build_serve_cfg(overrides: Sequence[str]):
     if not cfg_path.is_file():
         raise ValueError(f"cannot serve {ckpt_path}: no config.yaml found next to the checkpoint")
     with open(cfg_path) as f:
-        base = _repoint_targets(yaml.safe_load(f))
+        base = repoint_targets(yaml.safe_load(f))
     # serving is single-controller, one env worth of obs per session
     base["env"]["num_envs"] = 1
     base["env"]["capture_video"] = False

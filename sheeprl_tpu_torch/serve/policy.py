@@ -104,15 +104,6 @@ def space_obs_spec(observation_space, obs_keys: Sequence[str]) -> Dict[str, ObsS
 def resolve_serve_policy(fabric, cfg, state) -> ServePolicy:
     """Build ``cfg.algo.name``'s serving policy; raises with the served set when
     the family has none."""
-    import importlib
+    from sheeprl_tpu_torch.utils.registry import SERVE_POLICIES, load_entrypoint
 
-    from sheeprl_tpu_torch.utils.registry import SERVE_MODULES, get_serve
-
-    entry = get_serve(cfg.algo.name)
-    if entry is None:
-        raise ValueError(
-            f"no serving policy for algorithm {cfg.algo.name!r} in the port; "
-            f"available: {', '.join(sorted(SERVE_MODULES))}"
-        )
-    module = importlib.import_module(entry["module"])
-    return getattr(module, entry["entrypoint"])(fabric, cfg, state)
+    return load_entrypoint(SERVE_POLICIES, cfg.algo.name, "serving policy")(fabric, cfg, state)

@@ -9,11 +9,18 @@ committed by rename and paired with a ``<path>.sha256`` integrity sidecar.
 jax, flax or optax: its unpickler admits numpy and a few builtins, maps every
 class from ``jax``, ``jaxlib``, ``flax``, ``optax``, ``chex``, ``orbax`` and
 ``sheeprl_tpu`` (optimizer states, replay buffers) to an inert placeholder, and
-refuses anything else. Only ``state["agent"]`` is used by the port.
+refuses anything else but the port's own replay buffers. Of a JAX package's
+checkpoint the port uses ``state["agent"]`` only.
+
+:func:`save_run_checkpoint` is the training loop's checkpoint: the replay
+buffer rides along with its last rows marked truncated (so a resumed run never
+joins an episode across the gap), and only the newest ``keep_last``
+checkpoints stay.
 """
 
 from __future__ import annotations
 
+import glob
 import hashlib
 import io
 import os
@@ -120,9 +127,23 @@ def _numpy_admitted(module: str, name: str) -> bool:
     return False
 
 
+# what a pickled replay buffer of the port holds besides arrays: the buffer
+# classes, disk-backed arrays, their paths and numpy's random generators
+_PORT_CLASSES = {
+    "sheeprl_tpu_torch.data.buffers": ("ReplayBuffer", "SequentialReplayBuffer", "EnvIndependentReplayBuffer"),
+    "sheeprl_tpu_torch.utils.memmap": ("MemmapArray",),
+    "pathlib": ("Path", "PosixPath", "PurePosixPath"),
+    "numpy.random._pickle": ("__generator_ctor", "__bit_generator_ctor"),
+    "numpy.random._pcg64": ("PCG64",),
+    "numpy.random.bit_generator": ("__pyx_unpickle_SeedSequence", "SeedSequence"),
+}
+
+
 class _CheckpointUnpickler(pickle.Unpickler):
     def find_class(self, module: str, name: str) -> Any:
         root = module.split(".")[0]
+        if name in _PORT_CLASSES.get(module, ()):
+            return super().find_class(module, name)
         if root == "numpy" and _numpy_admitted(module, name):
             return super().find_class(module, name)
         if module == "builtins" and name in _BUILTINS:
@@ -143,3 +164,56 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     with open(path, "rb") as f:
         data = f.read()
     return _CheckpointUnpickler(io.BytesIO(data)).load()
+
+
+def _mark_last_rows_truncated(rb) -> list:
+    """Set terminated and truncated on each sub-buffer's newest row; returns
+    the flags they had."""
+    saved = []
+    for b in rb.buffer:
+        if b.empty:
+            saved.append(None)
+            continue
+        last = (b._pos - 1) % b.buffer_size
+        saved.append((b["terminated"][last].copy(), b["truncated"][last].copy()))
+        b["terminated"][last] = 1
+        b["truncated"][last] = 1
+    return saved
+
+
+def _restore_last_rows(rb, saved: list) -> None:
+    for b, flags in zip(rb.buffer, saved):
+        if flags is None:
+            continue
+        terminated, truncated = flags
+        last = (b._pos - 1) % b.buffer_size
+        b["terminated"][last] = terminated
+        b["truncated"][last] = truncated
+
+
+def _delete_old_checkpoints(folder: str, keep_last: int, live: str) -> None:
+    if not keep_last:
+        return
+    live = os.path.abspath(live)
+    others = [c for c in sorted(glob.glob(os.path.join(folder, "*.ckpt")), key=os.path.getmtime)
+              if os.path.abspath(c) != live]
+    for stale in others[: max(0, len(others) - (keep_last - 1))]:
+        for path in (stale, stale + SHA_SIDECAR_SUFFIX):
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+
+
+def save_run_checkpoint(path: str, state: Dict[str, Any], replay_buffer=None, keep_last: int = 0) -> None:
+    """Write a training checkpoint (``state`` plus ``rb`` when a replay buffer
+    is given) and keep the newest ``keep_last`` in its folder (0 keeps all)."""
+    if replay_buffer is not None:
+        saved = _mark_last_rows_truncated(replay_buffer)
+        try:
+            save_checkpoint(path, {**state, "rb": replay_buffer})
+        finally:
+            _restore_last_rows(replay_buffer, saved)
+    else:
+        save_checkpoint(path, state)
+    _delete_old_checkpoints(os.path.dirname(path), keep_last, path)

@@ -1,43 +1,32 @@
-"""Serving-policy registry (port of the serve half of ``sheeprl_tpu/utils/registry.py``).
+"""Algorithm, evaluation and serving entry points (port of
+``sheeprl_tpu/utils/registry.py``).
 
-``register_serve_policy`` records (module, entrypoint) per algorithm name; the
-serve verb imports the module by name only when that algorithm is served, so
-importing the package loads no algorithm."""
+One table per verb maps an algorithm name to the module and function that run
+it. The CLI imports a module only when its algorithm is used, so importing the
+package loads no algorithm."""
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Sequence
+import importlib
+from typing import Callable, Dict, Tuple
 
-# algo name -> [{"module": str, "entrypoint": str, "name": str}]
-serve_registry: Dict[str, List[Dict[str, Any]]] = {}
+_DV3 = "sheeprl_tpu_torch.algos.dreamer_v3"
+_DV3_NAMES = ("dreamer_v3", "dreamer_v3_decoupled")
 
-# algorithms whose serving extractor the port has, and the module holding it
-SERVE_MODULES: Dict[str, str] = {
-    "dreamer_v3": "sheeprl_tpu_torch.algos.dreamer_v3.serve",
-    "dreamer_v3_decoupled": "sheeprl_tpu_torch.algos.dreamer_v3.serve",
-}
-
-
-def register_serve_policy(algorithms: Sequence[str]) -> Callable:
-    """Register a family's ``get_serve_policy(fabric, cfg, state)`` extractor."""
-
-    def wrap(fn: Callable) -> Callable:
-        algos = [algorithms] if isinstance(algorithms, str) else list(algorithms)
-        for algo in algos:
-            regs = serve_registry.setdefault(algo, [])
-            entry = {"module": fn.__module__, "entrypoint": fn.__name__, "name": algo}
-            if entry not in regs:
-                regs.append(entry)
-        return fn
-
-    return wrap
+# the training loop ``main(fabric, cfg)``
+ALGORITHMS: Dict[str, Tuple[str, str]] = {"dreamer_v3": (f"{_DV3}.dreamer_v3", "main")}
+# ``evaluate(fabric, cfg, state)``
+EVALUATIONS: Dict[str, Tuple[str, str]] = {name: (f"{_DV3}.evaluate", "evaluate") for name in _DV3_NAMES}
+# the family's ``get_serve_policy(fabric, cfg, state)`` extractor
+SERVE_POLICIES: Dict[str, Tuple[str, str]] = {name: (f"{_DV3}.serve", "get_serve_policy") for name in _DV3_NAMES}
 
 
-def get_serve(name: str) -> Optional[Dict[str, Any]]:
-    """The registered extractor for ``name``, importing its module on demand."""
-    if name not in serve_registry and name in SERVE_MODULES:
-        import importlib
-
-        importlib.import_module(SERVE_MODULES[name])
-    regs = serve_registry.get(name)
-    return regs[0] if regs else None
+def load_entrypoint(table: Dict[str, Tuple[str, str]], name: str, what: str) -> Callable:
+    """The function ``table`` names for algorithm ``name``, importing its
+    module; raises with the ported set when there is none."""
+    if name not in table:
+        raise ValueError(
+            f"no {what} for algorithm {name!r} in sheeprl_tpu_torch; available: {', '.join(sorted(table))}"
+        )
+    module, entrypoint = table[name]
+    return getattr(importlib.import_module(module), entrypoint)

@@ -1,6 +1,12 @@
-"""Shared math (port of the parts of ``sheeprl_tpu/utils/utils.py`` the slice uses)."""
+"""Shared math and run helpers (port of the parts of ``sheeprl_tpu/utils/utils.py``
+that Dreamer-V3 uses): symlog/symexp, two-hot encoding, λ-returns, the
+replay-ratio governor and the run's config dump."""
 
 from __future__ import annotations
+
+import os
+import warnings
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 
@@ -9,3 +15,113 @@ def symlog(x: torch.Tensor) -> torch.Tensor:
     """Dreamer-V3 eq. 10: sign(x) * log(1 + |x|)."""
     return torch.sign(x) * torch.log1p(torch.abs(x))
 
+
+def symexp(x: torch.Tensor) -> torch.Tensor:
+    return torch.sign(x) * torch.expm1(torch.abs(x))
+
+
+def two_hot_encoder(x: torch.Tensor, support_range: int = 300, num_buckets: Optional[int] = None) -> torch.Tensor:
+    """Encode scalars (..., 1) into two-hot vectors (..., num_buckets) over the
+    linear support [-support_range, support_range]."""
+    if x.ndim == 0:
+        x = x[None]
+    if num_buckets is None:
+        num_buckets = support_range * 2 + 1
+    if num_buckets % 2 == 0:
+        raise ValueError("support_size must be odd")
+    x = torch.clamp(x, -support_range, support_range)
+    buckets = torch.linspace(-support_range, support_range, num_buckets, dtype=x.dtype, device=x.device)
+    bucket_size = (buckets[1] - buckets[0]) if num_buckets > 1 else torch.ones((), dtype=x.dtype, device=x.device)
+
+    right_idxs = torch.searchsorted(buckets, x.contiguous(), side="left")
+    left_idxs = torch.clamp(right_idxs - 1, 0, num_buckets - 1)
+    right_idxs = torch.clamp(right_idxs, 0, num_buckets - 1)
+
+    left_value = torch.abs(buckets[right_idxs] - x) / bucket_size
+    right_value = 1.0 - left_value
+
+    left_oh = torch.nn.functional.one_hot(left_idxs[..., 0], num_buckets).to(x.dtype)
+    right_oh = torch.nn.functional.one_hot(right_idxs[..., 0], num_buckets).to(x.dtype)
+    return left_oh * left_value + right_oh * right_value
+
+
+def two_hot_decoder(t: torch.Tensor, support_range: int) -> torch.Tensor:
+    num_buckets = t.shape[-1]
+    if num_buckets % 2 == 0:
+        raise ValueError("support_size must be odd")
+    support = torch.linspace(-support_range, support_range, num_buckets, dtype=t.dtype, device=t.device)
+    return torch.sum(t * support, dim=-1, keepdim=True)
+
+
+def compute_lambda_values(
+    rewards: torch.Tensor,
+    values: torch.Tensor,
+    continues: torch.Tensor,
+    lmbda: float = 0.95,
+) -> torch.Tensor:
+    """TD(λ) returns over an imagined trajectory:
+    ``ret[t] = r[t] + c[t] * ((1-λ) v[t] + λ ret[t+1])``, the carry starting at
+    ``v[T-1]``. Callers pass the inputs already shifted (rewards[1:],
+    values[1:], continues[1:] * gamma). Accumulated in float32 whatever the
+    inputs' dtype."""
+    rewards = rewards.float()
+    values = values.float()
+    continues = continues.float()
+    interm = rewards + continues * values * (1 - lmbda)
+    ret = values[-1]
+    out = []
+    for t in range(rewards.shape[0] - 1, -1, -1):
+        ret = interm[t] + continues[t] * lmbda * ret
+        out.append(ret)
+    return torch.stack(out[::-1], dim=0)
+
+
+class Ratio:
+    """Replay-ratio governor: how many gradient steps to run for the env steps
+    taken since the last call."""
+
+    def __init__(self, ratio: float, pretrain_steps: int = 0):
+        if pretrain_steps < 0:
+            raise ValueError(f"'pretrain_steps' must be non-negative, got {pretrain_steps}")
+        if ratio < 0:
+            raise ValueError(f"'ratio' must be non-negative, got {ratio}")
+        self._pretrain_steps = pretrain_steps
+        self._ratio = ratio
+        self._prev: Optional[float] = None
+
+    def __call__(self, step: int) -> int:
+        if self._ratio == 0:
+            return 0
+        if self._prev is None:
+            self._prev = step
+            repeats = int(step * self._ratio)
+            if self._pretrain_steps > 0:
+                if step < self._pretrain_steps:
+                    warnings.warn(
+                        "The number of pretrain steps is greater than the number of current steps. "
+                        f"This could lead to a higher ratio than the one specified ({self._ratio}). "
+                        "Setting the 'pretrain_steps' equal to the number of current steps."
+                    )
+                    self._pretrain_steps = step
+                repeats = int(self._pretrain_steps * self._ratio)
+            return repeats
+        repeats = int((step - self._prev) * self._ratio)
+        self._prev += repeats / self._ratio
+        return repeats
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"_ratio": self._ratio, "_prev": self._prev, "_pretrain_steps": self._pretrain_steps}
+
+    def load_state_dict(self, state: Mapping[str, Any]) -> "Ratio":
+        self._ratio = state["_ratio"]
+        self._prev = state["_prev"]
+        self._pretrain_steps = state["_pretrain_steps"]
+        return self
+
+
+def save_configs(cfg, log_dir: str) -> None:
+    import yaml
+
+    os.makedirs(log_dir, exist_ok=True)
+    with open(os.path.join(log_dir, "config.yaml"), "w") as f:
+        yaml.safe_dump(cfg.as_dict(), f, sort_keys=False)

@@ -171,3 +171,135 @@ def test_serve_verb_runs_on_the_card_by_default(cuda, tmp_path):
     summary = json.loads((tmp_path / "log" / "summary.json").read_text())
     assert summary["device"] == torch.cuda.get_device_name(0)
     assert summary["sessions_completed"] == 2
+
+
+# ---------------------------------------------------------------------------------
+# the training slice on the card: the scans, the player and a gradient step at
+# DV3 S width, each held against the same function on the CPU (the plain
+# LN-GRU math) from the same weights and noise, TF32 off. The recurrent state
+# goes through several steps of cuDNN/cuBLAS and the kernel against the CPU's
+# kernels, sums in other orders: 1e-3.
+# ---------------------------------------------------------------------------------
+CARD_ATOL = 1e-3
+
+
+def _s_agents(cuda, extra=()):
+    """The DV3 S agent (random weights from a seed) on the CPU and a copy on the card."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.interop.flax_to_torch import agent_to_flax
+    from sheeprl_tpu_torch.parallel.fabric import Fabric
+    from sheeprl_tpu_torch.utils.env import make_env
+
+    cfg = compose(["exp=dreamer_v3", "env=dummy", "algo.cnn_keys.encoder=[rgb]", "algo.mlp_keys.encoder=[state]",
+                   "env.capture_video=False", *extra])
+    space = make_env(cfg, 0, 0)().observation_space
+    cpu = build_agent(Fabric(accelerator="cpu", float32_matmul_precision="highest"), (2,), False, cfg, space, 3)
+    card = build_agent(Fabric(accelerator="gpu", float32_matmul_precision="highest"), (2,), False, cfg, space, 3,
+                       agent_to_flax(cpu))
+    return cpu, card, cfg
+
+
+def _on(tensors, device):
+    return [t.to(device) for t in tensors]
+
+
+@pytest.mark.parametrize("decoupled", [False, True], ids=["rssm", "decoupled-rssm"])
+def test_scans_on_the_card_match_the_cpu(cuda, decoupled):
+    """The posterior scan from the expanded (stride-0) initial state, with a
+    reset inside the sequence, then imagination from its states."""
+    cpu, card, _ = _s_agents(cuda, [f"algo.world_model.decoupled_rssm={decoupled}"])
+    T, B, horizon = 8, 4, 15
+    g = torch.Generator().manual_seed(0)
+    embedded = torch.randn(T, B, cpu.encoder.out_dim, generator=g)
+    actions = torch.nn.functional.one_hot(torch.randint(0, 2, (T, B), generator=g), 2).float()
+    is_first = torch.zeros(T, B, 1)
+    is_first[0] = 1.0
+    is_first[5, 2] = 1.0
+    gumbel = -torch.log(-torch.log(torch.rand(T, B, cpu.stoch_state_size, generator=g)))
+    before = LN_GRU.launches
+    with torch.no_grad():
+        ref = cpu.dynamic_scan(embedded, actions, is_first, gumbel)
+        out = card.dynamic_scan(*_on((embedded, actions, is_first, gumbel), cuda))
+    assert LN_GRU.launches == before + T
+    for o, r in zip(out, ref):
+        torch.testing.assert_close(o.cpu(), r, rtol=CARD_ATOL, atol=CARD_ATOL)
+    hs, zs = ref[0], ref[1]
+    N = T * B
+    trans = -torch.log(-torch.log(torch.rand(horizon, N, cpu.stoch_state_size, generator=g)))
+    act = -torch.log(-torch.log(torch.rand(horizon + 1, N, 2, generator=g)))
+    z0, h0 = zs.reshape(N, -1), hs.reshape(N, -1)
+    before = LN_GRU.launches
+    with torch.no_grad():
+        ref = cpu.imagination_scan(z0, h0, horizon, trans, act)
+        out = card.imagination_scan(*_on((z0, h0), cuda), horizon, *_on((trans, act), cuda))
+    assert LN_GRU.launches == before + horizon
+    for o, r in zip(out, ref):
+        torch.testing.assert_close(o.cpu(), r, rtol=CARD_ATOL, atol=CARD_ATOL)
+
+
+def test_player_resets_on_the_card(cuda):
+    """Full reset (the expanded initial state made contiguous), masked resets
+    as a ``where``, one kernel launch per batched step."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import PlayerDV3
+
+    cpu, card, _ = _s_agents(cuda)
+    n = 3
+    players = {"cpu": PlayerDV3(cpu, n, ["rgb"], ["state"]), "card": PlayerDV3(card, n, ["rgb"], ["state"])}
+    for p in players.values():
+        p.init_states()
+    assert players["card"].recurrent_state.is_contiguous()
+    g = torch.Generator().manual_seed(1)
+    for step in range(6):
+        if step in (2, 4):
+            for p in players.values():
+                p.init_states([step % n])
+        obs = {"rgb": torch.rand(n, 3, 64, 64, generator=g) - 0.5, "state": torch.randn(n, 10, generator=g)}
+        noise = {"repr": -torch.log(-torch.log(torch.rand(n, cpu.stoch_state_size, generator=g))),
+                 "act": -torch.log(-torch.log(torch.rand(n, 2, generator=g)))}
+        before = LN_GRU.launches
+        a_card = players["card"].get_actions({k: v.to(cuda) for k, v in obs.items()},
+                                            {k: v.to(cuda) for k, v in noise.items()})
+        assert LN_GRU.launches == before + 1
+        a_cpu = players["cpu"].get_actions(obs, noise)
+        assert torch.equal(a_card.cpu().argmax(-1), a_cpu.argmax(-1))
+        torch.testing.assert_close(players["card"].recurrent_state.cpu(), players["cpu"].recurrent_state,
+                                   rtol=CARD_ATOL, atol=CARD_ATOL)
+
+
+@pytest.mark.parametrize("B", [16, 1024])
+def test_kernel_at_the_training_batches(cuda, B):
+    """The posterior scan's batch (16) and imagination's (1024 rows)."""
+    args = _case(B, 1024, 512, cuda, seed=B + 1)
+    before = LN_GRU.launches
+    torch.testing.assert_close(ln_gru_step(*args), ln_gru_step_plain(*args), rtol=1e-4, atol=1e-4)
+    targs = [a.clone().requires_grad_(True) for a in args]
+    g = torch.randn(B, 512, device=cuda)
+    gk = torch.autograd.grad(ln_gru_step(*targs), targs, g)
+    gp = torch.autograd.grad(ln_gru_step_plain(*targs), targs, g)
+    assert LN_GRU.launches == before + 2  # the backward recomputes through the plain math
+    for a, b in zip(gk, gp):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_train_step_launches_the_kernel_in_both_scans(cuda):
+    """T posterior steps and ``horizon`` imagined steps per gradient step."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import DV3Trainer, build_optimizers
+
+    _, card, cfg = _s_agents(cuda, ["algo=dreamer_v3_XS", "algo.horizon=5"])
+    trainer = DV3Trainer(card, cfg, build_optimizers(cfg, card))
+    T, B = 6, 2
+    g = torch.Generator(cuda).manual_seed(2)
+    batch = {
+        "rgb": torch.randint(0, 256, (T, B, 3, 64, 64), device=cuda, dtype=torch.uint8, generator=g),
+        "state": torch.randn(T, B, 10, device=cuda, generator=g),
+        "actions": torch.nn.functional.one_hot(torch.randint(0, 2, (T, B), device=cuda, generator=g), 2).float(),
+        "rewards": torch.randn(T, B, 1, device=cuda, generator=g),
+        "terminated": torch.zeros(T, B, 1, device=cuda),
+        "truncated": torch.zeros(T, B, 1, device=cuda),
+        "is_first": torch.zeros(T, B, 1, device=cuda),
+    }
+    before = LN_GRU.launches
+    metrics = trainer.train_step(batch, 0, trainer.draw_noise(T, B, g))
+    assert LN_GRU.launches == before + T + 5
+    assert all(torch.isfinite(v) for v in metrics.values())
