@@ -34,12 +34,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
    besides one launch per batched policy step. Then one gradient step on the
    card against the same step on the CPU (TF32 off, T=16, B=4), and the
    seconds per gradient step at 16 x 64, eager;
-6. the profiles, under torch.profiler and only now (once it has run, later
+6. PPO (``exp=ppo``, CartPole-v1 at the exp's settings: 4 envs x 128 steps,
+   minibatches of 64, 10 epochs, width 64) through the entry points on the
+   card: 65536 policy steps with the metric log and the test episode (its
+   reward must reach 100), a resume into version_1 for two more iterations,
+   an evaluation; the event file must hold the losses, the episode reward
+   and ``Time/sps_*``. A short ``exp=a2c`` run (finite losses, a
+   checkpoint). Then one PPO train phase on the card vs the CPU (TF32 off)
+   and three A2C RMSprop steps likewise, the seconds per PPO train phase and
+   the ms of one host acting step;
+7. the profiles, under torch.profiler and only now (once it has run, later
    eager launches cost more host time): each phase-3 shape's device time by
    kernel name, with its kernel launches per call counted in a captured CUDA
    graph; serving ticks (device time by kernel, the LN-GRU kernel's launches
-   by name, busy share); a training step (the same, and its kernel count);
-7. print the ``kernels`` JSON line, the card line, and the final result line.
+   by name, busy share); a training step (the same, and its kernel count); a PPO train phase
+   (busy share, device operations);
+8. print the ``kernels`` JSON line, the card line, and the final result line.
+
+The training phase launches with the config's defaults for video capture
+(warned and skipped), the metric log (its event file must hold the losses,
+``Params/replay_ratio`` and ``Time/sps_*``) and the replay buffer (memmap
+files in the run's directory, carried by the checkpoints: the resumed run
+must read them and add rows).
 
 Phase 3 also covers the training shapes of the kernel: B = 16 (the posterior
 scan) and B = 1024 (imagination's 16 x 64 rows), forward and gradient.
@@ -212,12 +228,21 @@ def graph_kernel_launches(fn) -> int:
     return kernels
 
 
+def device_events(prof):
+    """The profile's device events: kernels and copies, without the ranges
+    the profiler draws on the device for host annotations (such as
+    ``Optimizer.step#Adam.step``), which span kernels already counted."""
+    from torch.autograd import DeviceType
+
+    return [ev for ev in prof.events()
+            if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False)]
+
+
 def device_ms_by_kernel(fn, weights, calls: int = 8) -> dict:
     """Device ms per launch of each kernel ``fn(w)`` runs, by name, under
     torch.profiler, eager, cycling through ``weights``. The calls are traced
     in a second profiler step, after a warm-up step; a kernel's time is the
     mean over the launches the trace holds."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -228,8 +253,8 @@ def device_ms_by_kernel(fn, weights, calls: int = 8) -> dict:
             torch.cuda.synchronize()
             prof.step()
     total, count = {}, {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA and not ev.name.startswith("ProfilerStep"):
+    for ev in device_events(prof):
+        if not ev.name.startswith("ProfilerStep"):
             total[ev.name] = total.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
             count[ev.name] = count.get(ev.name, 0) + 1
     return {name: total[name] / count[name] for name in total}
@@ -376,6 +401,8 @@ FIRST_ITERS = LEARNING_STARTS_ITERS + STEADY_ITERS
 # first training iteration, and the next 3 take 4 gradient steps each
 RESUME_ITERS = FIRST_ITERS + LEARNING_STARTS_ITERS + 4
 GRU_CALLS_PER_GRAD_STEP = 64 + 15  # the posterior scan over T, imagination over the horizon
+# what the DV3 run's metric log must hold (metric.log_level=1, the default)
+DV3_TAGS = ("Loss/world_model_loss", "Params/replay_ratio", "Time/sps_train", "Time/sps_env_interaction")
 # one gradient step on the card vs on the CPU (TF32 off): the losses and
 # gradient norms pass through 16 recurrent steps, a 15-step rollout and
 # cuDNN/cuBLAS against the CPU's kernels; each within 1e-3 of the CPU's value,
@@ -392,21 +419,44 @@ TRAIN_PARAM_SHARE = 0.999
 
 def train_overrides(run_dir: str = "") -> list:
     """DV3 S at full width with the exp's batch, sequence, replay ratio,
-    learning_starts and buffer size; ``run_dir`` holds the run's logs and
-    checkpoints. The buffer keeps its rows in memory (``buffer.memmap=False``)
-    rather than in files under the run's directory."""
+    learning_starts and buffer size, and the config's defaults otherwise: no
+    ``env.capture_video`` override (the port warns and records nothing), the
+    metric log at ``log_level`` 1, the buffer in memmap files and in the
+    checkpoints. ``run_dir`` holds the run's logs, checkpoints and memmap
+    files."""
     return [
         "exp=dreamer_v3",
         "env=dummy",
         "algo.cnn_keys.encoder=[rgb]",
         "algo.mlp_keys.encoder=[state]",
-        "env.capture_video=False",
         f"env.num_envs={TRAIN_ENVS}",
         "algo.per_rank_batch_size=16",
         "algo.per_rank_sequence_length=64",
-        "buffer.memmap=False",
         *([f"hydra.run.dir={run_dir}"] if run_dir else []),
     ]
+
+
+def read_scalars(log_dir: str) -> dict:
+    """tag -> [(step, value)] of a run's TensorBoard event file, read by
+    TensorBoard's own reader."""
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    ea = EventAccumulator(log_dir)
+    ea.Reload()
+    return {tag: [(e.step, e.value) for e in ea.Scalars(tag)] for tag in ea.Tags()["scalars"]}
+
+
+def check_scalars(name: str, log_dir: str, tags) -> dict:
+    """Fails unless the run's event file holds every tag in ``tags``, each with
+    finite values; returns the scalars."""
+    scalars = read_scalars(log_dir)
+    missing = [t for t in tags if t not in scalars]
+    bad = [t for t, points in scalars.items() if not all(math.isfinite(v) for _, v in points)]
+    print(f"[chip-smoke] {name} event file: {len(scalars)} tags, {sum(map(len, scalars.values()))} points; "
+          f"missing {missing}, non-finite {bad}", flush=True)
+    if missing or bad:
+        raise AssertionError(f"{name}: the event file lacks {missing} or holds non-finite {bad}")
+    return scalars
 
 
 def _check_train_run(name: str, summary: dict, launches: int) -> None:
@@ -426,6 +476,7 @@ def train_path(out_dir: str) -> dict:
     train, resume from the last checkpoint, evaluate it. The launch counts are
     zeroed just before each run and read just after."""
     from sheeprl_tpu_torch.cli import evaluation, run
+    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
 
     overrides = train_overrides(os.path.join(out_dir, "train"))
     out = {}
@@ -434,6 +485,11 @@ def train_path(out_dir: str) -> dict:
     first = run(overrides + [f"algo.total_steps={TRAIN_ENVS * FIRST_ITERS}"])
     out["train"] = {"summary": first, "launches": {spec.name: spec.launches for spec in KERNELS}}
     _check_train_run("first run", first, LN_GRU.launches)
+    scalars = check_scalars("DV3 first run", first["log_dir"], DV3_TAGS)
+    out["train"]["scalars"] = {t: scalars[t][-1] for t in DV3_TAGS}
+    listed = open(first["checkpoint"] + ".memmap").read().split()
+    if not (listed and all(os.path.isfile(f) for f in listed)):
+        raise AssertionError(f"the first run's checkpoint lists memmap files that are not there: {listed}")
     if first["gradient_steps"] < 4:
         raise AssertionError(f"the first run took {first['gradient_steps']} gradient steps, fewer than 4")
     for spec in KERNELS:
@@ -444,9 +500,17 @@ def train_path(out_dir: str) -> dict:
     _check_train_run("resumed run", resumed, LN_GRU.launches)
     if not resumed["log_dir"].endswith("version_1"):
         raise AssertionError(f"the resumed run wrote {resumed['log_dir']}, not the run's version_1")
+    # the resumed run read the first run's memmap files and added rows to them
+    rows = {name: sum(b._pos for b in load_checkpoint(summary["checkpoint"])["rb"].buffer)
+            for name, summary in (("first", first), ("resumed", resumed))}
+    out["resume"]["buffer_rows"] = rows
+    print(f"[chip-smoke] memmap buffer rows: first run's checkpoint {rows['first']}, resumed run's "
+          f"{rows['resumed']}", flush=True)
+    if not rows["resumed"] > rows["first"]:
+        raise AssertionError(f"the resumed run added no rows to the memmap buffer: {rows}")
     for spec in KERNELS:
         spec.launches = 0
-    reward = evaluation([f"checkpoint_path={resumed['checkpoint']}", "env.capture_video=False"])
+    reward = evaluation([f"checkpoint_path={resumed['checkpoint']}"])
     out["evaluation"] = {"reward": reward, "launches": {spec.name: spec.launches for spec in KERNELS}}
     print(f"[chip-smoke] evaluation: reward {reward}, LN-GRU launches {LN_GRU.launches}", flush=True)
     if not (math.isfinite(reward) and LN_GRU.launches >= 1):
@@ -583,7 +647,6 @@ def profile_train_steps(warm: tuple, steps: int = 3) -> dict:
     """Under torch.profiler (last: it slows later eager launches), the
     device's busy share of a gradient step, its device time by kernel and the
     LN-GRU kernel's launches per step by name."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     trainer, batch, generator = warm
@@ -595,10 +658,9 @@ def profile_train_steps(warm: tuple, steps: int = 3) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     by_kernel, count = {}, {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3 / steps
-            count[ev.name] = count.get(ev.name, 0) + 1
+    for ev in device_events(prof):
+        by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3 / steps
+        count[ev.name] = count.get(ev.name, 0) + 1
     device_ms = sum(by_kernel.values())
     out = {
         "steps": steps,
@@ -611,6 +673,253 @@ def profile_train_steps(warm: tuple, steps: int = 3) -> dict:
         "ln_gru_launches_per_step": {n: c / steps for n, c in count.items() if "ln_gru" in n},
     }
     print(f"[chip-smoke] train step profile: {json.dumps(out)}", flush=True)
+    return out
+
+
+# PPO on CartPole-v1 at the exp's settings: 4 envs x 128 steps, minibatches
+# of 64, 10 epochs, width 64, 65536 policy steps (128 train phases)
+PPO_TOTAL_STEPS = 65536
+PPO_STEPS_PER_ITER = 4 * 128
+PPO_RESUME_ITERS = 2
+PPO_TAGS = ("Loss/policy_loss", "Loss/value_loss", "Loss/entropy_loss", "Rewards/rew_avg",
+            "Time/sps_train", "Time/sps_env_interaction")
+PPO_MIN_TEST_REWARD = 100.0  # random play scores ~20 on CartPole
+# one PPO train phase on the card vs on the CPU (TF32 off), 80 Adam updates:
+# with the exp's eps of 1e-4, an update is proportional to its gradient
+# below 1e-4, so float32 rounding gaps between cuBLAS and the CPU (~1e-6
+# relative) stay that small through the updates, each at most ~lr = 1e-3:
+# every parameter within 1e-4, the mean losses within 1e-4 relative
+PPO_PARAM_ATOL = 1e-4
+PPO_LOSS_RTOL = 1e-4
+A2C_TOTAL_STEPS = 5120  # 256 train phases of 4 envs x 5 steps
+# three RMSprop steps on the card vs the CPU from the same gradients: the
+# same float32 expressions, the card's rsqrt may round another way
+A2C_RMSPROP_ATOL = 1e-6
+
+
+def _zero_launches() -> None:
+    for spec in KERNELS:
+        spec.launches = 0
+
+
+def ppo_path(out_dir: str) -> dict:
+    """``exp=ppo`` through the entry points on the card: train for the exp's
+    total steps with the metric log and the test episode, resume into
+    version_1 for two more iterations, evaluate the last checkpoint. PPO
+    reaches no TPU kernel: its launch counts are read to show that."""
+    from sheeprl_tpu_torch.cli import evaluation, run
+
+    overrides = ["exp=ppo", f"hydra.run.dir={os.path.join(out_dir, 'ppo')}"]
+    out = {}
+    _zero_launches()
+    first = run(overrides + [f"algo.total_steps={PPO_TOTAL_STEPS}"])
+    out["train"] = {"summary": first, "launches": {spec.name: spec.launches for spec in KERNELS}}
+    scalars = check_scalars("PPO first run", first["log_dir"], PPO_TAGS)
+    out["train"]["scalars"] = {t: scalars[t][-1] for t in PPO_TAGS}
+    steps = first["train_phases"] * 128
+    out["seconds_per_train_phase_in_the_loop"] = first["train_seconds"] / first["train_phases"]
+    out["seconds_per_vector_step_in_the_loop"] = first["env_seconds"] / steps
+    print(f"[chip-smoke] PPO first run: {first['train_phases']} train phases, {first['policy_steps']} policy steps "
+          f"in {first['wall_seconds']:.2f}s (train {first['train_seconds']:.2f}s, env {first['env_seconds']:.2f}s); "
+          f"test reward {first['test_reward']} (bar >= {PPO_MIN_TEST_REWARD}); losses {json.dumps(first['metrics'])}; "
+          f"last Time/sps_env_interaction {scalars['Time/sps_env_interaction'][-1][1]:.1f}, Time/sps_train "
+          f"{scalars['Time/sps_train'][-1][1]:.1f}, Rewards/rew_avg {scalars['Rewards/rew_avg'][-1][1]:.1f}", flush=True)
+    if first["train_phases"] != PPO_TOTAL_STEPS // PPO_STEPS_PER_ITER:
+        raise AssertionError(f"PPO took {first['train_phases']} train phases")
+    if not all(math.isfinite(v) for v in first["metrics"].values()):
+        raise AssertionError(f"PPO: non-finite losses {first['metrics']}")
+    if not (first["test_reward"] is not None and first["test_reward"] >= PPO_MIN_TEST_REWARD):
+        raise AssertionError(f"PPO: test reward {first['test_reward']} < {PPO_MIN_TEST_REWARD}")
+    _zero_launches()
+    resumed = run(overrides + [f"algo.total_steps={PPO_TOTAL_STEPS + PPO_RESUME_ITERS * PPO_STEPS_PER_ITER}",
+                               f"checkpoint.resume_from={first['checkpoint']}"])
+    out["resume"] = {"summary": resumed, "launches": {spec.name: spec.launches for spec in KERNELS}}
+    print(f"[chip-smoke] PPO resumed run: {resumed['train_phases']} train phases into {resumed['log_dir']}, "
+          f"losses {json.dumps(resumed['metrics'])}", flush=True)
+    if not (resumed["log_dir"].endswith("version_1") and resumed["train_phases"] == PPO_RESUME_ITERS):
+        raise AssertionError(f"PPO resume: {resumed['train_phases']} phases into {resumed['log_dir']}")
+    if not all(math.isfinite(v) for v in resumed["metrics"].values()):
+        raise AssertionError(f"PPO resume: non-finite losses {resumed['metrics']}")
+    _zero_launches()
+    reward = evaluation([f"checkpoint_path={resumed['checkpoint']}"])
+    out["evaluation"] = {"reward": reward, "launches": {spec.name: spec.launches for spec in KERNELS}}
+    print(f"[chip-smoke] PPO evaluation: reward {reward}", flush=True)
+    if not math.isfinite(reward):
+        raise AssertionError(f"PPO evaluation: reward {reward}")
+    return out
+
+
+def a2c_path(out_dir: str) -> dict:
+    """A short ``exp=a2c`` run on the card: finite losses, a checkpoint, the
+    metric log."""
+    from sheeprl_tpu_torch.cli import run
+
+    _zero_launches()
+    summary = run(["exp=a2c", f"algo.total_steps={A2C_TOTAL_STEPS}", f"hydra.run.dir={os.path.join(out_dir, 'a2c')}"])
+    launches = {spec.name: spec.launches for spec in KERNELS}
+    check_scalars("A2C run", summary["log_dir"], ("Loss/policy_loss", "Loss/value_loss", "Time/sps_train"))
+    print(f"[chip-smoke] A2C run: {summary['train_phases']} train phases in {summary['wall_seconds']:.2f}s, test "
+          f"reward {summary['test_reward']}, losses {json.dumps(summary['metrics'])}, checkpoint "
+          f"{os.path.basename(summary['checkpoint'] or '')}", flush=True)
+    if not (summary["checkpoint"] and os.path.isfile(summary["checkpoint"])):
+        raise AssertionError("A2C wrote no checkpoint")
+    if not all(math.isfinite(v) for v in summary["metrics"].values()):
+        raise AssertionError(f"A2C: non-finite losses {summary['metrics']}")
+    return {"summary": summary, "launches": launches}
+
+
+def _on_policy_agents(exp: str, devices, precision: str = "highest"):
+    """The exp's agent on each device, the same weights from a seed; the cfg
+    and the CartPole observation space."""
+    from sheeprl_tpu_torch.algos.ppo.agent import build_agent
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.parallel.fabric import Fabric
+    from sheeprl_tpu_torch.utils.env import make_env
+
+    cfg = compose([f"exp={exp}"])
+    space = make_env(cfg, 0, 0)().observation_space
+    agents = {}
+    for accel in devices:
+        fabric = Fabric(accelerator=accel, float32_matmul_precision=precision)
+        agents[accel] = build_agent(fabric, (2,), False, cfg, space, 0)
+    return agents, cfg
+
+
+def _ppo_rollout(seed: int, T: int = 128, E: int = 4) -> tuple:
+    rng = np.random.default_rng(seed)
+    data = {
+        "state": rng.standard_normal((T, E, 4)).astype(np.float32),
+        "actions": np.eye(2, dtype=np.float32)[rng.integers(0, 2, (T, E))],
+        "logprobs": -rng.uniform(0.1, 1.5, (T, E, 1)).astype(np.float32),
+        "values": rng.standard_normal((T, E, 1)).astype(np.float32),
+        "rewards": np.ones((T, E, 1), np.float32),
+        "dones": (rng.uniform(size=(T, E, 1)) < 0.05).astype(np.float32),
+    }
+    return data, rng.standard_normal((E, 1)).astype(np.float32)
+
+
+def _ppo_trainer(agent, cfg):
+    from sheeprl_tpu_torch.algos.ppo.ppo import PPOTrainer, build_optimizer
+
+    optimizer, schedule = build_optimizer(cfg, agent, PPO_TOTAL_STEPS // PPO_STEPS_PER_ITER)
+    return PPOTrainer(agent, optimizer, cfg, schedule)
+
+
+def ppo_train_phase_parity() -> dict:
+    """One PPO train phase at the exp's shapes on the card vs on the CPU (TF32
+    off): the same weights, rollout, next values and permutations."""
+    agents, cfg = _on_policy_agents("ppo", ("gpu", "cpu"))
+    data, next_values = _ppo_rollout(1)
+    out = {}
+    for accel, agent in agents.items():
+        trainer = _ppo_trainer(agent, cfg)
+        perms = trainer.draw_permutations(torch.Generator().manual_seed(2))
+        dev = trainer.device
+        losses = trainer.train_phase({k: torch.from_numpy(v).to(dev) for k, v in data.items()},
+                                     torch.from_numpy(next_values).to(dev), perms, 0.2, 0.0)
+        out[accel] = (losses.cpu(), [p.detach().cpu() for p in agent.parameters()])
+    loss_gap = float(((out["gpu"][0] - out["cpu"][0]).abs() / out["cpu"][0].abs().clamp_min(1e-3)).max())
+    param_gap = max(float((a - b).abs().max()) for a, b in zip(out["gpu"][1], out["cpu"][1]))
+    res = {"losses_rel_gap": loss_gap, "param_max_abs_gap": param_gap, "card": out["gpu"][0].tolist(),
+           "cpu": out["cpu"][0].tolist(), "updates": 80}
+    print(f"[chip-smoke] PPO train phase card vs CPU (TF32 off, 80 updates): {json.dumps(res)} (bars: losses "
+          f"{PPO_LOSS_RTOL} relative, every parameter {PPO_PARAM_ATOL})", flush=True)
+    if not (loss_gap <= PPO_LOSS_RTOL and param_gap <= PPO_PARAM_ATOL):
+        raise AssertionError(f"the PPO train phase on the card disagrees with the CPU: {res}")
+    return res
+
+
+def a2c_rmsprop_parity(steps: int = 3) -> dict:
+    """The A2C optimizer (the exp's optax-semantics RMSprop) on the card vs on
+    the CPU: the same weights and gradients, three steps."""
+    from sheeprl_tpu_torch.config import instantiate
+
+    agents, cfg = _on_policy_agents("a2c", ("gpu", "cpu"))
+    opts = {accel: instantiate(cfg.algo.optimizer, agent.parameters()) for accel, agent in agents.items()}
+    rng = np.random.default_rng(3)
+    shapes = [tuple(p.shape) for p in agents["cpu"].parameters()]
+    for _ in range(steps):
+        grads = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+        for accel, agent in agents.items():
+            for p, g in zip(agent.parameters(), grads):
+                p.grad = torch.from_numpy(g).to(p.device)
+            opts[accel].step()
+    gap = max(float((a.detach().cpu() - b.detach()).abs().max())
+              for a, b in zip(agents["gpu"].parameters(), agents["cpu"].parameters()))
+    print(f"[chip-smoke] A2C RMSprop card vs CPU ({type(opts['gpu']).__name__}, {steps} steps): parameters within "
+          f"{gap} (bar {A2C_RMSPROP_ATOL})", flush=True)
+    if gap > A2C_RMSPROP_ATOL:
+        raise AssertionError(f"RMSprop on the card disagrees with the CPU: {gap}")
+    return {"param_max_abs_gap": gap, "steps": steps}
+
+
+def time_ppo(phases: int = 5) -> tuple:
+    """Seconds per PPO train phase on the card at the exp's shapes (TF32 as the
+    config sets it), synchronized; and ms per acting step on the host (the
+    host agent's forward and sample for 4 envs, one torch thread as the loop
+    runs it). Returns the timings and the warm trainer with its inputs."""
+    from sheeprl_tpu_torch.algos.ppo.agent import draw_policy_noise, policy_output
+    from sheeprl_tpu_torch.algos.ppo.utils import prepare_obs
+
+    agents, cfg = _on_policy_agents("ppo", ("gpu", "cpu"), precision="high")
+    trainer = _ppo_trainer(agents["gpu"], cfg)
+    data, next_values = _ppo_rollout(4)
+    dev = trainer.device
+    inputs = ({k: torch.from_numpy(v).to(dev) for k, v in data.items()}, torch.from_numpy(next_values).to(dev))
+    generator = torch.Generator().manual_seed(5)
+    trainer.train_phase(*inputs, trainer.draw_permutations(generator), 0.2, 0.0)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(phases):
+        trainer.train_phase(*inputs, trainer.draw_permutations(generator), 0.2, 0.0)
+    torch.cuda.synchronize()
+    out = {"phases": phases, "seconds_per_train_phase": (time.perf_counter() - t0) / phases}
+    act, obs = agents["cpu"], {"state": data["state"][0]}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with torch.no_grad():
+        def act_step():
+            actor_outs, values = act(prepare_obs(obs, num_envs=4))
+            return policy_output(actor_outs, values, (2,), False, noise=draw_policy_noise((2,), False, 4, generator, "cpu"))
+
+        for _ in range(50):
+            act_step()
+        steps = 1000
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            act_step()
+        out["ms_per_acting_step"] = (time.perf_counter() - t0) * 1e3 / steps
+    torch.set_num_threads(threads)
+    print(f"[chip-smoke] PPO timing: {json.dumps(out)}", flush=True)
+    return out, (trainer, inputs, generator)
+
+
+def profile_ppo_train_phase(warm: tuple) -> dict:
+    """Under torch.profiler (last), the card's busy share of one PPO train
+    phase and its device operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer, inputs, generator = warm
+    perms = trainer.draw_permutations(generator)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_phase(*inputs, perms, 0.2, 0.0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel, count = {}, 0
+    for ev in device_events(prof):
+        by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+        count += 1
+    device_ms = sum(by_kernel.values())
+    out = {
+        "phase_wall_ms": wall_ms,
+        "phase_device_ms": device_ms if device_ms > 0 else None,
+        "device_busy_share": device_ms / wall_ms if device_ms > 0 else None,
+        "device_operations": count,
+        "top_device_ms": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8],
+    }
+    print(f"[chip-smoke] PPO train phase profile: {json.dumps(out)}", flush=True)
     return out
 
 
@@ -660,7 +969,6 @@ def profile_ticks(ckpt: str, ticks: int = 32) -> dict:
     the serve verb configures it (TF32 per ``float32_matmul_precision``), under
     torch.profiler; device time by kernel, and the device's busy share of the
     ticks' wall time (the profiler's own host cost included)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from sheeprl_tpu_torch.algos.dreamer_v3.serve import get_serve_policy
@@ -685,10 +993,9 @@ def profile_ticks(ckpt: str, ticks: int = 32) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel, launches = {}, 0
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:  # one event per kernel run on the card
-            by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3 / ticks
-            launches += 1
+    for ev in device_events(prof):  # one event per kernel run on the card
+        by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3 / ticks
+        launches += 1
     device_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     out = {
@@ -730,10 +1037,16 @@ def main() -> int:
         train = train_path(tmp)
         train_parity = train_step_parity()
         train_timing, warm = time_train_steps()
+        ppo = ppo_path(tmp)
+        a2c = a2c_path(tmp)
+        ppo["parity"] = ppo_train_phase_parity()
+        a2c["rmsprop_parity"] = a2c_rmsprop_parity()
+        ppo["timing"], ppo_warm = time_ppo()
         profile_gru(gru["rows"], device)
         profile = profile_ticks(path["ckpt"])
         train_timing["profile"] = profile_train_steps(warm)
-        del warm
+        ppo["timing"]["profile"] = profile_ppo_train_phase(ppo_warm)
+        del warm, ppo_warm
 
     main_row = next(r for r in gru["rows"] if (r["preset"], r["B"], r["K"], r["H"]) == MAIN_SHAPE)
     train_rows = [r for r in gru["rows"] if (r["preset"], r["B"], r["K"], r["H"]) in TRAIN_SHAPES]
@@ -750,6 +1063,9 @@ def main() -> int:
             "launches_by_path": {
                 "serve": path["launches"][LN_GRU.name],
                 **{name: train[name]["launches"][LN_GRU.name] for name in ("train", "resume", "evaluation")},
+                # PPO and A2C reach no TPU kernel
+                **{f"ppo_{name}": ppo[name]["launches"][LN_GRU.name] for name in ("train", "resume", "evaluation")},
+                "a2c": a2c["launches"][LN_GRU.name],
             },
             "train_rows": [{k: r[k] for k in keep} for r in train_rows],
             "max_abs_err": gru["max_abs_err"],
@@ -772,7 +1088,7 @@ def main() -> int:
                 {"card": card, "torch": torch.__version__, "gru": gru, "serve": path["summary"],
                  "launches": path["launches"], "serve_parity": parity, "serve_profile": profile,
                  "train": train, "train_parity": train_parity, "train_timing": train_timing,
-                 "kernels": kernels},
+                 "ppo": ppo, "a2c": a2c, "kernels": kernels},
                 f, indent=2,
             )
     print(json.dumps({"kernels": kernels}))

@@ -36,6 +36,7 @@ from sheeprl_tpu_torch.utils.distribution import (
     Normal,
     OneHotCategorical,
     OneHotCategoricalStraightThrough,
+    draw_gumbel,
 )
 from sheeprl_tpu_torch.utils.utils import symlog
 
@@ -499,12 +500,6 @@ def draw_actor_noise(
     if agent.is_continuous:
         return torch.randn(size, device=device, generator=generator)
     return draw_gumbel(size, generator, device)
-
-
-def draw_gumbel(shape: Sequence[int], generator: Optional[torch.Generator], device) -> torch.Tensor:
-    """Standard Gumbel noise: ``argmax(logits + g)`` is a categorical draw."""
-    u = torch.rand(tuple(shape), device=device, generator=generator)
-    return -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
 
 
 def actor_logprob_entropy(

@@ -11,8 +11,9 @@ for continuous actions); :meth:`DV3Trainer.draw_noise` draws them from a
 :func:`run_dreamer` is the training loop: a vector of envs stepped by
 ``PlayerDV3`` (random actions while the buffer prefills), one replay row per
 env step plus a reset row for each finished episode, gradient steps paced by
-``Ratio``, checkpoints every ``checkpoint.every`` policy steps and at the end,
-and a test episode. It runs on the card unless ``fabric.accelerator=cpu``.
+``Ratio``, the metric log every ``metric.log_every`` policy steps,
+checkpoints every ``checkpoint.every`` policy steps and at the end, and a
+test episode. It runs on the card unless ``fabric.accelerator=cpu``.
 """
 
 from __future__ import annotations
@@ -34,13 +35,13 @@ from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
 )
 from sheeprl_tpu_torch.algos.dreamer_v3.loss import reconstruction_loss
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import (
-    env_actions,
     init_moments,
     prepare_obs,
     test,
     update_moments,
 )
 from sheeprl_tpu_torch.config import instantiate
+from sheeprl_tpu_torch.envs.spaces import env_actions
 from sheeprl_tpu_torch.optim import clip_grad_global_norm_
 from sheeprl_tpu_torch.utils.distribution import (
     BernoulliSafeMode,
@@ -50,6 +51,7 @@ from sheeprl_tpu_torch.utils.distribution import (
     SymlogDistribution,
     TwoHotEncodingDistribution,
 )
+from sheeprl_tpu_torch.utils.timer import timer
 from sheeprl_tpu_torch.utils.utils import Ratio, compute_lambda_values, save_configs
 
 Batch = Dict[str, torch.Tensor]
@@ -236,10 +238,13 @@ class DV3Trainer:
             t.copy_(tau * c + (1 - tau) * t)
 
     def _apply(self, name: str, loss: torch.Tensor) -> torch.Tensor:
-        """Gradients of ``loss`` for one group only, clipped, then its optimizer
-        step. Returns the gradients' global norm before clipping."""
+        """Gradients of ``loss`` for one group only, then :meth:`apply_grads`."""
+        return self.apply_grads(name, torch.autograd.grad(loss, self.groups[name], allow_unused=True))
+
+    def apply_grads(self, name: str, grads) -> torch.Tensor:
+        """One group's update from its gradients (in group order): clipped,
+        then its optimizer step. Returns the global norm before clipping."""
         params = self.groups[name]
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
         for p, g in zip(params, grads):
             p.grad = g
         norm = clip_grad_global_norm_(params, self.clips[name])
@@ -285,30 +290,18 @@ class DV3Trainer:
         return {name: opt.state_dict() for name, opt in self.optimizers.items()}
 
     def load_opt_state(self, opt_state: Any) -> None:
-        """Load optimizer states the port wrote; refuse anything else (an optax
-        state from the JAX package has no torch counterpart yet)."""
-        names = tuple(self.optimizers)
-        if not (
-            isinstance(opt_state, dict)
-            and all(isinstance(opt_state.get(n), dict) and "param_groups" in opt_state[n] for n in names)
-        ):
+        """Load the optimizer states of a checkpoint of either package: the
+        port's torch state dicts, or the JAX package's optax states, converted
+        (``interop/optax_to_torch.py``)."""
+        from sheeprl_tpu_torch.interop.flax_to_torch import dv3_group_to_torch
+        from sheeprl_tpu_torch.interop.optax_to_torch import load_optimizer_state
+
+        if not (isinstance(opt_state, dict) and set(opt_state) >= set(self.optimizers)):
             raise ValueError(
-                "the checkpoint's optimizer state is not one sheeprl_tpu_torch wrote (a checkpoint "
-                "of the JAX package holds optax states): converting optax Adam state to torch is not "
-                "yet ported, so the port resumes only from its own checkpoints"
+                f"the checkpoint's optimizer state should hold the groups {sorted(self.optimizers)}"
             )
         for name, opt in self.optimizers.items():
-            opt.load_state_dict(_to_tensors(opt_state[name]))
-
-
-def _to_tensors(tree: Any) -> Any:
-    if isinstance(tree, np.ndarray):
-        return torch.from_numpy(tree.copy())
-    if isinstance(tree, dict):
-        return {k: _to_tensors(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to_tensors(v) for v in tree]
-    return tree
+            load_optimizer_state(opt, opt_state[name], dv3_group_to_torch(self.agent, name))
 
 
 def _one_hot_actions(actions: np.ndarray, actions_dim: Sequence[int], num_envs: int) -> np.ndarray:
@@ -329,12 +322,13 @@ def run_dreamer(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
     from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
     from sheeprl_tpu_torch.data.prefetch import sample_to_device
     from sheeprl_tpu_torch.envs.spaces import action_space_dims
-    from sheeprl_tpu_torch.envs.vector import SyncVectorEnv
+    from sheeprl_tpu_torch.envs.vector import SyncVectorEnv, episode_stats
     from sheeprl_tpu_torch.interop.flax_to_torch import agent_to_flax
     from sheeprl_tpu_torch.resilience import signals
-    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_run_checkpoint
+    from sheeprl_tpu_torch.utils.checkpoint import InertObject, load_checkpoint, load_run_buffer, save_run_checkpoint
     from sheeprl_tpu_torch.utils.env import make_env
-    from sheeprl_tpu_torch.utils.logger import get_log_dir
+    from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
+    from sheeprl_tpu_torch.utils.metric import MetricAggregator
 
     t_start = time.perf_counter()
     device = fabric.device
@@ -346,6 +340,7 @@ def run_dreamer(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
         raise ValueError(f"The screen size must be a power of 2, got: {cfg.env.screen_size}")
 
     log_dir = get_log_dir(cfg)
+    logger = get_logger(cfg, log_dir)
     print(f"Log dir: {log_dir}", flush=True)
 
     num_envs = int(cfg.env.num_envs)
@@ -388,8 +383,14 @@ def run_dreamer(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
     if state is not None and "moments" in state:
         trainer.moments = {k: torch.as_tensor(np.asarray(v), device=device) for k, v in state["moments"].items()}
     save_configs(cfg, log_dir)
+    aggregator = None if MetricAggregator.disabled else instantiate(cfg.metric.aggregator)
 
     buffer_size = cfg.buffer.size // num_envs if not cfg.dry_run else 8
+    if cfg.dry_run:
+        # a dry run's one iteration writes one row per env, so its gradient
+        # steps sample sequences of that one row (the JAX loop would ask for
+        # the configured length and fail)
+        cfg.algo.per_rank_sequence_length = 1
     rb = EnvIndependentReplayBuffer(
         buffer_size,
         n_envs=num_envs,
@@ -399,7 +400,12 @@ def run_dreamer(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
         buffer_cls=SequentialReplayBuffer,
     )
     if state is not None and "rb" in state:
-        rb = state["rb"]
+        if isinstance(state["rb"], InertObject):
+            raise NotImplementedError(
+                "the checkpoint holds a replay buffer of the JAX package: loading it is not yet ported "
+                "to sheeprl_tpu_torch (resume from a checkpoint written with buffer.checkpoint=False)"
+            )
+        rb = load_run_buffer(state)
     else:
         rb.seed(int(cfg.seed))
 
@@ -407,6 +413,7 @@ def run_dreamer(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
     start_iter = state["iter_num"] + 1 if state is not None else 1
     policy_step = state["iter_num"] * num_envs if state is not None else 0
     last_checkpoint = state["last_checkpoint"] if state is not None else 0
+    last_log = state["last_log"] if state is not None else 0
     policy_steps_per_iter = num_envs
     total_iters = cfg.algo.total_steps // policy_steps_per_iter if not cfg.dry_run else 1
     learning_starts = cfg.algo.learning_starts // policy_steps_per_iter if not cfg.dry_run else 0
@@ -434,6 +441,7 @@ def run_dreamer(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
     generator = torch.Generator(device).manual_seed(int(cfg.seed))
     action_rng = np.random.default_rng(int(cfg.seed))
     cumulative_per_rank_gradient_steps = 0
+    train_step = last_train = 0
     player_calls = 0
     act_dim = int(np.sum(actions_dim))
     pending_ckpt = False
@@ -453,58 +461,63 @@ def run_dreamer(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
             window_policy_step, window_gradient_step = policy_step, cumulative_per_rank_gradient_steps
         policy_step += policy_steps_per_iter
         t0 = time.perf_counter()
-        if iter_num <= learning_starts and state is None:
-            actions = np.stack([envs.single_action_space.sample(action_rng) for _ in range(num_envs)])
-            real_actions = actions
-            if not is_continuous:
-                actions = _one_hot_actions(actions, actions_dim, num_envs)
-        else:
-            jobs = prepare_obs(obs, cnn_keys=cnn_keys, mlp_keys=mlp_keys, num_envs=num_envs, device=device)
-            actions = player.get_actions(jobs, generator=generator).cpu().numpy()
-            player_calls += 1
-            real_actions = env_actions(actions, actions_dim, is_continuous)
+        with timer("Time/env_interaction_time"):
+            if iter_num <= learning_starts and state is None:
+                actions = np.stack([envs.single_action_space.sample(action_rng) for _ in range(num_envs)])
+                real_actions = actions
+                if not is_continuous:
+                    actions = _one_hot_actions(actions, actions_dim, num_envs)
+            else:
+                jobs = prepare_obs(obs, cnn_keys=cnn_keys, mlp_keys=mlp_keys, num_envs=num_envs, device=device)
+                actions = player.get_actions(jobs, generator=generator).cpu().numpy()
+                player_calls += 1
+                real_actions = env_actions(actions, actions_dim, is_continuous)
 
-        step_data["actions"] = actions.reshape((1, num_envs, -1)).astype(np.float32)
-        rb.add(step_data, validate_args=cfg.buffer.validate_args)
+            step_data["actions"] = actions.reshape((1, num_envs, -1)).astype(np.float32)
+            rb.add(step_data, validate_args=cfg.buffer.validate_args)
 
-        next_obs, rewards, terminated, truncated, infos = envs.step(real_actions.reshape(envs.action_space.shape))
-        dones = np.logical_or(terminated, truncated).astype(np.uint8)
-        step_data["is_first"] = np.zeros_like(step_data["terminated"])
+            next_obs, rewards, terminated, truncated, infos = envs.step(real_actions.reshape(envs.action_space.shape))
+            dones = np.logical_or(terminated, truncated).astype(np.uint8)
+            step_data["is_first"] = np.zeros_like(step_data["terminated"])
 
-        # the real next observations of finished episodes
-        real_next_obs = {k: np.asarray(next_obs[k]).copy() for k in obs_keys}
-        final_obs = infos.get("final_obs")
-        if final_obs is not None:
-            for idx in range(num_envs):
-                if final_obs[idx] is not None:
-                    for k in obs_keys:
-                        real_next_obs[k][idx] = np.asarray(final_obs[idx][k])
+            # the real next observations of finished episodes
+            real_next_obs = {k: np.asarray(next_obs[k]).copy() for k in obs_keys}
+            final_obs = infos.get("final_obs")
+            if final_obs is not None:
+                for idx in range(num_envs):
+                    if final_obs[idx] is not None:
+                        for k in obs_keys:
+                            real_next_obs[k][idx] = np.asarray(final_obs[idx][k])
 
-        for k in obs_keys:
-            step_data[k] = np.asarray(next_obs[k])[np.newaxis]
-        obs = next_obs
+            for k in obs_keys:
+                step_data[k] = np.asarray(next_obs[k])[np.newaxis]
+            obs = next_obs
 
-        rewards = np.asarray(rewards, dtype=np.float32).reshape((1, num_envs, -1))
-        step_data["terminated"] = np.asarray(terminated, np.float32).reshape((1, num_envs, -1))
-        step_data["truncated"] = np.asarray(truncated, np.float32).reshape((1, num_envs, -1))
-        step_data["rewards"] = clip_rewards_fn(rewards)
+            rewards = np.asarray(rewards, dtype=np.float32).reshape((1, num_envs, -1))
+            step_data["terminated"] = np.asarray(terminated, np.float32).reshape((1, num_envs, -1))
+            step_data["truncated"] = np.asarray(truncated, np.float32).reshape((1, num_envs, -1))
+            step_data["rewards"] = clip_rewards_fn(rewards)
 
-        dones_idxes = dones.nonzero()[0].tolist()
-        reset_envs = len(dones_idxes)
-        if reset_envs > 0:
-            reset_data = {k: (real_next_obs[k][dones_idxes])[np.newaxis] for k in obs_keys}
-            reset_data["terminated"] = step_data["terminated"][:, dones_idxes]
-            reset_data["truncated"] = step_data["truncated"][:, dones_idxes]
-            reset_data["actions"] = np.zeros((1, reset_envs, act_dim), np.float32)
-            reset_data["rewards"] = step_data["rewards"][:, dones_idxes]
-            reset_data["is_first"] = np.zeros_like(reset_data["terminated"])
-            rb.add(reset_data, dones_idxes, validate_args=cfg.buffer.validate_args)
-            # the reset rows restart the episode in the live step_data
-            step_data["rewards"][:, dones_idxes] = 0.0
-            step_data["terminated"][:, dones_idxes] = 0.0
-            step_data["truncated"][:, dones_idxes] = 0.0
-            step_data["is_first"][:, dones_idxes] = 1.0
-            player.init_states(dones_idxes)
+            dones_idxes = dones.nonzero()[0].tolist()
+            reset_envs = len(dones_idxes)
+            if reset_envs > 0:
+                reset_data = {k: (real_next_obs[k][dones_idxes])[np.newaxis] for k in obs_keys}
+                reset_data["terminated"] = step_data["terminated"][:, dones_idxes]
+                reset_data["truncated"] = step_data["truncated"][:, dones_idxes]
+                reset_data["actions"] = np.zeros((1, reset_envs, act_dim), np.float32)
+                reset_data["rewards"] = step_data["rewards"][:, dones_idxes]
+                reset_data["is_first"] = np.zeros_like(reset_data["terminated"])
+                rb.add(reset_data, dones_idxes, validate_args=cfg.buffer.validate_args)
+                # the reset rows restart the episode in the live step_data
+                step_data["rewards"][:, dones_idxes] = 0.0
+                step_data["terminated"][:, dones_idxes] = 0.0
+                step_data["truncated"][:, dones_idxes] = 0.0
+                step_data["is_first"][:, dones_idxes] = 1.0
+                player.init_states(dones_idxes)
+            rews, lens = episode_stats(infos, num_envs)
+            if len(rews) > 0 and aggregator is not None:
+                aggregator.update("Rewards/rew_avg", float(np.mean(rews)))
+                aggregator.update("Game/ep_len_avg", float(np.mean(lens)))
         env_seconds += time.perf_counter() - t0
 
         preempted = signals.preemption_requested()
@@ -518,17 +531,56 @@ def run_dreamer(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
             per_rank_gradient_steps = ratio(policy_step - prefill_steps * policy_steps_per_iter)
             if per_rank_gradient_steps > 0:
                 t0 = time.perf_counter()
-                data = sample_to_device(
-                    rb,
-                    per_rank_gradient_steps,
-                    batch_size=cfg.algo.per_rank_batch_size,
-                    sequence_length=cfg.algo.per_rank_sequence_length,
-                    uint8_keys=cnn_keys,
-                    device=device,
-                )
-                metrics = trainer.train(data, cumulative_per_rank_gradient_steps, generator)
-                cumulative_per_rank_gradient_steps += per_rank_gradient_steps
+                # DV3Trainer.train ends with the host copy of the metrics,
+                # which waits for the card: the timer ends there
+                with timer("Time/train_time"):
+                    data = sample_to_device(
+                        rb,
+                        per_rank_gradient_steps,
+                        batch_size=cfg.algo.per_rank_batch_size,
+                        sequence_length=cfg.algo.per_rank_sequence_length,
+                        uint8_keys=cnn_keys,
+                        device=device,
+                    )
+                    metrics = trainer.train(data, cumulative_per_rank_gradient_steps, generator)
+                    cumulative_per_rank_gradient_steps += per_rank_gradient_steps
+                    train_step += per_rank_gradient_steps
+                    if aggregator is not None:
+                        for name, value in metrics.items():
+                            aggregator.update(name, value)
                 train_seconds += time.perf_counter() - t0
+
+        if cfg.metric.log_level > 0 and (
+            policy_step - last_log >= cfg.metric.log_every or iter_num == total_iters or cfg.dry_run
+        ):
+            with timer("Time/logging_time"):
+                metrics_dict = aggregator.compute() if aggregator else {}
+                if logger is not None:
+                    logger.log_metrics(metrics_dict, policy_step)
+                    if policy_step > 0:
+                        logger.log_metrics(
+                            {"Params/replay_ratio": cumulative_per_rank_gradient_steps / max(policy_step, 1)},
+                            policy_step,
+                        )
+                    timers = timer.to_dict(reset=False)
+                    if timers.get("Time/train_time", 0) > 0:
+                        logger.log_metrics(
+                            {"Time/sps_train": (train_step - last_train) / max(timers["Time/train_time"], 1e-9)},
+                            policy_step,
+                        )
+                    if timers.get("Time/env_interaction_time", 0) > 0:
+                        logger.log_metrics(
+                            {
+                                "Time/sps_env_interaction": ((policy_step - last_log) * cfg.env.action_repeat)
+                                / max(timers["Time/env_interaction_time"], 1e-9)
+                            },
+                            policy_step,
+                        )
+                timer.to_dict(reset=True)
+                if aggregator:
+                    aggregator.reset()
+            last_log = policy_step
+            last_train = train_step
 
         if pending_ckpt:
             last_checkpoint = policy_step
@@ -540,7 +592,7 @@ def run_dreamer(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
                 "ratio": ratio.state_dict(),
                 "iter_num": iter_num,
                 "batch_size": cfg.algo.per_rank_batch_size,
-                "last_log": 0,
+                "last_log": last_log,
                 "last_checkpoint": last_checkpoint,
             }
             ckpt_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
@@ -560,7 +612,9 @@ def run_dreamer(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
     envs.close()
     test_reward = None
     if not signals.preemption_requested() and cfg.algo.run_test:
-        test_reward = test(player, cfg, log_dir, greedy=False)
+        test_reward = test(player, cfg, log_dir, greedy=False, logger=logger)
+    if logger is not None:
+        logger.finalize()
     return {
         "log_dir": log_dir,
         "policy_steps": policy_step,

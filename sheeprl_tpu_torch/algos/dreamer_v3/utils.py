@@ -9,6 +9,8 @@ from typing import Any, Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from sheeprl_tpu_torch.envs.spaces import env_actions
+
 AGGREGATOR_KEYS = {
     "Rewards/rew_avg",
     "Game/ep_len_avg",
@@ -71,24 +73,17 @@ def prepare_obs(
     return out
 
 
-def env_actions(actions: np.ndarray, actions_dim: Sequence[int], is_continuous: bool) -> np.ndarray:
-    """The player's concatenated actions as the env takes them: continuous
-    values as they are, one index per one-hot block otherwise."""
-    if is_continuous:
-        return actions
-    splits = np.cumsum(actions_dim)[:-1]
-    return np.stack([b.argmax(-1) for b in np.split(actions, splits, axis=-1)], axis=-1)
-
-
 def test(
     player,
     cfg: Dict[str, Any],
     log_dir: str,
     test_name: str = "",
     greedy: bool = True,
+    logger: Any = None,
 ) -> float:
-    """Play one episode with the player's current weights; returns its reward.
-    The noise comes from a generator seeded with ``cfg.seed`` on the player's
+    """Play one episode with the player's current weights; returns its reward
+    and logs it as ``Test/cumulative_reward`` when a logger is given. The
+    noise comes from a generator seeded with ``cfg.seed`` on the player's
     device."""
     from sheeprl_tpu_torch.utils.env import make_env
 
@@ -114,5 +109,7 @@ def test(
         done = bool(terminated or truncated or cfg.dry_run)
         cumulative_rew += float(np.asarray(reward))
     print("Test - Reward:", cumulative_rew, flush=True)
+    if logger is not None:
+        logger.log_metrics({"Test/cumulative_reward": cumulative_rew}, 0)
     env.close()
     return cumulative_rew

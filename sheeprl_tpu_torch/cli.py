@@ -11,10 +11,9 @@ plays one test episode of a checkpoint (written by either package) with the
 config saved beside it.
 
 Config keys the port keeps but does not act on yet accept only their off
-values: telemetry, the profiler, metric logging (``metric.log_level`` > 0
-needs a logger), the supervisor, fault injection, the watchdog, gangs, the
-replay prefetch thread and service backend, sharded and asynchronous
-checkpoints.
+values: telemetry, the profiler, the supervisor, fault injection, the
+watchdog, gangs, the replay prefetch thread and service backend, sharded and
+asynchronous checkpoints.
 """
 
 from __future__ import annotations
@@ -89,7 +88,6 @@ def unported_settings(cfg) -> List[str]:
     buffer = cfg.get("buffer") or {}
     checkpoint = cfg.get("checkpoint") or {}
     checks = {
-        "metric.log_level > 0 (metric loggers)": int(metric.get("log_level") or 0) > 0,
         "metric.telemetry.enabled": bool(telemetry.get("enabled")),
         "metric.telemetry.http_port": telemetry.get("http_port") is not None,
         "metric.profiler.mode": str((metric.get("profiler") or {}).get("mode", "off")) != "off",
@@ -99,7 +97,9 @@ def unported_settings(cfg) -> List[str]:
         "resilience.distributed.gang.processes >= 2": int(
             (((resilience.get("distributed") or {}).get("gang") or {}).get("processes") or 0)
         ) >= 2,
-        "buffer.prefetch.enabled (the prefetch thread)": bool((buffer.get("prefetch") or {}).get("enabled")),
+        # the thread samples ahead for Dreamer-V3; PPO and A2C do not read the key
+        "buffer.prefetch.enabled (the prefetch thread)": bool((buffer.get("prefetch") or {}).get("enabled"))
+        and str((cfg.get("algo") or {}).get("name", "")).startswith("dreamer"),
         "buffer.backend other than local": str(buffer.get("backend", "local")) != "local",
         "checkpoint.backend other than pickle": str(checkpoint.get("backend", "pickle")) != "pickle",
         "checkpoint.async_save": bool(checkpoint.get("async_save")),
@@ -133,11 +133,35 @@ def _fabric(cfg):
     )
 
 
+def setup_metrics(cfg) -> None:
+    """Keep only the algorithm's own aggregator metrics (its ``AGGREGATOR_KEYS``),
+    and switch the aggregator and the timers by ``metric.log_level`` (the
+    timers also by ``metric.disable_timer``); the timers start from zero."""
+    import importlib
+
+    from sheeprl_tpu_torch.utils.metric import MetricAggregator
+    from sheeprl_tpu_torch.utils.registry import ALGORITHMS
+    from sheeprl_tpu_torch.utils.timer import timer
+
+    log_level = int(cfg.metric.log_level)
+    utils_module = ALGORITHMS[cfg.algo.name][0].rsplit(".", 1)[0] + ".utils"
+    keys = set(getattr(importlib.import_module(utils_module), "AGGREGATOR_KEYS", ()))
+    if log_level > 0 and keys:
+        metrics = cfg.metric.aggregator.metrics
+        cfg.metric.aggregator.metrics = {
+            k: v for k, v in metrics.items() if k in keys or any(k.startswith(p + "_") for p in keys)
+        }
+    timer.disabled = log_level == 0 or bool(cfg.metric.get("disable_timer", False))
+    timer.to_dict(reset=True)
+    MetricAggregator.disabled = log_level == 0
+
+
 def run_algorithm(cfg) -> Any:
-    """Registry lookup, fabric, then the algorithm's ``main(fabric, cfg)``."""
+    """Registry lookup, metrics, fabric, then the algorithm's ``main(fabric, cfg)``."""
     import torch
 
     main = check_configs(cfg)
+    setup_metrics(cfg)
     torch.set_num_threads(int(cfg.get("num_threads") or 1))
     return main(_fabric(cfg), cfg)
 

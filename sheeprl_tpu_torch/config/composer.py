@@ -437,14 +437,20 @@ def compose(
     return Composer(extra_dirs).compose(overrides, config_name)
 
 
+# targets outside the JAX package that the port replaces with its own
+_FOREIGN_TARGETS = {"gymnasium.make": "sheeprl_tpu_torch.envs.classic.make"}
+
+
 def repoint_targets(node: Any) -> Any:
     """``_target_``/``cls`` paths of the JAX package -> the port's modules (a
     config.yaml the JAX package wrote, read by the port)."""
     if isinstance(node, dict):
         out = {}
         for k, v in node.items():
-            if k in ("_target_", "cls") and isinstance(v, str) and v.startswith("sheeprl_tpu."):
-                v = "sheeprl_tpu_torch." + v[len("sheeprl_tpu.") :]
+            if k in ("_target_", "cls") and isinstance(v, str):
+                if v.startswith("sheeprl_tpu."):
+                    v = "sheeprl_tpu_torch." + v[len("sheeprl_tpu.") :]
+                v = _FOREIGN_TARGETS.get(v, v)
             out[k] = repoint_targets(v)
         return out
     if isinstance(node, list):

@@ -136,7 +136,11 @@ class ReplayBuffer:
 
     def __getstate__(self) -> Dict[str, Any]:
         state = self.__dict__.copy()
-        if not self._memmap and not self._full:
+        if self._memmap:
+            # the pickle refers to the files: what it refers to must be on disk
+            for v in self._buf.values():
+                v.flush()
+        elif not self._full:
             # The capacity beyond the write cursor is uninitialized garbage;
             # pickling it writes buffer_size rows regardless of fill (observed:
             # a 60 GB checkpoint for a 320-step run with the default 5M-capacity
@@ -523,3 +527,9 @@ class EnvIndependentReplayBuffer:
             batch_size=batch_size, sample_next_obs=sample_next_obs, clone=clone, n_samples=n_samples, **kwargs
         )
         return {k: get_tensor(v, dtype=dtype, device=device) for k, v in samples.items()}
+
+
+def memmap_arrays(rb: Any) -> List[MemmapArray]:
+    """The disk-backed arrays of a ``ReplayBuffer`` or an ``EnvIndependentReplayBuffer``."""
+    buffers = rb.buffer if isinstance(rb, EnvIndependentReplayBuffer) else (rb,)
+    return [v for b in buffers for v in b.buffer.values() if isinstance(v, MemmapArray)]

@@ -89,3 +89,12 @@ def action_space_dims(action_space: Space) -> Tuple[Tuple[int, ...], bool]:
     if isinstance(action_space, Discrete):
         return (int(action_space.n),), False
     raise NotImplementedError(f"action space {action_space!r} is not supported")
+
+
+def env_actions(actions: np.ndarray, actions_dim: Sequence[int], is_continuous: bool) -> np.ndarray:
+    """A policy's concatenated actions as the env takes them: continuous
+    values as they are, one index per one-hot block otherwise."""
+    if is_continuous:
+        return actions
+    splits = np.cumsum(actions_dim)[:-1]
+    return np.stack([b.argmax(-1) for b in np.split(actions, splits, axis=-1)], axis=-1)

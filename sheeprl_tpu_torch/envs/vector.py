@@ -119,3 +119,14 @@ class SyncVectorEnv:
     def close(self) -> None:
         for env in self.envs:
             env.close()
+
+
+def episode_stats(infos: Dict[str, Any], num_envs: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(returns, lengths) of the episodes that ended in one vector step, from
+    the ``episode`` statistics of their final infos."""
+    ep_info = infos.get("final_info", infos)
+    if "episode" not in ep_info:
+        return np.zeros(0), np.zeros(0)
+    ep = ep_info["episode"]
+    mask = ep.get("_r", ep_info.get("_episode", np.ones(num_envs, bool)))
+    return np.asarray(ep["r"])[mask], np.asarray(ep["l"])[mask]

@@ -1,10 +1,11 @@
-"""Environment wrappers of the serving path (port of the parts of
-``sheeprl_tpu/envs/wrappers.py`` that ``make_env`` applies to the dummy envs),
+"""Environment wrappers (port of the parts of ``sheeprl_tpu/envs/wrappers.py``
+and of the gymnasium wrappers that ``make_env`` applies to the port's envs),
 over the port's own spaces instead of gymnasium's."""
 
 from __future__ import annotations
 
 import copy
+import time
 from collections import deque
 from typing import Any, Dict, Optional, Sequence
 
@@ -127,3 +128,74 @@ class TimeLimit(Wrapper):
     def reset(self, *, seed: Optional[int] = None, options: Optional[Dict[str, Any]] = None):
         self._elapsed = 0
         return self.env.reset(seed=seed, options=options)
+
+
+class DictObservation(Wrapper):
+    """A single-array observation as a one-key dict observation."""
+
+    def __init__(self, env: Any, key: str) -> None:
+        super().__init__(env)
+        self._key = key
+        self.observation_space = spaces.Dict({key: env.observation_space})
+
+    def step(self, action):
+        obs, reward, terminated, truncated, info = self.env.step(action)
+        return {self._key: obs}, reward, terminated, truncated, info
+
+    def reset(self, *, seed: Optional[int] = None, options: Optional[Dict[str, Any]] = None):
+        obs, info = self.env.reset(seed=seed, options=options)
+        return {self._key: obs}, info
+
+
+class MaskVelocityWrapper(Wrapper):
+    """Zero the velocity entries of a vector observation (``env.mask_velocities``)."""
+
+    # the JAX package's table, for the ids the port has
+    velocity_indices: Dict[str, np.ndarray] = {"CartPole-v1": np.array([1, 3])}
+
+    def __init__(self, env: Any, env_id: str) -> None:
+        super().__init__(env)
+        if env_id not in self.velocity_indices:
+            raise NotImplementedError(f"Velocity masking not implemented for {env_id}")
+        self.mask = np.ones(env.observation_space.shape, dtype=env.observation_space.dtype)
+        self.mask[self.velocity_indices[env_id]] = 0.0
+
+    def step(self, action):
+        obs, reward, terminated, truncated, info = self.env.step(action)
+        return obs * self.mask, reward, terminated, truncated, info
+
+    def reset(self, *, seed: Optional[int] = None, options: Optional[Dict[str, Any]] = None):
+        obs, info = self.env.reset(seed=seed, options=options)
+        return obs * self.mask, info
+
+
+class RecordEpisodeStatistics(Wrapper):
+    """At an episode's end, ``info["episode"] = {"r": return, "l": length, "t":
+    seconds}``, as ``gymnasium.wrappers.RecordEpisodeStatistics`` reports it."""
+
+    def __init__(self, env: Any) -> None:
+        super().__init__(env)
+        self.episode_start_time = -1.0
+        self.episode_returns = 0.0
+        self.episode_lengths = 0
+
+    def step(self, action):
+        obs, reward, terminated, truncated, info = self.env.step(action)
+        self.episode_returns += reward
+        self.episode_lengths += 1
+        if terminated or truncated:
+            info = dict(info)
+            info["episode"] = {
+                "r": self.episode_returns,
+                "l": self.episode_lengths,
+                "t": round(time.perf_counter() - self.episode_start_time, 6),
+            }
+            self.episode_start_time = time.perf_counter()
+        return obs, reward, terminated, truncated, info
+
+    def reset(self, *, seed: Optional[int] = None, options: Optional[Dict[str, Any]] = None):
+        obs, info = self.env.reset(seed=seed, options=options)
+        self.episode_start_time = time.perf_counter()
+        self.episode_returns = 0.0
+        self.episode_lengths = 0
+        return obs, info

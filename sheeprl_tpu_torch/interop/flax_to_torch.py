@@ -14,19 +14,25 @@ port's ``nn.Module``s and back:
   candidate, update), ``bias``, ``ln_scale``, ``ln_bias``: kept as they are.
 
 Composite modules name their children as the Flax modules do (``Dense_0``,
-``LayerNorm_1``, ``DenseStack_0``, ``Conv_2``, ...).
+``LayerNorm_1``, ``DenseStack_0``, ``Conv_2``, ...). The Dreamer-V3 agent
+(:func:`agent_to_flax`, :func:`load_flax_params`) and the PPO agent, which A2C
+shares (:func:`ppo_to_flax`, :func:`load_ppo_params`), are mapped whole;
+:func:`dv3_group_to_torch` and :func:`ppo_to_torch` turn a tree shaped like a
+parameter group (an optax moment) into the group's tensors.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import copy
+from typing import Any, Callable, Dict, List
 
 import numpy as np
 import torch
 from torch import nn
 
 from sheeprl_tpu_torch.algos.dreamer_v3 import agent as dv3
-from sheeprl_tpu_torch.models.models import LayerNormGRUCell
+from sheeprl_tpu_torch.algos.ppo import agent as ppo
+from sheeprl_tpu_torch.models.models import MLP, LayerNormGRUCell, NatureCNN
 
 Tree = Dict[str, Any]
 
@@ -152,6 +158,18 @@ def _children(m: nn.Module) -> Dict[str, nn.Module]:
         out = {"DenseStack_0": m.stack}
         out.update({f"Dense_{i}": head for i, head in enumerate(m.heads)})
         return out
+    if isinstance(m, MLP):
+        out = {f"Dense_{i}": lin for i, lin in enumerate(m.linears)}
+        out.update({f"LayerNorm_{i}": ln for i, ln in enumerate(m.norms)})
+        return out
+    if isinstance(m, NatureCNN):
+        return {"CNN_0": m.convs, "Dense_0": m.linear}
+    if isinstance(m, nn.ModuleList) and all(isinstance(c, nn.Conv2d) for c in m):  # NatureCNN's CNN_0
+        return {f"Conv_{i}": conv for i, conv in enumerate(m)}
+    if isinstance(m, ppo.CNNEncoder):
+        return {"NatureCNN_0": m.cnn}
+    if isinstance(m, ppo.MLPEncoder):
+        return {"MLP_0": m.mlp}
     if isinstance(m, dv3.Decoder):
         return {k: v for k, v in (("cnn_decoder", m.cnn_decoder), ("mlp_decoder", m.mlp_decoder)) if v is not None}
     raise TypeError(f"no Flax mapping for {type(m).__name__}")
@@ -214,3 +232,63 @@ def load_flax_params(agent: "dv3.DV3Agent", params: Tree) -> None:
     module_from_flax(agent.actor, params["actor"], "actor")
     module_from_flax(agent.critic, params["critic"], "critic")
     module_from_flax(agent.target_critic, params["target_critic"], "target_critic")
+
+
+def dv3_group_to_torch(agent: "dv3.DV3Agent", group: str) -> Callable[[Tree], List[torch.Tensor]]:
+    """A tree shaped like the JAX params of one optimizer group
+    (``world_model``, ``actor`` or ``critic``) -> tensors in the order of
+    ``param_groups(agent)[group]``."""
+
+    def convert(tree: Tree) -> List[torch.Tensor]:
+        if group == "world_model":
+            scratch = copy.deepcopy(agent.world_model)
+            for name in _WORLD_MODEL:
+                module_from_flax(scratch[name], tree[name], f"world_model/{name}")
+            init = torch.tensor(np.asarray(tree["initial_recurrent_state"], dtype=np.float32))
+            return [p.detach() for p in scratch.parameters()] + [init]
+        scratch = copy.deepcopy(getattr(agent, group))
+        module_from_flax(scratch, tree, group)
+        return [p.detach() for p in scratch.parameters()]
+
+    return convert
+
+
+# -- the PPO agent (A2C's too) ------------------------------------------------------------
+def _ppo_parts(agent: "ppo.PPOAgent") -> Dict[str, nn.Module]:
+    parts = {"critic": agent.critic, "actor_backbone": agent.actor_backbone}
+    parts.update({f"actor_heads_{i}": head for i, head in enumerate(agent.actor_heads)})
+    return parts
+
+
+def _ppo_encoders(agent: "ppo.PPOAgent") -> Dict[str, nn.Module]:
+    return {k: v for k, v in (("cnn_encoder", agent.cnn_encoder), ("mlp_encoder", agent.mlp_encoder)) if v is not None}
+
+
+def ppo_to_flax(agent: "ppo.PPOAgent") -> Tree:
+    """The agent's parameters as the JAX package's PPO params tree."""
+    out = {"feature_extractor": {k: module_to_flax(v) for k, v in _ppo_encoders(agent).items()}}
+    out.update({k: module_to_flax(v) for k, v in _ppo_parts(agent).items()})
+    return out
+
+
+def load_ppo_params(agent: "ppo.PPOAgent", params: Tree) -> None:
+    """Copy a JAX-package PPO params tree into ``agent``."""
+    encoders, parts = _ppo_encoders(agent), _ppo_parts(agent)
+    expected, found = sorted(["feature_extractor", *parts]), sorted(params)
+    if expected != found or sorted(params["feature_extractor"]) != sorted(encoders):
+        raise ValueError(f"PPO params: checkpoint children {found} do not match the agent's {expected}")
+    for name, module in encoders.items():
+        module_from_flax(module, params["feature_extractor"][name], f"feature_extractor/{name}")
+    for name, module in parts.items():
+        module_from_flax(module, params[name], name)
+
+
+def ppo_to_torch(agent: "ppo.PPOAgent") -> Callable[[Tree], List[torch.Tensor]]:
+    """A tree shaped like the JAX PPO params -> tensors in ``agent.parameters()`` order."""
+
+    def convert(tree: Tree) -> List[torch.Tensor]:
+        scratch = copy.deepcopy(agent)
+        load_ppo_params(scratch, tree)
+        return [p.detach() for p in scratch.parameters()]
+
+    return convert

@@ -16,6 +16,18 @@ checkpoint the port uses ``state["agent"]`` only.
 buffer rides along with its last rows marked truncated (so a resumed run never
 joins an episode across the gap), and only the newest ``keep_last``
 checkpoints stay.
+
+A memory-mapped buffer is pickled as references to its files (at the exp's
+size they hold ~12 GB), so the files belong to the checkpoints once one
+refers to them: the live buffer stops owning them (it no longer deletes them
+when it is collected), and ``<ckpt>.memmap`` lists them. Rotation deletes a
+file when the last kept checkpoint listing it goes. A resumed run reads the
+live files with the checkpoint's cursors: rows the old run wrote after the
+checkpoint sit at and beyond the cursor and are overwritten as the resumed
+run adds rows, so the rows it samples are the checkpoint's unless the old run
+went on to write more rows than lay between the cursor and the end of the
+ring. :func:`load_run_buffer` marks the newest rows truncated again (the live
+run restored their flags in the files after the save).
 """
 
 from __future__ import annotations
@@ -31,6 +43,7 @@ import numpy as np
 import torch
 
 SHA_SIDECAR_SUFFIX = ".sha256"
+MEMMAP_SIDECAR_SUFFIX = ".memmap"
 
 # modules whose classes load as placeholders (their objects are not used)
 _INERT_MODULES = ("jax", "jaxlib", "flax", "optax", "chex", "orbax", "ml_dtypes", "sheeprl_tpu")
@@ -191,29 +204,63 @@ def _restore_last_rows(rb, saved: list) -> None:
         b["truncated"][last] = truncated
 
 
+def _memmap_files(ckpt: str) -> set:
+    try:
+        with open(ckpt + MEMMAP_SIDECAR_SUFFIX) as fh:
+            return {line.strip() for line in fh if line.strip()}
+    except OSError:
+        return set()
+
+
 def _delete_old_checkpoints(folder: str, keep_last: int, live: str) -> None:
+    """Keep the newest ``keep_last`` checkpoints of ``folder`` (``live``, the one
+    just written, among them); the others go with their sidecars, and so do
+    the memmap files that only they listed."""
     if not keep_last:
         return
     live = os.path.abspath(live)
     others = [c for c in sorted(glob.glob(os.path.join(folder, "*.ckpt")), key=os.path.getmtime)
               if os.path.abspath(c) != live]
-    for stale in others[: max(0, len(others) - (keep_last - 1))]:
-        for path in (stale, stale + SHA_SIDECAR_SUFFIX):
-            try:
-                os.remove(path)
-            except OSError:
-                pass
+    n_stale = max(0, len(others) - (keep_last - 1))
+    stale, kept = others[:n_stale], others[n_stale:] + [live]
+    still_listed = set().union(*(_memmap_files(c) for c in kept))
+    orphans = set().union(*(_memmap_files(c) for c in stale)) - still_listed
+    for path in [p for c in stale for p in (c, c + SHA_SIDECAR_SUFFIX, c + MEMMAP_SIDECAR_SUFFIX)] + sorted(orphans):
+        try:
+            os.remove(path)
+        except OSError:
+            pass
 
 
 def save_run_checkpoint(path: str, state: Dict[str, Any], replay_buffer=None, keep_last: int = 0) -> None:
     """Write a training checkpoint (``state`` plus ``rb`` when a replay buffer
-    is given) and keep the newest ``keep_last`` in its folder (0 keeps all)."""
+    is given) and keep the newest ``keep_last`` in its folder (0 keeps all).
+    A memory-mapped buffer's files pass to the checkpoints (module docstring)."""
     if replay_buffer is not None:
+        from sheeprl_tpu_torch.data.buffers import memmap_arrays
+
         saved = _mark_last_rows_truncated(replay_buffer)
         try:
             save_checkpoint(path, {**state, "rb": replay_buffer})
         finally:
             _restore_last_rows(replay_buffer, saved)
+        arrays = memmap_arrays(replay_buffer)
+        if arrays:
+            for a in arrays:
+                a.has_ownership = False
+            tmp = path + MEMMAP_SIDECAR_SUFFIX + ".tmp"
+            with open(tmp, "w") as fh:
+                fh.writelines(f"{os.path.abspath(a.filename)}\n" for a in arrays)
+            os.replace(tmp, path + MEMMAP_SIDECAR_SUFFIX)
     else:
         save_checkpoint(path, state)
     _delete_old_checkpoints(os.path.dirname(path), keep_last, path)
+
+
+def load_run_buffer(state: Dict[str, Any]):
+    """The replay buffer of a training checkpoint, its newest rows marked
+    truncated: a memory-mapped buffer's files hold the flags the live run
+    restored after the save."""
+    rb = state["rb"]
+    _mark_last_rows_truncated(rb)
+    return rb

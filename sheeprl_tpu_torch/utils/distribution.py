@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +28,12 @@ def _sum_rightmost(x: torch.Tensor, ndims: int) -> torch.Tensor:
     if ndims == 0:
         return x
     return x.sum(dim=tuple(range(-ndims, 0)))
+
+
+def draw_gumbel(shape: Sequence[int], generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """Standard Gumbel noise: ``argmax(logits + g)`` is a categorical draw."""
+    u = torch.rand(tuple(shape), device=device, generator=generator)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
 
 
 class Distribution:

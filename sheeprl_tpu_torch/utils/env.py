@@ -1,22 +1,35 @@
 """Environment factory (port of ``sheeprl_tpu/utils/env.py::make_env`` for the
-environments the port supports, the dummy envs).
+environments the port supports: the dummy envs and ``CartPole-v1``).
 
 The pipeline is the JAX package's: instantiate ``cfg.env.wrapper``, action
-repeat, the cnn-key pixel pipeline (resize / grayscale / channel-first), frame
-stacking and a time limit. Environments must emit dict observations over the
-port's own spaces (``envs/spaces.py``); gymnasium is not needed. Options the
-port has not ported yet raise instead of being ignored.
+repeat, velocity masking, a vector observation as a one-key dict,
+the cnn-key pixel pipeline (resize / grayscale / channel-first), frame
+stacking, a time limit and the episode statistics. Environments emit
+observations over the port's own spaces (``envs/spaces.py``); gymnasium is not
+needed. Options the port has not ported yet raise instead of being ignored,
+but for ``env.capture_video``: the port has no video recorder, so it warns and
+records nothing, as the JAX package does when it cannot record.
 """
 
 from __future__ import annotations
 
+import functools
+import warnings
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 
 from sheeprl_tpu_torch.config import instantiate
 from sheeprl_tpu_torch.envs import spaces
-from sheeprl_tpu_torch.envs.wrappers import ActionRepeat, FrameStack, TimeLimit, Wrapper
+from sheeprl_tpu_torch.envs.wrappers import (
+    ActionRepeat,
+    DictObservation,
+    FrameStack,
+    MaskVelocityWrapper,
+    RecordEpisodeStatistics,
+    TimeLimit,
+    Wrapper,
+)
 
 
 class _PixelPipeline(Wrapper):
@@ -72,6 +85,16 @@ class _PixelPipeline(Wrapper):
         return self._observation(obs), info
 
 
+@functools.cache
+def _warn_no_video_recorder() -> None:
+    """Once a process: the JAX package warns and goes on when it cannot record,
+    and the port has no recorder at all, so this is always that path."""
+    warnings.warn(
+        "env.capture_video=True: sheeprl_tpu_torch has no video recorder, so no video is "
+        "captured (set env.capture_video=False to silence this warning)"
+    )
+
+
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not yet ported to sheeprl_tpu_torch")
 
@@ -100,7 +123,7 @@ def make_env(
         if cfg.env.action_repeat > 1:
             env = ActionRepeat(env, cfg.env.action_repeat)
         if cfg.env.get("mask_velocities", False):
-            raise _not_ported("env.mask_velocities")
+            env = MaskVelocityWrapper(env, str(cfg.env.id))
 
         cnn_enc = cfg.algo.cnn_keys.encoder
         mlp_enc = cfg.algo.mlp_keys.encoder
@@ -109,8 +132,19 @@ def make_env(
                 "`algo.cnn_keys.encoder` and `algo.mlp_keys.encoder` must be non-empty lists of "
                 f"strings, got cnn={cnn_enc!r} and mlp={mlp_enc!r}"
             )
+        obs_space = env.observation_space
+        if isinstance(obs_space, spaces.Box) and len(obs_space.shape) < 2:
+            # a vector observation
+            if len(cnn_enc) > 0:
+                raise _not_ported("rendering a vector-observation env into a cnn key")
+            if len(mlp_enc) > 1:
+                warnings.warn(
+                    f"Multiple mlp keys specified but only one observation is allowed in "
+                    f"{cfg.env.id}; keeping the first: {mlp_enc[0]}"
+                )
+            env = DictObservation(env, mlp_enc[0])
         if not isinstance(env.observation_space, spaces.Dict):
-            raise _not_ported("an environment without dict observations")
+            raise _not_ported(f"an observation space like {obs_space!r}")
         if len(set(env.observation_space.keys()).intersection(set(mlp_enc + cnn_enc))) == 0:
             raise ValueError(
                 f"The user-specified keys {mlp_enc + cnn_enc} are not a subset of the environment "
@@ -138,8 +172,9 @@ def make_env(
 
         if cfg.env.max_episode_steps and cfg.env.max_episode_steps > 0:
             env = TimeLimit(env, max_episode_steps=cfg.env.max_episode_steps)
+        env = RecordEpisodeStatistics(env)
         if cfg.env.capture_video and rank == 0 and vector_env_idx == 0 and run_name is not None:
-            raise _not_ported("env.capture_video")
+            _warn_no_video_recorder()
         return env
 
     return thunk

@@ -14,9 +14,17 @@ _DV3 = "sheeprl_tpu_torch.algos.dreamer_v3"
 _DV3_NAMES = ("dreamer_v3", "dreamer_v3_decoupled")
 
 # the training loop ``main(fabric, cfg)``
-ALGORITHMS: Dict[str, Tuple[str, str]] = {"dreamer_v3": (f"{_DV3}.dreamer_v3", "main")}
+ALGORITHMS: Dict[str, Tuple[str, str]] = {
+    "dreamer_v3": (f"{_DV3}.dreamer_v3", "main"),
+    "ppo": ("sheeprl_tpu_torch.algos.ppo.ppo", "main"),
+    "a2c": ("sheeprl_tpu_torch.algos.a2c.a2c", "main"),
+}
 # ``evaluate(fabric, cfg, state)``
-EVALUATIONS: Dict[str, Tuple[str, str]] = {name: (f"{_DV3}.evaluate", "evaluate") for name in _DV3_NAMES}
+EVALUATIONS: Dict[str, Tuple[str, str]] = {
+    **{name: (f"{_DV3}.evaluate", "evaluate") for name in _DV3_NAMES},
+    "ppo": ("sheeprl_tpu_torch.algos.ppo.evaluate", "evaluate"),
+    "a2c": ("sheeprl_tpu_torch.algos.ppo.evaluate", "evaluate"),
+}
 # the family's ``get_serve_policy(fabric, cfg, state)`` extractor
 SERVE_POLICIES: Dict[str, Tuple[str, str]] = {name: (f"{_DV3}.serve", "get_serve_policy") for name in _DV3_NAMES}
 

@@ -1,12 +1,13 @@
 """Shared math and run helpers (port of the parts of ``sheeprl_tpu/utils/utils.py``
-that Dreamer-V3 uses): symlog/symexp, two-hot encoding, λ-returns, the
-replay-ratio governor and the run's config dump."""
+the port's algorithms use): symlog/symexp, two-hot encoding, λ-returns, GAE,
+advantage normalisation, polynomial decay, the replay-ratio governor and the
+run's config dump."""
 
 from __future__ import annotations
 
 import os
 import warnings
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -74,6 +75,57 @@ def compute_lambda_values(
         ret = interm[t] + continues[t] * lmbda * ret
         out.append(ret)
     return torch.stack(out[::-1], dim=0)
+
+
+def gae(
+    rewards: torch.Tensor,
+    values: torch.Tensor,
+    dones: torch.Tensor,
+    next_value: torch.Tensor,
+    num_steps: int,
+    gamma: float,
+    gae_lambda: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Generalised advantage estimation over a [T, B, ...] rollout; returns
+    (returns, advantages) shaped like ``rewards``. ``dones[t]`` flags an
+    episode's end at step t; the last step bootstraps from ``next_value``
+    masked by ``1 - dones[-1]``."""
+    dtype = rewards.dtype
+    not_dones = 1.0 - dones.to(dtype)
+    values = values.to(dtype)
+    next_values = torch.cat([values[1:], next_value[None].to(dtype)], dim=0)
+    lastgaelam = torch.zeros_like(rewards[0])
+    advantages = [None] * num_steps
+    for t in range(num_steps - 1, -1, -1):
+        delta = rewards[t] + gamma * next_values[t] * not_dones[t] - values[t]
+        lastgaelam = delta + gamma * gae_lambda * not_dones[t] * lastgaelam
+        advantages[t] = lastgaelam
+    advantages = torch.stack(advantages, dim=0)
+    return advantages + values, advantages
+
+
+def normalize_tensor(x: torch.Tensor, eps: float = 1e-8, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``(x - mean) / (std + eps)``, the population std (``jnp.std``), over
+    the entries ``mask`` keeps when given."""
+    if mask is None:
+        return (x - x.mean()) / (x.std(correction=0) + eps)
+    n = torch.clamp(mask.sum(), min=1)
+    mean = torch.sum(x * mask) / n
+    var = torch.sum(torch.square(x - mean) * mask) / n
+    return (x - mean) / (torch.sqrt(var) + eps)
+
+
+def polynomial_decay(
+    current_step: int,
+    *,
+    initial: float = 1.0,
+    final: float = 0.0,
+    max_decay_steps: int = 100,
+    power: float = 1.0,
+) -> float:
+    if current_step > max_decay_steps or initial == final:
+        return final
+    return (initial - final) * ((1 - current_step / max_decay_steps) ** power) + final
 
 
 class Ratio:

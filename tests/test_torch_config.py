@@ -21,9 +21,9 @@ from test_torch_helpers import overrides
 BASE = ["exp=dreamer_v3", "env=dummy"]
 
 
-# the port's own defaults for what it has not ported yet: metric loggers
-# (log_level > 0 is refused) and the replay prefetch thread
-PORT_DEFAULTS = {"metric.log_level": 0, "buffer.prefetch.enabled": False}
+# the port's own defaults for what it has not ported yet: the replay
+# prefetch thread
+PORT_DEFAULTS = {"buffer.prefetch.enabled": False}
 
 
 def _strip(node, path=""):

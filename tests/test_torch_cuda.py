@@ -303,3 +303,63 @@ def test_train_step_launches_the_kernel_in_both_scans(cuda):
     metrics = trainer.train_step(batch, 0, trainer.draw_noise(T, B, g))
     assert LN_GRU.launches == before + T + 5
     assert all(torch.isfinite(v) for v in metrics.values())
+
+
+def test_rmsprop_steps_on_the_card_match_the_cpu(cuda):
+    """Five steps of the port's optax-semantics RMSprop (A2C's settings,
+    centered and with momentum too) on the card and on the CPU from the same
+    gradients: within 1e-6 (the card's rsqrt may round another way)."""
+    from sheeprl_tpu_torch.optim import RMSprop
+
+    for kw in (dict(), dict(centered=True, momentum=0.9)):
+        rng = np.random.default_rng(0)
+        init = [rng.standard_normal(s).astype(np.float32) for s in ((64, 4), (64,), (2, 64))]
+        params = {d: [torch.nn.Parameter(torch.tensor(p, device=d)) for p in init] for d in ("cpu", cuda)}
+        opts = {d: RMSprop(ps, lr=1e-3, alpha=0.99, eps=1e-4, **kw) for d, ps in params.items()}
+        for _ in range(5):
+            grads = [rng.standard_normal(p.shape).astype(np.float32) for p in init]
+            for d, ps in params.items():
+                for p, g in zip(ps, grads):
+                    p.grad = torch.tensor(g, device=d)
+                opts[d].step()
+        for a, b in zip(params["cpu"], params[cuda]):
+            np.testing.assert_allclose(b.detach().cpu().numpy(), a.detach().numpy(), rtol=0, atol=1e-6)
+
+
+def test_ppo_train_phase_on_the_card_matches_the_cpu(cuda):
+    """One PPO train phase at the exp's widths (CartPole, 4 envs x 128 steps,
+    minibatches of 64, 10 epochs) from the same weights, rollout and
+    permutations, TF32 off: every parameter within 1e-4 after 80 Adam
+    updates of ~lr = 1e-3 each, and the losses within 1e-4 relative."""
+    from sheeprl_tpu_torch.algos.ppo.agent import build_agent
+    from sheeprl_tpu_torch.algos.ppo.ppo import PPOTrainer, build_optimizer
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.parallel.fabric import Fabric
+    from sheeprl_tpu_torch.utils.env import make_env
+
+    cfg = compose(["exp=ppo", "env.capture_video=False"])
+    space = make_env(cfg, 0, 0)().observation_space
+    rng = np.random.default_rng(1)
+    T, E = 128, 4
+    data = {
+        "state": rng.standard_normal((T, E, 4)).astype(np.float32),
+        "actions": np.eye(2, dtype=np.float32)[rng.integers(0, 2, (T, E))],
+        "logprobs": -rng.uniform(0.1, 1.5, (T, E, 1)).astype(np.float32),
+        "values": rng.standard_normal((T, E, 1)).astype(np.float32),
+        "rewards": np.ones((T, E, 1), np.float32),
+        "dones": (rng.uniform(size=(T, E, 1)) < 0.05).astype(np.float32),
+    }
+    next_values = rng.standard_normal((E, 1)).astype(np.float32)
+    out = {}
+    for accel in ("cpu", "gpu"):
+        fabric = Fabric(accelerator=accel, float32_matmul_precision="highest")
+        agent = build_agent(fabric, (2,), False, cfg, space, 0)
+        optimizer, schedule = build_optimizer(cfg, agent, 128)
+        trainer = PPOTrainer(agent, optimizer, cfg, schedule)
+        perms = trainer.draw_permutations(torch.Generator().manual_seed(2))
+        batch = {k: torch.tensor(v, device=fabric.device) for k, v in data.items()}
+        losses = trainer.train_phase(batch, torch.tensor(next_values, device=fabric.device), perms, 0.2, 0.0)
+        out[accel] = (losses.cpu(), [p.detach().cpu() for p in agent.parameters()])
+    np.testing.assert_allclose(out["gpu"][0].numpy(), out["cpu"][0].numpy(), rtol=1e-4, atol=1e-6)
+    for a, b in zip(out["gpu"][1], out["cpu"][1]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-4)

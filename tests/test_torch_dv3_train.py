@@ -763,7 +763,7 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
 
     base = CLI_TINY + ["env.id=discrete_dummy", "algo.total_steps=4"]
     for override, match in (
-        ("metric.log_level=1", "metric.log_level"),
+        ("metric.profiler.mode=run", "profiler"),
         ("buffer.prefetch.enabled=True", "prefetch"),
         ("metric.telemetry.enabled=True", "telemetry"),
     ):
@@ -774,17 +774,26 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
 
 
 def test_resume_refuses_an_optax_optimizer_state(tmp_path):
-    """A checkpoint of the JAX package holds optax states: resuming from one is
-    refused, never silently re-initialised."""
+    """A checkpoint of the JAX package holds optax states, which the port
+    converts (tests/test_torch_optim_state.py); one that does not fit the
+    trainer's optimizers (another agent's shapes, a missing group) is refused,
+    never silently re-initialised."""
     from sheeprl_tpu.algos.dreamer_v3.dreamer_v3 import build_optimizers as jax_build_optimizers
 
-    jagent, params, _, cfg_jax, _ = _pair("discrete")
-    _, _, _, opt_state = jax_build_optimizers(cfg_jax, params)
-    trainer = _trainer("discrete")
-    with pytest.raises(ValueError, match="optax"):
-        trainer.load_opt_state(numpy_tree(opt_state))
-    # the port's own state goes through a checkpoint and back
+    _, _, _, cfg_jax, _ = _pair("discrete")
+    _, other_params, _, _, _ = _pair("continuous")
+    from sheeprl_tpu.utils.checkpoint import save_checkpoint as jax_save_checkpoint
     from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    _, _, _, opt_state = jax_build_optimizers(cfg_jax, other_params)
+    jax_save_checkpoint(str(tmp_path / "jax.ckpt"), {"opt_state": opt_state})
+    opt_state = load_checkpoint(str(tmp_path / "jax.ckpt"))["opt_state"]
+    trainer = _trainer("discrete")
+    with pytest.raises(ValueError, match="shape"):
+        trainer.load_opt_state(opt_state)
+    with pytest.raises(ValueError, match="groups"):
+        trainer.load_opt_state({"actor": opt_state["actor"]})
+    # the port's own state goes through a checkpoint and back
 
     save_checkpoint(str(tmp_path / "opt.ckpt"), {"opt_state": trainer.opt_state()})
     trainer.load_opt_state(load_checkpoint(str(tmp_path / "opt.ckpt"))["opt_state"])

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no module of sheeprl_tpu_torch, and neither
-chip_smoke.py nor ln_gru_breakdown.py, imports jax, flax, optax or the JAX
-package.
+chip_smoke.py nor ln_gru_breakdown.py, imports jax, flax, optax, gymnasium
+(the machine with the card has none of them) or the JAX package.
 
 tests/conftest.py imports jax in this process and moves the working
 directory, so the import check runs in a fresh subprocess with PYTHONPATH set
@@ -22,7 +22,7 @@ from test_torch_helpers import SUBPROCESS_ENV
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "sheeprl_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chex", "orbax", "sheeprl_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chex", "orbax", "gymnasium", "sheeprl_tpu")
 
 
 SCRIPTS = ["chip_smoke", "ln_gru_breakdown"]  # the port's scripts at the root of the repo
