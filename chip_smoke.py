@@ -43,13 +43,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
    checkpoint). Then one PPO train phase on the card vs the CPU (TF32 off)
    and three A2C RMSprop steps likewise, the seconds per PPO train phase and
    the ms of one host acting step;
-7. the profiles, under torch.profiler and only now (once it has run, later
+7. SAC (``exp=sac env.id=Pendulum-v1``, the exp's widths, batch and replay
+   ratio, 4 envs) through the entry points on the card: 12,000 policy steps
+   with the metric log and the test episode (its reward must reach -400), a
+   resume into version_1, an evaluation; the checkpoint served through
+   ``serve_main`` (4 slots, 4 sessions) and the batched greedy step held
+   against the CPU's. A short ``exp=droq`` run (finite losses, a checkpoint,
+   an evaluation). Then one SAC and one DroQ train phase on the card vs the
+   CPU (TF32 off), the seconds per SAC gradient step and per DroQ train
+   phase (G = 20) and the ms of one host acting step;
+8. the profiles, under torch.profiler and only now (once it has run, later
    eager launches cost more host time): each phase-3 shape's device time by
    kernel name, with its kernel launches per call counted in a captured CUDA
    graph; serving ticks (device time by kernel, the LN-GRU kernel's launches
    by name, busy share); a training step (the same, and its kernel count); a PPO train phase
-   (busy share, device operations);
-8. print the ``kernels`` JSON line, the card line, and the final result line.
+   and a SAC train phase (busy share, device operations);
+9. print the ``kernels`` JSON line, the card line, and the final result line.
 
 The training phase launches with the config's defaults for video capture
 (warned and skipped), the metric log (its event file must hold the losses,
@@ -923,6 +932,317 @@ def profile_ppo_train_phase(warm: tuple) -> dict:
     return out
 
 
+# SAC on Pendulum-v1 at the exp's settings (hidden 256 for the actor and the
+# 2 critics, batch 256, replay ratio 1, learning_starts 100, 4 envs): 12,000
+# policy steps (3,000 iterations, ~12,000 gradient steps). On the CPU three
+# seeds' runs of 12,000 steps ended with test rewards of -3 to -122 and their
+# last episodes averaging -118 to -161 (-262 to -145 already at 6,000 steps);
+# random play scores about -1,200 and a solved policy about -150. The card's
+# float32 rounding takes another trajectory, so the bar sits well below the
+# CPU's results and well above random play
+SAC_TOTAL_STEPS = 12000
+SAC_STEPS_PER_ITER = 4
+SAC_RESUME_STEPS = 400  # 100 more iterations: 25 wait for learning_starts again, then training
+SAC_MIN_TEST_REWARD = -400.0
+SAC_TAGS = ("Loss/value_loss", "Loss/policy_loss", "Loss/alpha_loss", "Rewards/rew_avg", "Time/sps_train",
+            "Time/sps_env_interaction")
+# DroQ, a short run at the exp's replay ratio 20: 50 iterations, the first
+# train phase 1,600 critic updates (Ratio's first call counts the prefill),
+# then 80 a phase
+DROQ_TOTAL_STEPS = 200
+# one SAC train phase (G = 4 gradient steps) and one DroQ train phase (G = 4
+# critic updates, then the actor's) at the exp's widths on the card vs the
+# CPU, TF32 off, from the same weights, block, normal draws and dropout masks.
+# The actor's output heads are scaled by 0.1 first, so that the pre-squash
+# samples stay near N(0, 1): on tanh's saturated tail the two devices' float32
+# tanh may differ by ulps, which log(1 - tanh^2 + 1e-6) magnifies into the
+# log-probs (tests/test_torch_sac_agent.py::test_squash_logprob_where_tanh_saturates).
+# Adam's first updates move each weight by about lr = 3e-4 whatever the
+# gradient's size; a gradient within rounding of 0 may step either way: every
+# parameter within 1e-4, the losses within 1e-4 relative (or of 1e-3)
+SAC_PARITY_G = 4
+SAC_PARAM_ATOL = 1e-4
+SAC_LOSS_RTOL = 1e-4
+DROQ_TIMING_G = 20  # the per-phase critic updates of DroQ's replay ratio 20 at one env
+
+
+def sac_path(out_dir: str) -> dict:
+    """``exp=sac env.id=Pendulum-v1`` through the entry points on the card:
+    train 12,000 policy steps with the config's defaults (video warned,
+    metric log, memmap buffer in the checkpoint), the test episode's reward
+    over the bar; resume into version_1; evaluate. SAC reaches no TPU kernel:
+    its launch counts are read to show that."""
+    from sheeprl_tpu_torch.cli import evaluation, run
+
+    overrides = ["exp=sac", "env.id=Pendulum-v1", f"hydra.run.dir={os.path.join(out_dir, 'sac')}"]
+    out = {}
+    _zero_launches()
+    first = run(overrides + [f"algo.total_steps={SAC_TOTAL_STEPS}"])
+    out["train"] = {"summary": first, "launches": {spec.name: spec.launches for spec in KERNELS}}
+    scalars = check_scalars("SAC first run", first["log_dir"], SAC_TAGS)
+    out["train"]["scalars"] = {t: scalars[t][-1] for t in SAC_TAGS}
+    out["train"]["rew_avg_curve"] = scalars["Rewards/rew_avg"]
+    out["seconds_per_gradient_step_in_the_loop"] = first["train_seconds"] / first["gradient_steps"]
+    out["seconds_per_iteration_acting_in_the_loop"] = first["env_seconds"] / first["iterations"]
+    print(f"[chip-smoke] SAC first run: {first['gradient_steps']} gradient steps in {first['train_phases']} train "
+          f"phases, {first['policy_steps']} policy steps in {first['wall_seconds']:.2f}s (train "
+          f"{first['train_seconds']:.2f}s, env {first['env_seconds']:.2f}s); test reward {first['test_reward']} "
+          f"(bar >= {SAC_MIN_TEST_REWARD}); losses {json.dumps(first['metrics'])}; Rewards/rew_avg "
+          f"{[(s, round(v, 1)) for s, v in scalars['Rewards/rew_avg']]}; last Time/sps_env_interaction "
+          f"{scalars['Time/sps_env_interaction'][-1][1]:.1f}, Time/sps_train {scalars['Time/sps_train'][-1][1]:.1f}",
+          flush=True)
+    if first["policy_steps"] != SAC_TOTAL_STEPS or first["gradient_steps"] < SAC_TOTAL_STEPS - 200:
+        raise AssertionError(f"SAC took {first['gradient_steps']} gradient steps in {first['policy_steps']} steps")
+    if not all(math.isfinite(v) for v in first["metrics"].values()):
+        raise AssertionError(f"SAC: non-finite losses {first['metrics']}")
+    if not (first["test_reward"] is not None and first["test_reward"] >= SAC_MIN_TEST_REWARD):
+        raise AssertionError(f"SAC: test reward {first['test_reward']} < {SAC_MIN_TEST_REWARD}")
+    _zero_launches()
+    resumed = run(overrides + [f"algo.total_steps={SAC_TOTAL_STEPS + SAC_RESUME_STEPS}",
+                               f"checkpoint.resume_from={first['checkpoint']}"])
+    out["resume"] = {"summary": resumed, "launches": {spec.name: spec.launches for spec in KERNELS}}
+    print(f"[chip-smoke] SAC resumed run: {resumed['gradient_steps']} gradient steps into {resumed['log_dir']}, "
+          f"test reward {resumed['test_reward']}, losses {json.dumps(resumed['metrics'])}", flush=True)
+    if not (resumed["log_dir"].endswith("version_1") and resumed["gradient_steps"] > 0):
+        raise AssertionError(f"SAC resume: {resumed['gradient_steps']} gradient steps into {resumed['log_dir']}")
+    if not all(math.isfinite(v) for v in resumed["metrics"].values()):
+        raise AssertionError(f"SAC resume: non-finite losses {resumed['metrics']}")
+    _zero_launches()
+    reward = evaluation([f"checkpoint_path={resumed['checkpoint']}"])
+    out["evaluation"] = {"reward": reward, "launches": {spec.name: spec.launches for spec in KERNELS}}
+    print(f"[chip-smoke] SAC evaluation: reward {reward}", flush=True)
+    if not math.isfinite(reward):
+        raise AssertionError(f"SAC evaluation: reward {reward}")
+    out["ckpt"] = first["checkpoint"]
+    return out
+
+
+def sac_serve_path(ckpt: str, out_dir: str) -> dict:
+    """The SAC checkpoint through ``serve_main`` on the card: 4 slots, 4
+    sessions of Pendulum's 200 steps, greedy; then the batched greedy step on
+    the card against the CPU's on the same weights and observations (TF32 off,
+    within 1e-5: three float32 layers and a tanh)."""
+    from sheeprl_tpu_torch.algos.sac.serve import get_serve_policy
+    from sheeprl_tpu_torch.parallel.fabric import Fabric
+    from sheeprl_tpu_torch.serve.main import build_serve_cfg, serve_main
+    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
+
+    log_dir = os.path.join(out_dir, "sac_serve")
+    _zero_launches()
+    rc = serve_main([f"checkpoint_path={ckpt}", f"serve.slots={SLOTS}", f"serve.sessions={SESSIONS}",
+                     f"serve.log_dir={log_dir}"])
+    launches = {spec.name: spec.launches for spec in KERNELS}
+    with open(os.path.join(log_dir, "summary.json")) as f:
+        summary = json.load(f)
+    print(f"[chip-smoke] SAC serve rc={rc} summary={json.dumps(summary)}", flush=True)
+    if rc != 0 or summary["sessions_completed"] != SESSIONS or summary["steps"] != SESSIONS * 200:
+        raise AssertionError(f"SAC serving did not complete every session: rc {rc}, {summary}")
+    state = load_checkpoint(ckpt)
+    cfg = build_serve_cfg([f"checkpoint_path={ckpt}"])
+    policies = {accel: get_serve_policy(Fabric(accelerator=accel, float32_matmul_precision="highest"), cfg, state)
+                for accel in ("gpu", "cpu")}
+    rng = np.random.default_rng(11)
+    theta = rng.uniform(-np.pi, np.pi, (SLOTS, 1))
+    obs = np.concatenate([np.cos(theta), np.sin(theta), rng.uniform(-8, 8, (SLOTS, 1))], axis=-1).astype(np.float32)
+    actions = {accel: p.step_slots({}, {"state": torch.from_numpy(obs).to(p.device)}, {})[0].cpu()
+               for accel, p in policies.items()}
+    err = float((actions["gpu"] - actions["cpu"]).abs().max())
+    print(f"[chip-smoke] SAC serve step card vs CPU: actions max abs err {err} (bar 1e-5)", flush=True)
+    if not err <= 1e-5:
+        raise AssertionError(f"the SAC serve step on the card disagrees with the CPU: {err}")
+    return {"summary": summary, "launches": launches, "step_max_abs_err": err}
+
+
+def droq_path(out_dir: str) -> dict:
+    """A short ``exp=droq env.id=Pendulum-v1`` run on the card at the exp's
+    widths and replay ratio: finite losses, a checkpoint, an evaluation."""
+    from sheeprl_tpu_torch.cli import evaluation, run
+
+    _zero_launches()
+    summary = run(["exp=droq", "env.id=Pendulum-v1", f"algo.total_steps={DROQ_TOTAL_STEPS}",
+                   f"hydra.run.dir={os.path.join(out_dir, 'droq')}"])
+    launches = {spec.name: spec.launches for spec in KERNELS}
+    print(f"[chip-smoke] DroQ run: {summary['gradient_steps']} critic updates in {summary['train_phases']} train "
+          f"phases in {summary['wall_seconds']:.2f}s (train {summary['train_seconds']:.2f}s), test reward "
+          f"{summary['test_reward']}, losses {json.dumps(summary['metrics'])}, checkpoint "
+          f"{os.path.basename(summary['checkpoint'] or '')}", flush=True)
+    if not (summary["checkpoint"] and os.path.isfile(summary["checkpoint"])):
+        raise AssertionError("DroQ wrote no checkpoint")
+    if not (summary["metrics"] and all(math.isfinite(v) for v in summary["metrics"].values())):
+        raise AssertionError(f"DroQ: non-finite losses {summary['metrics']}")
+    _zero_launches()
+    reward = evaluation([f"checkpoint_path={summary['checkpoint']}"])
+    print(f"[chip-smoke] DroQ evaluation: reward {reward}", flush=True)
+    if not math.isfinite(reward):
+        raise AssertionError(f"DroQ evaluation: reward {reward}")
+    return {"summary": summary, "launches": launches,
+            "evaluation": {"reward": reward, "launches": {spec.name: spec.launches for spec in KERNELS}}}
+
+
+def _sac_trainers(algo: str, devices, precision: str = "highest", scale_heads: bool = True):
+    """The exp's agent and trainer on each device, the same weights from a
+    seed (the actor's heads scaled by 0.1 for the parity phases); the cfg."""
+    from sheeprl_tpu_torch.algos.sac.sac import build_optimizers
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.parallel.fabric import Fabric
+    from sheeprl_tpu_torch.utils.env import make_env
+
+    if algo == "droq":
+        from sheeprl_tpu_torch.algos.droq.agent import build_agent
+        from sheeprl_tpu_torch.algos.droq.droq import DroQTrainer as Trainer
+    else:
+        from sheeprl_tpu_torch.algos.sac.agent import build_agent
+        from sheeprl_tpu_torch.algos.sac.sac import SACTrainer as Trainer
+    cfg = compose([f"exp={algo}", "env.id=Pendulum-v1", "env.capture_video=False"])
+    env = make_env(cfg, 0, 0)()
+    trainers = {}
+    for accel in devices:
+        fabric = Fabric(accelerator=accel, float32_matmul_precision=precision)
+        agent = build_agent(fabric, cfg, env.observation_space, env.action_space, 0)
+        if scale_heads:
+            with torch.no_grad():
+                agent.actor.fc_mean.weight.mul_(0.1)
+                agent.actor.fc_logstd.weight.mul_(0.1)
+        trainers[accel] = Trainer(agent, build_optimizers(cfg, agent), cfg, -1.0, SAC_STEPS_PER_ITER)
+    return trainers, cfg
+
+
+def _replay_block(rng, leading) -> dict:
+    th = rng.uniform(-np.pi, np.pi, (*leading, 1))
+    obs = np.concatenate([np.cos(th), np.sin(th), rng.uniform(-8, 8, (*leading, 1))], axis=-1)
+    return {
+        "observations": obs.astype(np.float32),
+        "next_observations": (obs + rng.normal(0, 0.05, obs.shape)).astype(np.float32),
+        "actions": rng.uniform(-2, 2, (*leading, 1)).astype(np.float32),
+        "rewards": -rng.uniform(0, 16, (*leading, 1)).astype(np.float32),
+        "terminated": np.zeros((*leading, 1), np.float32),
+        "truncated": np.zeros((*leading, 1), np.float32),
+    }
+
+
+def _run_phase(algo: str, trainer, block: dict, actor_block: dict, noise: dict, iter_num: int = 1):
+    dev = trainer.device
+
+    def on(tree):
+        return {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v).to(dev) for k, v in tree.items()}
+
+    if algo == "droq":
+        return trainer.train_phase(on(block), on(actor_block), on(noise))
+    return trainer.train_phase(on(block), iter_num, on(noise))
+
+
+def sac_train_phase_parity(algo: str) -> dict:
+    """One SAC (or DroQ) train phase at the exp's widths on the card vs on the
+    CPU (TF32 off): the same weights, replay block, normal draws and dropout
+    masks (drawn once on the host)."""
+    trainers, cfg = _sac_trainers(algo, ("gpu", "cpu"))
+    B = int(cfg.algo.per_rank_batch_size)
+    rng = np.random.default_rng(12)
+    block, actor_block = _replay_block(rng, (SAC_PARITY_G, B)), _replay_block(rng, (B,))
+    noise = trainers["cpu"].draw_noise(SAC_PARITY_G, B, torch.Generator().manual_seed(13))
+    out = {}
+    for accel, trainer in trainers.items():
+        losses = _run_phase(algo, trainer, block, actor_block, noise)
+        out[accel] = (losses.cpu(), [p.detach().cpu() for p in trainer.agent.parameters()])
+    loss_gap = float(((out["gpu"][0] - out["cpu"][0]).abs() / out["cpu"][0].abs().clamp_min(1e-3)).max())
+    param_gap = max(float((a - b).abs().max()) for a, b in zip(out["gpu"][1], out["cpu"][1]))
+    res = {"losses_rel_gap": loss_gap, "param_max_abs_gap": param_gap, "card": out["gpu"][0].tolist(),
+           "cpu": out["cpu"][0].tolist(), "G": SAC_PARITY_G, "batch": B}
+    print(f"[chip-smoke] {algo} train phase card vs CPU (TF32 off, G={SAC_PARITY_G}): {json.dumps(res)} (bars: "
+          f"losses {SAC_LOSS_RTOL} relative, every parameter {SAC_PARAM_ATOL})", flush=True)
+    if not (loss_gap <= SAC_LOSS_RTOL and param_gap <= SAC_PARAM_ATOL):
+        raise AssertionError(f"the {algo} train phase on the card disagrees with the CPU: {res}")
+    return res
+
+
+def time_sac(steps: int = 64, droq_phases: int = 5) -> tuple:
+    """Seconds per SAC gradient step on the card at the exp's widths (a train
+    phase of 64 steps, TF32 as the config sets it, synchronized), seconds per
+    DroQ train phase of G = 20 critic updates, and ms per host acting step (the
+    host actor's forward and sample for 4 envs, one torch thread as the loop
+    runs it). Returns the timings and the warm SAC trainer with its inputs."""
+    from sheeprl_tpu_torch.algos.sac.agent import squash_and_logprob
+
+    out = {}
+    rng = np.random.default_rng(14)
+    generator = torch.Generator("cuda").manual_seed(15)
+    trainers, cfg = _sac_trainers("sac", ("gpu",), precision="high", scale_heads=False)
+    sac = trainers["gpu"]
+    B = int(cfg.algo.per_rank_batch_size)
+    block = _replay_block(rng, (steps, B))
+    _run_phase("sac", sac, block, {}, sac.draw_noise(steps, B, generator))  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _run_phase("sac", sac, block, {}, sac.draw_noise(steps, B, generator))
+    torch.cuda.synchronize()
+    out["seconds_per_sac_gradient_step"] = (time.perf_counter() - t0) / steps
+    droq = _sac_trainers("droq", ("gpu",), precision="high", scale_heads=False)[0]["gpu"]
+    dblock, actor_block = _replay_block(rng, (DROQ_TIMING_G, B)), _replay_block(rng, (B,))
+    _run_phase("droq", droq, dblock, actor_block, droq.draw_noise(DROQ_TIMING_G, B, generator))  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(droq_phases):
+        _run_phase("droq", droq, dblock, actor_block, droq.draw_noise(DROQ_TIMING_G, B, generator))
+    torch.cuda.synchronize()
+    out["seconds_per_droq_train_phase"] = (time.perf_counter() - t0) / droq_phases
+    out["droq_critic_updates_per_phase"] = DROQ_TIMING_G
+    act = _sac_trainers("sac", ("cpu",), scale_heads=False)[0]["cpu"].agent.actor
+    obs = torch.from_numpy(block["observations"][0, :4])
+    act_generator = torch.Generator().manual_seed(16)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with torch.no_grad():
+        def act_step():
+            mean, std = act(obs)
+            eps = torch.randn(mean.shape, generator=act_generator)
+            return squash_and_logprob(mean, std, eps, act.action_scale, act.action_bias)[0].numpy()
+
+        for _ in range(50):
+            act_step()
+        n = 1000
+        t0 = time.perf_counter()
+        for _ in range(n):
+            act_step()
+        out["ms_per_acting_step"] = (time.perf_counter() - t0) * 1e3 / n
+    torch.set_num_threads(threads)
+    print(f"[chip-smoke] SAC/DroQ timing: {json.dumps(out)}", flush=True)
+    return out, (sac, block, generator)
+
+
+def profile_sac_train_phase(warm: tuple) -> dict:
+    """Under torch.profiler (last), the card's busy share of one SAC train
+    phase of the loop's G = 4 gradient steps, and its device operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sac, block, generator = warm
+    G = SAC_STEPS_PER_ITER
+    part = {k: v[:G] for k, v in block.items()}
+    B = part["rewards"].shape[1]
+    noise = sac.draw_noise(G, B, generator)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _run_phase("sac", sac, part, {}, noise)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel, count = {}, 0
+    for ev in device_events(prof):
+        by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+        count += 1
+    device_ms = sum(by_kernel.values())
+    out = {
+        "gradient_steps": G,
+        "phase_wall_ms": wall_ms,
+        "phase_device_ms": device_ms if device_ms > 0 else None,
+        "device_busy_share": device_ms / wall_ms if device_ms > 0 else None,
+        "device_operations": count,
+        "device_operations_per_gradient_step": count / G,
+        "top_device_ms": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8],
+    }
+    print(f"[chip-smoke] SAC train phase profile: {json.dumps(out)}", flush=True)
+    return out
+
+
 def serve_step_parity(ckpt: str) -> dict:
     """The batched DV3 serve step on the card vs on the CPU, same weights/noise."""
     from sheeprl_tpu_torch.algos.dreamer_v3.serve import get_serve_policy
@@ -1042,11 +1362,18 @@ def main() -> int:
         ppo["parity"] = ppo_train_phase_parity()
         a2c["rmsprop_parity"] = a2c_rmsprop_parity()
         ppo["timing"], ppo_warm = time_ppo()
+        sac = sac_path(tmp)
+        sac["serve"] = sac_serve_path(sac["ckpt"], tmp)
+        droq = droq_path(tmp)
+        sac["parity"] = sac_train_phase_parity("sac")
+        droq["parity"] = sac_train_phase_parity("droq")
+        sac["timing"], sac_warm = time_sac()
         profile_gru(gru["rows"], device)
         profile = profile_ticks(path["ckpt"])
         train_timing["profile"] = profile_train_steps(warm)
         ppo["timing"]["profile"] = profile_ppo_train_phase(ppo_warm)
-        del warm, ppo_warm
+        sac["timing"]["profile"] = profile_sac_train_phase(sac_warm)
+        del warm, ppo_warm, sac_warm
 
     main_row = next(r for r in gru["rows"] if (r["preset"], r["B"], r["K"], r["H"]) == MAIN_SHAPE)
     train_rows = [r for r in gru["rows"] if (r["preset"], r["B"], r["K"], r["H"]) in TRAIN_SHAPES]
@@ -1066,6 +1393,11 @@ def main() -> int:
                 # PPO and A2C reach no TPU kernel
                 **{f"ppo_{name}": ppo[name]["launches"][LN_GRU.name] for name in ("train", "resume", "evaluation")},
                 "a2c": a2c["launches"][LN_GRU.name],
+                # SAC and DroQ reach no TPU kernel either
+                **{f"sac_{name}": sac[name]["launches"][LN_GRU.name]
+                   for name in ("train", "resume", "evaluation", "serve")},
+                "droq": droq["launches"][LN_GRU.name],
+                "droq_evaluation": droq["evaluation"]["launches"][LN_GRU.name],
             },
             "train_rows": [{k: r[k] for k in keep} for r in train_rows],
             "max_abs_err": gru["max_abs_err"],
@@ -1088,7 +1420,7 @@ def main() -> int:
                 {"card": card, "torch": torch.__version__, "gru": gru, "serve": path["summary"],
                  "launches": path["launches"], "serve_parity": parity, "serve_profile": profile,
                  "train": train, "train_parity": train_parity, "train_timing": train_timing,
-                 "ppo": ppo, "a2c": a2c, "kernels": kernels},
+                 "ppo": ppo, "a2c": a2c, "sac": sac, "droq": droq, "kernels": kernels},
                 f, indent=2,
             )
     print(json.dumps({"kernels": kernels}))

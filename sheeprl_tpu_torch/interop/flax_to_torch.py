@@ -13,12 +13,18 @@ port's ``nn.Module``s and back:
 - LayerNorm-GRU ``kernel [K, 3H]`` (rows ``concat(x, h)``, columns reset,
   candidate, update), ``bias``, ``ln_scale``, ``ln_bias``: kept as they are.
 
+- a vmapped ensemble's stacked ``Dense`` (``kernel [n, in, out]``, ``bias
+  [n, out]``) and ``LayerNorm`` (``scale``/``bias`` ``[n, h]``) leaves  <->
+  ``EnsembleMLP``'s stacked parameters, kept as they are.
+
 Composite modules name their children as the Flax modules do (``Dense_0``,
 ``LayerNorm_1``, ``DenseStack_0``, ``Conv_2``, ...). The Dreamer-V3 agent
-(:func:`agent_to_flax`, :func:`load_flax_params`) and the PPO agent, which A2C
-shares (:func:`ppo_to_flax`, :func:`load_ppo_params`), are mapped whole;
-:func:`dv3_group_to_torch` and :func:`ppo_to_torch` turn a tree shaped like a
-parameter group (an optax moment) into the group's tensors.
+(:func:`agent_to_flax`, :func:`load_flax_params`), the PPO agent, which A2C
+shares (:func:`ppo_to_flax`, :func:`load_ppo_params`), and the SAC agent,
+which DroQ shares (:func:`sac_to_flax`, :func:`load_sac_params`), are mapped
+whole; :func:`dv3_group_to_torch`, :func:`ppo_to_torch` and
+:func:`sac_group_to_torch` turn a tree shaped like a parameter group (an optax
+moment) into the group's tensors.
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ from torch import nn
 
 from sheeprl_tpu_torch.algos.dreamer_v3 import agent as dv3
 from sheeprl_tpu_torch.algos.ppo import agent as ppo
-from sheeprl_tpu_torch.models.models import MLP, LayerNormGRUCell, NatureCNN
+from sheeprl_tpu_torch.algos.sac import agent as sac
+from sheeprl_tpu_torch.models.models import MLP, EnsembleMLP, LayerNormGRUCell, NatureCNN
 
 Tree = Dict[str, Any]
 
@@ -117,8 +124,34 @@ def gru_from_flax(m: LayerNormGRUCell, tree: Tree, what: str = "LayerNormGRUCell
     _copy(m.ln_bias, tree["ln_bias"], what + ".ln_bias")
 
 
+def _ensemble_leaves(m: EnsembleMLP) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Flax child name -> {leaf name: stacked parameter} of an ensemble's MLP."""
+    out = {f"Dense_{i}": {"kernel": k, "bias": b} for i, (k, b) in enumerate(zip(m.kernels, m.biases))}
+    if m.layer_norm:
+        out.update({f"LayerNorm_{i}": {"scale": s, "bias": b} for i, (s, b) in enumerate(zip(m.ln_scales, m.ln_biases))})
+    return out
+
+
+# nn.vmap names the wrapped critic module (``flax_name``), whose MLP holds the layers
+def critic_ensemble_to_flax(m: "sac.CriticEnsemble") -> Tree:
+    layers = {name: {k: _np(p) for k, p in leaves.items()} for name, leaves in _ensemble_leaves(m.mlp).items()}
+    return {m.flax_name: {"MLP_0": layers}}
+
+
+def critic_ensemble_from_flax(m: "sac.CriticEnsemble", tree: Tree, what: str = "critic") -> None:
+    leaves = _ensemble_leaves(m.mlp)
+    layers = tree[m.flax_name].get("MLP_0", {}) if sorted(tree) == [m.flax_name] else {}
+    if sorted(layers) != sorted(leaves):
+        raise ValueError(f"{what}: checkpoint children {sorted(tree)} do not match the ensemble's "
+                         f"{m.flax_name}/MLP_0/{sorted(leaves)}")
+    for name, params in leaves.items():
+        for key, param in params.items():
+            _copy(param, layers[name][key], f"{what}/{m.flax_name}/MLP_0/{name}.{key}")
+
+
 _LEAVES = (
     (nn.Linear, linear_to_flax, linear_from_flax),
+    (sac.CriticEnsemble, critic_ensemble_to_flax, critic_ensemble_from_flax),
     (nn.Conv2d, conv_to_flax, conv_from_flax),
     (nn.ConvTranspose2d, deconv_to_flax, deconv_from_flax),
     (nn.LayerNorm, layer_norm_to_flax, layer_norm_from_flax),
@@ -170,6 +203,8 @@ def _children(m: nn.Module) -> Dict[str, nn.Module]:
         return {"NatureCNN_0": m.cnn}
     if isinstance(m, ppo.MLPEncoder):
         return {"MLP_0": m.mlp}
+    if isinstance(m, sac.SACActor):
+        return {"MLP_0": m.model, "Dense_0": m.fc_mean, "Dense_1": m.fc_logstd}
     if isinstance(m, dv3.Decoder):
         return {k: v for k, v in (("cnn_decoder", m.cnn_decoder), ("mlp_decoder", m.mlp_decoder)) if v is not None}
     raise TypeError(f"no Flax mapping for {type(m).__name__}")
@@ -289,6 +324,43 @@ def ppo_to_torch(agent: "ppo.PPOAgent") -> Callable[[Tree], List[torch.Tensor]]:
     def convert(tree: Tree) -> List[torch.Tensor]:
         scratch = copy.deepcopy(agent)
         load_ppo_params(scratch, tree)
+        return [p.detach() for p in scratch.parameters()]
+
+    return convert
+
+
+# -- the SAC agent (DroQ's too) -----------------------------------------------------------
+_SAC_MODULES = ("actor", "critic", "target_critic")
+
+
+def sac_to_flax(agent: "sac.SACAgent") -> Tree:
+    """The agent's parameters as the JAX package's SAC (or DroQ) params tree:
+    ``actor``, ``critic``, ``target_critic`` and ``log_alpha`` [1]."""
+    out = {name: module_to_flax(getattr(agent, name)) for name in _SAC_MODULES}
+    out["log_alpha"] = _np(agent.log_alpha)
+    return out
+
+
+def load_sac_params(agent: "sac.SACAgent", params: Tree) -> None:
+    """Copy a JAX-package SAC or DroQ params tree into ``agent``."""
+    expected, found = sorted([*_SAC_MODULES, "log_alpha"]), sorted(params)
+    if expected != found:
+        raise ValueError(f"SAC params: checkpoint children {found} do not match the agent's {expected}")
+    for name in _SAC_MODULES:
+        module_from_flax(getattr(agent, name), params[name], name)
+    _copy(agent.log_alpha, params["log_alpha"], "log_alpha")
+
+
+def sac_group_to_torch(agent: "sac.SACAgent", group: str) -> Callable[[Tree], List[torch.Tensor]]:
+    """A tree shaped like the JAX params of one optimizer group (``actor``,
+    ``critic``, or ``alpha``: the ``log_alpha`` array) -> tensors in the order
+    of that group's parameters."""
+
+    def convert(tree: Tree) -> List[torch.Tensor]:
+        if group == "alpha":
+            return [torch.tensor(np.asarray(tree, dtype=np.float32))]
+        scratch = copy.deepcopy(getattr(agent, group))
+        module_from_flax(scratch, tree, group)
         return [p.detach() for p in scratch.parameters()]
 
     return convert

@@ -1,11 +1,18 @@
 """Model building blocks shared across algorithms (port of the parts of
 ``sheeprl_tpu/models/models.py`` the port's algorithms use: ``MLP``,
-``NatureCNN`` and the LayerNorm-GRU cell).
+``NatureCNN`` and the LayerNorm-GRU cell), and :class:`EnsembleMLP`, the
+``MLP`` under Flax's ``nn.vmap`` with stacked parameters.
 
 ``MLP`` and ``NatureCNN`` keep the Flax modules' child names (``Dense_i``,
 ``LayerNorm_i``, ``CNN_0/Conv_i``) for ``interop/flax_to_torch.py`` and are
 initialised as Flax initialises them (:func:`lecun_init_`), from a
 ``torch.Generator``.
+
+Dropout takes its keep-masks as an argument (one boolean tensor per hidden
+layer, shaped like that layer's output), as every sampler of the port takes
+its noise: kept units are scaled by ``1 / (1 - rate)``, dropped ones are 0,
+as ``flax.linen.Dropout`` computes them. Without masks the layers are
+deterministic (Flax's ``deterministic=True``).
 """
 
 from __future__ import annotations
@@ -64,10 +71,17 @@ def lecun_init_(module: Union[nn.Linear, nn.Conv2d], generator: torch.Generator)
         module.bias.zero_()
 
 
+def dropout(x: torch.Tensor, keep: Optional[torch.Tensor], rate: float) -> torch.Tensor:
+    """``flax.linen.Dropout`` with its mask given: ``x / (1 - rate)`` where
+    ``keep``, else 0; ``x`` itself without a mask or at rate 0."""
+    if keep is None or rate == 0.0:
+        return x
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 class MLP(nn.Module):
-    """Per layer ``Dense -> LayerNorm? -> activation``, then an optional output
-    ``Dense`` without activation (the JAX ``MLP``; its dropout is not used by
-    the port's algorithms)."""
+    """Per layer ``Dense -> Dropout? -> LayerNorm? -> activation``, then an
+    optional output ``Dense`` without activation (the JAX ``MLP``)."""
 
     def __init__(
         self,
@@ -76,6 +90,7 @@ class MLP(nn.Module):
         output_dim: Optional[int] = None,
         activation: Union[None, str, Callable] = "relu",
         layer_norm: bool = False,
+        dropout: float = 0.0,
     ) -> None:
         super().__init__()
         self.act = resolve_activation(activation)
@@ -84,19 +99,76 @@ class MLP(nn.Module):
         self.norms = nn.ModuleList(nn.LayerNorm(h, eps=1e-5) for h in hidden_sizes) if layer_norm else nn.ModuleList()
         self.n_hidden = len(hidden_sizes)
         self.out_dim = sizes[-1]
+        self.dropout = float(dropout)
 
     def init_weights(self, generator: torch.Generator) -> None:
         for linear in self.linears:
             lecun_init_(linear, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, keep: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """``keep``: the dropout keep-masks, one per hidden layer."""
         for i, linear in enumerate(self.linears):
             x = linear(x)
             if i < self.n_hidden:
+                x = dropout(x, None if keep is None else keep[i], self.dropout)
                 if len(self.norms):
                     x = self.norms[i](x)
                 x = self.act(x)
         return x
+
+
+class EnsembleMLP(nn.Module):
+    """``n`` MLPs of one layout on a shared input, their parameters stacked
+    over a leading member axis: per layer ``kernel [n, in, out]`` and ``bias
+    [n, out]`` (LayerNorm ``scale``/``bias`` ``[n, h]``), Flax's layout for
+    ``nn.vmap(MLP, variable_axes={"params": 0})``, so a checkpoint's leaves
+    load as they are. Each layer is one batched product over the members.
+    ``forward`` maps ``[..., in]`` to ``[n, ..., out]``; dropout keep-masks are
+    ``[n, rows, h]`` per hidden layer, ``rows`` the flattened leading dims."""
+
+    def __init__(
+        self,
+        n: int,
+        input_dim: int,
+        hidden_sizes: Sequence[int],
+        output_dim: int,
+        activation: Union[None, str, Callable] = "relu",
+        layer_norm: bool = False,
+        dropout: float = 0.0,
+    ) -> None:
+        super().__init__()
+        self.n = int(n)
+        self.act = resolve_activation(activation)
+        sizes = [input_dim, *hidden_sizes, output_dim]
+        self.kernels = nn.ParameterList(nn.Parameter(torch.empty(n, i, o)) for i, o in zip(sizes[:-1], sizes[1:]))
+        self.biases = nn.ParameterList(nn.Parameter(torch.zeros(n, o)) for o in sizes[1:])
+        self.layer_norm = bool(layer_norm)
+        if self.layer_norm:
+            self.ln_scales = nn.ParameterList(nn.Parameter(torch.ones(n, h)) for h in hidden_sizes)
+            self.ln_biases = nn.ParameterList(nn.Parameter(torch.zeros(n, h)) for h in hidden_sizes)
+        self.hidden_sizes = tuple(int(h) for h in hidden_sizes)
+        self.dropout = float(dropout)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Flax's ``Dense`` init for every member (fan-in ``in``), zero biases."""
+        for kernel, bias in zip(self.kernels, self.biases):
+            std = math.sqrt(1.0 / kernel.shape[1]) / _TRUNC_NORMAL_STD
+            nn.init.trunc_normal_(kernel, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+            bias.zero_()
+
+    def forward(self, x: torch.Tensor, keep: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        lead = x.shape[:-1]
+        h = x.reshape(1, -1, x.shape[-1]).expand(self.n, -1, -1)
+        for i, (kernel, bias) in enumerate(zip(self.kernels, self.biases)):
+            h = torch.baddbmm(bias.unsqueeze(1), h, kernel)
+            if i < len(self.hidden_sizes):
+                h = dropout(h, None if keep is None else keep[i], self.dropout)
+                if self.layer_norm:
+                    scale, shift = self.ln_scales[i].unsqueeze(1), self.ln_biases[i].unsqueeze(1)
+                    h = F.layer_norm(h, (h.shape[-1],), eps=1e-5) * scale + shift
+                h = self.act(h)
+        return h.reshape(self.n, *lead, h.shape[-1])
 
 
 class NatureCNN(nn.Module):

@@ -179,11 +179,16 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     return _CheckpointUnpickler(io.BytesIO(data)).load()
 
 
+def _sub_buffers(rb) -> list:
+    """An ``EnvIndependentReplayBuffer``'s per-env buffers, or a ``ReplayBuffer`` itself."""
+    return list(rb.buffer) if isinstance(rb.buffer, (list, tuple)) else [rb]
+
+
 def _mark_last_rows_truncated(rb) -> list:
     """Set terminated and truncated on each sub-buffer's newest row; returns
     the flags they had."""
     saved = []
-    for b in rb.buffer:
+    for b in _sub_buffers(rb):
         if b.empty:
             saved.append(None)
             continue
@@ -195,7 +200,7 @@ def _mark_last_rows_truncated(rb) -> list:
 
 
 def _restore_last_rows(rb, saved: list) -> None:
-    for b, flags in zip(rb.buffer, saved):
+    for b, flags in zip(_sub_buffers(rb), saved):
         if flags is None:
             continue
         terminated, truncated = flags

@@ -18,15 +18,23 @@ ALGORITHMS: Dict[str, Tuple[str, str]] = {
     "dreamer_v3": (f"{_DV3}.dreamer_v3", "main"),
     "ppo": ("sheeprl_tpu_torch.algos.ppo.ppo", "main"),
     "a2c": ("sheeprl_tpu_torch.algos.a2c.a2c", "main"),
+    "sac": ("sheeprl_tpu_torch.algos.sac.sac", "main"),
+    "droq": ("sheeprl_tpu_torch.algos.droq.droq", "main"),
 }
 # ``evaluate(fabric, cfg, state)``
 EVALUATIONS: Dict[str, Tuple[str, str]] = {
     **{name: (f"{_DV3}.evaluate", "evaluate") for name in _DV3_NAMES},
     "ppo": ("sheeprl_tpu_torch.algos.ppo.evaluate", "evaluate"),
     "a2c": ("sheeprl_tpu_torch.algos.ppo.evaluate", "evaluate"),
+    "sac": ("sheeprl_tpu_torch.algos.sac.evaluate", "evaluate"),
+    "droq": ("sheeprl_tpu_torch.algos.droq.evaluate", "evaluate"),
 }
 # the family's ``get_serve_policy(fabric, cfg, state)`` extractor
-SERVE_POLICIES: Dict[str, Tuple[str, str]] = {name: (f"{_DV3}.serve", "get_serve_policy") for name in _DV3_NAMES}
+SERVE_POLICIES: Dict[str, Tuple[str, str]] = {
+    **{name: (f"{_DV3}.serve", "get_serve_policy") for name in _DV3_NAMES},
+    "sac": ("sheeprl_tpu_torch.algos.sac.serve", "get_serve_policy"),
+    "droq": ("sheeprl_tpu_torch.algos.sac.serve", "get_serve_policy_droq"),
+}
 
 
 def load_entrypoint(table: Dict[str, Tuple[str, str]], name: str, what: str) -> Callable:

@@ -60,6 +60,17 @@ def overrides(kind: str = "discrete", extra: Sequence[str] = ()) -> list:
     return [o for o in DV3_SMALL if not o.startswith("env.id=")] + [f"env.id={ENV_IDS[kind]}", *extra]
 
 
+def f32(x) -> torch.Tensor:
+    """A float32 tensor of a numpy or JAX array."""
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def close(ours, theirs, atol: float = 1e-6) -> None:
+    """``ours`` (a tensor or an array) within ``atol`` of ``theirs``."""
+    ours = ours.detach().numpy() if isinstance(ours, torch.Tensor) else np.asarray(ours)
+    np.testing.assert_allclose(ours, np.asarray(theirs), rtol=0, atol=atol)
+
+
 def numpy_tree(tree):
     return jax.tree_util.tree_map(lambda x: np.asarray(x), tree)
 
@@ -108,3 +119,104 @@ def random_obs(rng: np.random.Generator, batch: Tuple[int, ...], image=(3, 64, 6
         "rgb": (rng.integers(0, 256, (*batch, *image)) / 255.0 - 0.5).astype(np.float32),
         "state": rng.standard_normal((*batch, *state)).astype(np.float32),
     }
+
+
+# SAC and DroQ at small widths: hidden 16, batch 8, 2 envs, Pendulum-v1
+SAC_SMALL = [
+    "exp=sac", "env.id=Pendulum-v1", "fabric.accelerator=cpu", "env.capture_video=False", "algo.hidden_size=16",
+    "algo.per_rank_batch_size=8", "env.num_envs=2", "buffer.memmap=False", "buffer.size=256",
+]
+
+
+def sac_spaces():
+    """Pendulum's spaces in gymnasium's classes, which both packages read."""
+    import gymnasium as gym
+
+    obs = gym.spaces.Dict({"state": gym.spaces.Box(-np.inf, np.inf, (3,), np.float32)})
+    return obs, gym.spaces.Box(-2.0, 2.0, (1,), np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_sac(algo: str = "sac", extra=()):
+    """The JAX actor, critic, params (numpy) and config, built once per worker."""
+    from sheeprl_tpu.config import compose as jax_compose
+    from sheeprl_tpu.parallel.fabric import Fabric as JaxFabric
+
+    if algo == "droq":
+        from sheeprl_tpu.algos.droq.agent import build_agent
+    else:
+        from sheeprl_tpu.algos.sac.agent import build_agent
+    cfg = jax_compose([f"exp={algo}", *SAC_SMALL[1:], *extra])
+    fabric = JaxFabric(devices=1, accelerator="cpu")
+    fabric._setup()
+    actor, critic, params = build_agent(fabric, cfg, *sac_spaces(), jax.random.PRNGKey(3))
+    return actor, critic, numpy_tree(params), cfg
+
+
+def port_sac(algo: str = "sac", extra=(), params=None):
+    """The port's agent and config, loaded from the JAX parameters."""
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.parallel.fabric import Fabric
+
+    if algo == "droq":
+        from sheeprl_tpu_torch.algos.droq.agent import build_agent
+    else:
+        from sheeprl_tpu_torch.algos.sac.agent import build_agent
+    cfg = compose([f"exp={algo}", *SAC_SMALL[1:], *extra])
+    params = jax_sac(algo, tuple(extra))[2] if params is None else params
+    return build_agent(Fabric(accelerator="cpu"), cfg, *sac_spaces(), 0, params), cfg
+
+
+def trees_close(ours, theirs, atol):
+    """Two params trees (the port's converted one, a JAX one): the same
+    structure, every leaf within ``atol``."""
+    for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(ours), jax.tree_util.tree_leaves(numpy_tree(theirs))):
+        np.testing.assert_allclose(a, b, rtol=0, atol=atol, err_msg=jax.tree_util.keystr(path))
+    assert jax.tree_util.tree_structure(ours) == jax.tree_util.tree_structure(numpy_tree(theirs))
+
+
+def replay_block(rng: np.random.Generator, leading, obs_dim: int = 3, act_dim: int = 1):
+    """A SAC replay sample shaped ``[*leading, ...]``, a fifth of it terminal."""
+    return {
+        "observations": rng.standard_normal((*leading, obs_dim)).astype(np.float32),
+        "next_observations": rng.standard_normal((*leading, obs_dim)).astype(np.float32),
+        "actions": rng.uniform(-2, 2, (*leading, act_dim)).astype(np.float32),
+        "rewards": rng.standard_normal((*leading, 1)).astype(np.float32),
+        "terminated": (rng.uniform(size=(*leading, 1)) < 0.2).astype(np.float32),
+    }
+
+
+def optax_states_close(trainer, opt_state, atol):
+    """The torch Adams' moments against optax's, group by group."""
+    from sheeprl_tpu_torch.interop.flax_to_torch import sac_group_to_torch
+
+    for group, opt in trainer.optimizers.items():
+        adam = opt_state[group][0]
+        params = [p for g in opt.param_groups for p in g["params"]]
+        for key, moments in (("exp_avg", adam.mu), ("exp_avg_sq", adam.nu)):
+            for p, theirs in zip(params, sac_group_to_torch(trainer.agent, group)(numpy_tree(moments))):
+                np.testing.assert_allclose(opt.state[p][key].numpy(), theirs, rtol=0, atol=atol)
+        assert all(float(opt.state[p]["step"]) == int(adam.count) for p in params)
+
+
+def unsaturated(params):
+    """The params with the actor's mean and log-std heads scaled by 0.1, so
+    that the pre-squash samples of a train phase stay near N(0, 1), where the
+    two libraries' float32 tanh agree to the log-prob's 1e-6 (the saturated
+    tail is held to its own bar in ``test_squash_logprob_where_tanh_saturates``)."""
+    params = jax.tree_util.tree_map(np.copy, params)
+    for head in ("Dense_0", "Dense_1"):
+        params["actor"][head]["kernel"] *= 0.1
+    return params
+
+
+def losses_close(ours, theirs):
+    """Mean losses: 1e-5 relative (a float32 mean over the block) or 1e-6."""
+    np.testing.assert_allclose(ours.detach().numpy(), np.asarray(theirs), rtol=1e-5, atol=1e-6)
+
+
+# 24-step episodes, so that a 64-step run ends some
+SAC_TINY = SAC_SMALL + [
+    "algo.learning_starts=16", "checkpoint.every=32", "metric.log_every=32", "env.max_episode_steps=24",
+    "root_dir=tiny", "run_name=run",
+]

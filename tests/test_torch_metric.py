@@ -16,9 +16,20 @@ import pytest
 import torch
 
 from sheeprl_tpu.utils import metric as jax_metric
+from sheeprl_tpu.utils.timer import timer as jax_timer
 from sheeprl_tpu_torch.utils import metric
+from sheeprl_tpu_torch.utils.timer import timer
 
 KINDS = ["MeanMetric", "SumMetric", "MaxMetric", "LastValueMetric"]
+
+
+@pytest.fixture(autouse=True)
+def _switches_on(monkeypatch):
+    """Both CLIs set the aggregator's and the timer's class-wide ``disabled``
+    switch from ``metric.log_level``; a CLI run with ``log_level=0`` earlier in
+    the same process leaves them off. Turn all four on for every test here."""
+    for cls in (jax_metric.MetricAggregator, metric.MetricAggregator, jax_timer, timer):
+        monkeypatch.setattr(cls, "disabled", False)
 
 
 def _updates(seed: int):
