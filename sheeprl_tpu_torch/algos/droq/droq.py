@@ -18,7 +18,9 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from sheeprl_tpu_torch.algos.droq.agent import build_agent
 from sheeprl_tpu_torch.algos.sac.sac import Batch, SACTrainer, run_off_policy
+from sheeprl_tpu_torch.data.prefetch import sample_to_device
 
 
 class DroQTrainer(SACTrainer):
@@ -58,6 +60,14 @@ class DroQTrainer(SACTrainer):
         al_loss = self.alpha_step(logprobs)
         return torch.stack([torch.stack(qf_losses).mean() / self.num_critics, a_loss, al_loss])
 
+    def run_phase(self, rb, G: int, sample: Dict[str, Any], generator: torch.Generator, iter_num: int) -> torch.Tensor:
+        """SAC's, with the actor's batch: one more sample of the same stream.
+        The EMA runs after every critic update, whatever ``iter_num``."""
+        data = sample_to_device(rb, G, **sample)
+        noise = self.draw_noise(G, sample["batch_size"], generator)
+        actor_data = {k: v[0] for k, v in sample_to_device(rb, 1, **sample).items()}
+        return self.train_phase(data, actor_data, noise)
+
 
 def main(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
-    return run_off_policy(fabric, cfg, "droq")
+    return run_off_policy(fabric, cfg, "DroQ", build_agent, DroQTrainer)

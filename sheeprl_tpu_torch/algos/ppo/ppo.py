@@ -31,7 +31,7 @@ from sheeprl_tpu_torch.algos.ppo.utils import normalize_obs, prepare_obs, test
 from sheeprl_tpu_torch.config import instantiate
 from sheeprl_tpu_torch.optim import clip_grad_global_norm_, linear_schedule, set_scheduled_lr
 from sheeprl_tpu_torch.utils.timer import timer
-from sheeprl_tpu_torch.utils.utils import gae, normalize_tensor, polynomial_decay, save_configs
+from sheeprl_tpu_torch.utils.utils import gae, normalize_tensor, polynomial_decay, save_configs, sync_actor
 
 Batch = Dict[str, torch.Tensor]
 
@@ -138,14 +138,6 @@ def to_device(arrays: Dict[str, np.ndarray], device) -> Batch:
     """Host arrays as float32 tensors on ``device``, copied in their stored
     dtype (uint8 frames stay a quarter of the bytes) and cast there."""
     return {k: torch.as_tensor(np.asarray(v)).to(device).float() for k, v in arrays.items()}
-
-
-def sync_actor(act_agent: torch.nn.Module, agent: torch.nn.Module) -> None:
-    """Copy the trained weights into the host-side acting agent."""
-    if act_agent is not agent:
-        with torch.no_grad():
-            for dst, src in zip(act_agent.parameters(), agent.parameters()):
-                dst.copy_(src)
 
 
 def run_on_policy(fabric, cfg: Dict[str, Any], algo: str) -> Dict[str, Any]:

@@ -10,14 +10,16 @@ takes the actor step's log-probs, detached. The standard normal noise of the
 two samples a step takes is an argument (:meth:`SACTrainer.draw_noise`), as
 the JAX program's is a key's.
 
-:func:`run_off_policy` is the training loop of SAC and DroQ: ``learning_starts``
-prefill iterations of random actions, then the replay-ratio governor decides
-how many gradient steps each iteration takes; one replay block is sampled on
-the host (``sample_next_obs=False``: the buffer stores the real next
-observations) and copied to the device once. Acting runs on a host copy of
-the actor, as the JAX package's ``ActPlacement`` places it; the trained
-weights are copied into it once per train phase (on a CPU fabric it is the
-actor itself). Sampling is synchronous: the prefetch thread is not ported.
+:func:`run_off_policy` is the training loop of SAC and DroQ, given the
+algorithm's ``build_agent`` and trainer class: ``learning_starts`` prefill
+iterations of random actions, then the replay-ratio governor decides how many
+gradient steps each iteration takes, and the trainer's ``run_phase`` samples
+its replay block on the host (``sample_next_obs=False``: the buffer stores the
+real next observations), copies it to the device once and trains on it.
+Acting runs on a host copy of the actor, as the JAX package's
+``ActPlacement`` places it; the trained weights are copied into it once per
+train phase (on a CPU fabric it is the actor itself). Sampling is
+synchronous: the prefetch thread is not ported.
 """
 
 from __future__ import annotations
@@ -31,9 +33,10 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.algos.sac.agent import SACAgent, squash_and_logprob
+from sheeprl_tpu_torch.algos.sac.agent import SACAgent, build_agent, squash_and_logprob
 from sheeprl_tpu_torch.algos.sac.loss import critic_loss, entropy_loss, policy_loss
 from sheeprl_tpu_torch.config import instantiate
+from sheeprl_tpu_torch.data.prefetch import sample_to_device
 
 Batch = Dict[str, torch.Tensor]
 
@@ -143,6 +146,12 @@ class SACTrainer:
             losses.append(torch.stack([qf_loss, a_loss, self.alpha_step(logprobs)]))
         return torch.stack(losses).mean(dim=0)
 
+    def run_phase(self, rb, G: int, sample: Dict[str, Any], generator: torch.Generator, iter_num: int) -> torch.Tensor:
+        """Sample a ``[G, B, ...]`` block of ``rb`` to the device (``sample``:
+        ``sample_to_device``'s arguments), draw its noise and take a train phase."""
+        data = sample_to_device(rb, G, **sample)
+        return self.train_phase(data, iter_num, self.draw_noise(G, sample["batch_size"], generator))
+
     def opt_state(self) -> Dict[str, Any]:
         return {name: opt.state_dict() for name, opt in self.optimizers.items()}
 
@@ -158,16 +167,15 @@ class SACTrainer:
             load_optimizer_state(opt, opt_state[name], sac_group_to_torch(self.agent, name))
 
 
-def run_off_policy(fabric, cfg: Dict[str, Any], algo: str) -> Dict[str, Any]:
-    """The SAC (``algo="sac"``) and DroQ (``"droq"``) training loop. Returns a
-    summary of the run: policy and gradient steps, train phases, seconds
-    spent stepping envs and training, the steady-state window (from the first
-    iteration after learning starts to the loop's end, without checkpoint
-    writes), the last losses, the test reward and the last checkpoint."""
-    from sheeprl_tpu_torch.algos.ppo.ppo import sync_actor
+def run_off_policy(fabric, cfg: Dict[str, Any], name: str, build_agent, trainer_cls) -> Dict[str, Any]:
+    """The training loop of SAC and DroQ (``name`` in messages), with the
+    algorithm's ``build_agent`` and trainer class. Returns a summary of the
+    run: policy and gradient steps, train phases, seconds spent stepping envs
+    and training, the steady-state window (from the first iteration after
+    learning starts to the loop's end, without checkpoint writes), the last
+    losses, the test reward and the last checkpoint."""
     from sheeprl_tpu_torch.algos.sac.utils import flat_obs, prepare_obs, test
     from sheeprl_tpu_torch.data.buffers import ReplayBuffer
-    from sheeprl_tpu_torch.data.prefetch import sample_to_device
     from sheeprl_tpu_torch.envs import spaces
     from sheeprl_tpu_torch.envs.vector import SyncVectorEnv, episode_stats
     from sheeprl_tpu_torch.interop.flax_to_torch import sac_to_flax
@@ -177,16 +185,7 @@ def run_off_policy(fabric, cfg: Dict[str, Any], algo: str) -> Dict[str, Any]:
     from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
     from sheeprl_tpu_torch.utils.metric import MetricAggregator
     from sheeprl_tpu_torch.utils.timer import timer
-    from sheeprl_tpu_torch.utils.utils import Ratio, save_configs
-
-    if algo == "droq":
-        from sheeprl_tpu_torch.algos.droq.agent import build_agent
-        from sheeprl_tpu_torch.algos.droq.droq import DroQTrainer as Trainer
-    else:
-        from sheeprl_tpu_torch.algos.sac.agent import build_agent
-
-        Trainer = SACTrainer
-    name = "DroQ" if algo == "droq" else "SAC"
+    from sheeprl_tpu_torch.utils.utils import Ratio, save_configs, sync_actor
 
     t_start = time.perf_counter()
     device = fabric.device
@@ -225,7 +224,7 @@ def run_off_policy(fabric, cfg: Dict[str, Any], algo: str) -> Dict[str, Any]:
     agent = build_agent(fabric, cfg, observation_space, action_space, int(cfg.seed), state["agent"] if state else None)
     act_dim = int(np.prod(action_space.shape))
     policy_steps_per_iter = num_envs
-    trainer = Trainer(agent, build_optimizers(cfg, agent), cfg, -float(act_dim), policy_steps_per_iter)
+    trainer = trainer_cls(agent, build_optimizers(cfg, agent), cfg, -float(act_dim), policy_steps_per_iter)
     if state is not None:
         trainer.load_opt_state(state["opt_state"])
     save_configs(cfg, log_dir)
@@ -346,14 +345,7 @@ def run_off_policy(fabric, cfg: Dict[str, Any], algo: str) -> Dict[str, Any]:
                 t0 = time.perf_counter()
                 with timer("Time/train_time"):
                     sample = dict(batch_size=batch_size, sample_next_obs=sample_next_obs, uint8_keys=(), device=device)
-                    data = sample_to_device(rb, per_rank_gradient_steps, **sample)
-                    noise = trainer.draw_noise(per_rank_gradient_steps, batch_size, train_generator)
-                    if algo == "droq":
-                        # the actor's batch: one more sample of the same stream
-                        actor_data = {k: v[0] for k, v in sample_to_device(rb, 1, **sample).items()}
-                        losses = trainer.train_phase(data, actor_data, noise)
-                    else:
-                        losses = trainer.train_phase(data, iter_num, noise)
+                    losses = trainer.run_phase(rb, per_rank_gradient_steps, sample, train_generator, iter_num)
                     # the copy to the host waits for the phase: the timer ends there
                     sync_actor(act_actor, agent.actor)
                     cumulative_per_rank_gradient_steps += per_rank_gradient_steps
@@ -450,4 +442,4 @@ def run_off_policy(fabric, cfg: Dict[str, Any], algo: str) -> Dict[str, Any]:
 
 
 def main(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
-    return run_off_policy(fabric, cfg, "sac")
+    return run_off_policy(fabric, cfg, "SAC", build_agent, SACTrainer)

@@ -8,11 +8,11 @@
 initialised as Flax initialises them (:func:`lecun_init_`), from a
 ``torch.Generator``.
 
-Dropout takes its keep-masks as an argument (one boolean tensor per hidden
-layer, shaped like that layer's output), as every sampler of the port takes
-its noise: kept units are scaled by ``1 / (1 - rate)``, dropped ones are 0,
-as ``flax.linen.Dropout`` computes them. Without masks the layers are
-deterministic (Flax's ``deterministic=True``).
+``EnsembleMLP``'s dropout takes its keep-masks as an argument (one boolean
+tensor per hidden layer, shaped like that layer's output), as every sampler
+of the port takes its noise: kept units are scaled by ``1 / (1 - rate)``,
+dropped ones are 0, as ``flax.linen.Dropout`` computes them. Without masks
+the layers are deterministic (Flax's ``deterministic=True``).
 """
 
 from __future__ import annotations
@@ -80,8 +80,9 @@ def dropout(x: torch.Tensor, keep: Optional[torch.Tensor], rate: float) -> torch
 
 
 class MLP(nn.Module):
-    """Per layer ``Dense -> Dropout? -> LayerNorm? -> activation``, then an
-    optional output ``Dense`` without activation (the JAX ``MLP``)."""
+    """Per layer ``Dense -> LayerNorm? -> activation``, then an optional output
+    ``Dense`` without activation (the JAX ``MLP``; DroQ's dropout is in
+    :class:`EnsembleMLP`)."""
 
     def __init__(
         self,
@@ -90,7 +91,6 @@ class MLP(nn.Module):
         output_dim: Optional[int] = None,
         activation: Union[None, str, Callable] = "relu",
         layer_norm: bool = False,
-        dropout: float = 0.0,
     ) -> None:
         super().__init__()
         self.act = resolve_activation(activation)
@@ -99,18 +99,15 @@ class MLP(nn.Module):
         self.norms = nn.ModuleList(nn.LayerNorm(h, eps=1e-5) for h in hidden_sizes) if layer_norm else nn.ModuleList()
         self.n_hidden = len(hidden_sizes)
         self.out_dim = sizes[-1]
-        self.dropout = float(dropout)
 
     def init_weights(self, generator: torch.Generator) -> None:
         for linear in self.linears:
             lecun_init_(linear, generator)
 
-    def forward(self, x: torch.Tensor, keep: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
-        """``keep``: the dropout keep-masks, one per hidden layer."""
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i, linear in enumerate(self.linears):
             x = linear(x)
             if i < self.n_hidden:
-                x = dropout(x, None if keep is None else keep[i], self.dropout)
                 if len(self.norms):
                     x = self.norms[i](x)
                 x = self.act(x)

@@ -1,7 +1,7 @@
 """Shared math and run helpers (port of the parts of ``sheeprl_tpu/utils/utils.py``
 the port's algorithms use): symlog/symexp, two-hot encoding, λ-returns, GAE,
-advantage normalisation, polynomial decay, the replay-ratio governor and the
-run's config dump."""
+advantage normalisation, polynomial decay, the replay-ratio governor, the
+run's config dump and the copy of trained weights into a host-side actor."""
 
 from __future__ import annotations
 
@@ -177,3 +177,11 @@ def save_configs(cfg, log_dir: str) -> None:
     os.makedirs(log_dir, exist_ok=True)
     with open(os.path.join(log_dir, "config.yaml"), "w") as f:
         yaml.safe_dump(cfg.as_dict(), f, sort_keys=False)
+
+
+def sync_actor(act_agent: torch.nn.Module, agent: torch.nn.Module) -> None:
+    """Copy the trained weights into the host-side acting agent."""
+    if act_agent is not agent:
+        with torch.no_grad():
+            for dst, src in zip(act_agent.parameters(), agent.parameters()):
+                dst.copy_(src)

@@ -7,11 +7,15 @@ nor the JAX package; on the card, from the repo root:
 
 from __future__ import annotations
 
-import numpy as np
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
 pytestmark = pytest.mark.cuda
+
+REPO = Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture
@@ -23,59 +27,12 @@ def cuda():
 
 @pytest.mark.parametrize("algo", ["sac", "droq"])
 def test_sac_and_droq_train_phases_on_the_card_match_the_cpu(cuda, algo):
-    """One train phase at the exp's widths (Pendulum, hidden 256, batch 256, 2
-    critics; 4 gradient steps, DroQ's 4 critic updates and its actor update)
-    from the same weights, block, normal draws and dropout masks (drawn once
-    on the host), TF32 off. The actor's heads are scaled by 0.1 so that the
-    samples stay off tanh's saturated tail, where the two devices' float32
-    tanh may differ by ulps that the log-prob magnifies. Every parameter
-    within 1e-4 (Adam moves each by about lr = 3e-4 a step), the losses
-    within 1e-4 relative."""
-    from sheeprl_tpu_torch.algos.sac.sac import build_optimizers
-    from sheeprl_tpu_torch.config import compose
-    from sheeprl_tpu_torch.parallel.fabric import Fabric
-    from sheeprl_tpu_torch.utils.env import make_env
+    """One SAC train phase (4 gradient steps), or one DroQ phase (4 critic
+    updates, then the actor's), at the exp's widths on the card and on the
+    CPU from the same weights, block, normal draws and dropout masks, TF32
+    off: ``chip_smoke.sac_train_phase_parity``, which raises past its bars
+    (every parameter within 1e-4, the losses within 1e-4 relative)."""
+    sys.path.insert(0, str(REPO))
+    from chip_smoke import sac_train_phase_parity
 
-    if algo == "droq":
-        from sheeprl_tpu_torch.algos.droq.agent import build_agent
-        from sheeprl_tpu_torch.algos.droq.droq import DroQTrainer as Trainer
-    else:
-        from sheeprl_tpu_torch.algos.sac.agent import build_agent
-        from sheeprl_tpu_torch.algos.sac.sac import SACTrainer as Trainer
-    cfg = compose([f"exp={algo}", "env.id=Pendulum-v1", "env.capture_video=False"])
-    env = make_env(cfg, 0, 0)()
-    rng = np.random.default_rng(1)
-    G, B = 4, 256
-
-    def block(*lead):
-        return {
-            "observations": rng.uniform(-1, 1, (*lead, B, 3)).astype(np.float32),
-            "next_observations": rng.uniform(-1, 1, (*lead, B, 3)).astype(np.float32),
-            "actions": rng.uniform(-2, 2, (*lead, B, 1)).astype(np.float32),
-            "rewards": -rng.uniform(0, 16, (*lead, B, 1)).astype(np.float32),
-            "terminated": np.zeros((*lead, B, 1), np.float32),
-        }
-
-    critic_block, actor_block = block(G), block()
-    noise, out = None, {}
-    for accel in ("cpu", "gpu"):
-        fabric = Fabric(accelerator=accel, float32_matmul_precision="highest")
-        agent = build_agent(fabric, cfg, env.observation_space, env.action_space, 0)
-        with torch.no_grad():
-            agent.actor.fc_mean.weight.mul_(0.1)
-            agent.actor.fc_logstd.weight.mul_(0.1)
-        trainer = Trainer(agent, build_optimizers(cfg, agent), cfg, -1.0, 4)
-        if noise is None:
-            noise = trainer.draw_noise(G, B, torch.Generator().manual_seed(2))
-
-        def on(tree):
-            return {k: torch.as_tensor(v).to(fabric.device) for k, v in tree.items()}
-
-        if algo == "droq":
-            losses = trainer.train_phase(on(critic_block), on(actor_block), on(noise))
-        else:
-            losses = trainer.train_phase(on(critic_block), 1, on(noise))
-        out[accel] = (losses.cpu(), [p.detach().cpu() for p in agent.parameters()])
-    np.testing.assert_allclose(out["gpu"][0].numpy(), out["cpu"][0].numpy(), rtol=1e-4, atol=1e-6)
-    for a, b in zip(out["gpu"][1], out["cpu"][1]):
-        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-4)
+    sac_train_phase_parity(algo)

@@ -9,8 +9,8 @@ ensemble's layer of the same name draws from the same key. The forward test
 shows the masks are the ensemble's: the port fed them computes the JAX
 ensemble's stochastic output.
 
-- the port's ``MLP`` with dropout against the JAX ``MLP``, masks recorded
-  from the Flax ``Dropout`` calls;
+- the port's ``dropout`` against ``flax.linen.Dropout``, its mask read off
+  the Flax layer's output;
 - the DroQ ensemble (Dropout + LayerNorm), deterministic and with masks,
   member by member;
 - one DroQ train phase (G critic updates, each with the EMA, then the actor
@@ -105,32 +105,20 @@ def dropout_masks(key, critic, rows: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------------
 # the modules
 # ---------------------------------------------------------------------------------
-def test_mlp_dropout_matches_flax():
-    """``Dense -> Dropout -> LayerNorm -> act``: the port's MLP fed the masks
-    the Flax ``Dropout`` layers drew (recorded from their calls) computes the
-    JAX MLP's stochastic output."""
-    from sheeprl_tpu.models.models import MLP as JaxMLP
-    from sheeprl_tpu_torch.interop.flax_to_torch import module_from_flax
-    from sheeprl_tpu_torch.models.models import MLP as TorchMLP
+def test_dropout_matches_flax_dropout():
+    """The port's ``dropout`` fed the keep-mask that ``flax.linen.Dropout``
+    drew (read off its output: the input holds no zeros) computes that
+    layer's output; without a mask it returns its input, as Flax's
+    deterministic layer does."""
+    from sheeprl_tpu_torch.models.models import dropout
 
-    jmlp = JaxMLP(hidden_sizes=(16, 16), output_dim=3, layer_norm=True, dropout=0.3)
-    x = np.random.default_rng(0).standard_normal((8, 5)).astype(np.float32)
-    params = jmlp.init(jax.random.PRNGKey(0), x)["params"]
-    recorded = []
-
-    def record(next_fun, args, kwargs, context):
-        out = next_fun(*args, **kwargs)
-        if isinstance(context.module, nn.Dropout):
-            recorded.append(np.asarray(out) != 0)
-        return out
-
-    with nn.intercept_methods(record):
-        y = jmlp.apply({"params": params}, x, deterministic=False, rngs={"dropout": jax.random.PRNGKey(1)})
-    assert len(recorded) == 2 and 0 < np.mean(recorded[0]) < 1
-    mlp = TorchMLP(5, (16, 16), 3, "relu", layer_norm=True, dropout=0.3)
-    module_from_flax(mlp, numpy_tree(params))
-    close(mlp(f32(x), [torch.from_numpy(m) for m in recorded]), y)
-    close(mlp(f32(x)), jmlp.apply({"params": params}, x))
+    rate = 0.3
+    x = np.random.default_rng(0).standard_normal((32, 64)).astype(np.float32)
+    y = nn.Dropout(rate).apply({}, x, deterministic=False, rngs={"dropout": jax.random.PRNGKey(1)})
+    keep = torch.from_numpy(np.asarray(y) != 0)
+    assert 0 < keep.float().mean() < 1
+    close(dropout(f32(x), keep, rate), y)
+    close(dropout(f32(x), None, rate), x, atol=0.0)
 
 
 def test_droq_ensemble_matches_flax_with_its_masks():
