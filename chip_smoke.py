@@ -16,7 +16,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    per call (replayed from a CUDA graph) and wall time per eager call; check
    that two kernel calls on the same inputs are bitwise equal, and report the
    kernel's time over its bound and its achieved GB/s (the bytes the bound
-   counts over its device time);
+   counts over its device time). Then the same at every shape with bf16
+   operands (the kernel's bf16 instance against the plain version in bf16,
+   one bf16 rounding, rtol = atol = 2^-7; the library call a bf16
+   ``torch.matmul``; the bound at bf16's bytes and the tensor cores' peak);
 4. the serving path: compose ``exp=dreamer_v3 env=dummy`` at the S preset
    (full width), build the agent on the card from the seed, write a
    checkpoint and its config.yaml into a temporary run dir, and serve it
@@ -33,7 +36,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and each gradient step must have launched the LN-GRU kernel 64 + 15 times
    besides one launch per batched policy step. Then one gradient step on the
    card against the same step on the CPU (TF32 off, T=16, B=4), and the
-   seconds per gradient step at 16 x 64, eager;
+   seconds per gradient step at 16 x 64, eager, in float32 and then at
+   ``fabric.precision=bf16-mixed``;
+5b. the same slice at ``fabric.precision=bf16-mixed``: a shorter run,
+   a resume and an evaluation through the entry points, every LN-GRU launch
+   counted by dtype and all bf16 (79 a gradient step plus one a policy step);
+   its checkpoint served through ``serve_main`` at bf16 (4 slots, 4 sessions
+   of 512 steps, one bf16 launch a tick); the bf16 serve step card vs CPU
+   from the same carries; two bf16 gradient steps card vs CPU beside the
+   CPU's float32 steps (bars in ``train_step_parity``);
 6. PPO (``exp=ppo``, CartPole-v1 at the exp's settings: 4 envs x 128 steps,
    minibatches of 64, 10 epochs, width 64) through the entry points on the
    card: 65536 policy steps with the metric log and the test episode (its
@@ -56,7 +67,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    eager launches cost more host time): each phase-3 shape's device time by
    kernel name, with its kernel launches per call counted in a captured CUDA
    graph; serving ticks (device time by kernel, the LN-GRU kernel's launches
-   by name, busy share); a training step (the same, and its kernel count); a PPO train phase
+   by name, busy share); a training step in float32 and one in bf16 (the
+   same, and its kernel count); a PPO train phase
    and a SAC train phase (busy share, device operations);
 9. print the ``kernels`` JSON line, the card line, and the final result line.
 
@@ -91,16 +103,26 @@ from sheeprl_tpu_torch.ops._build import build
 # tensor cores, the rate the LayerNorm-GRU kernel's FMAs run at
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# bf16 operands could run on the tensor cores: their dense bf16 peak bounds
+# the bf16 instance's operations
+PEAK_BF16_FLOPS = 989e12
 L2_BYTES = 50 * 1024 * 1024
+BF16 = torch.bfloat16
 
 # kernel vs plain: both float32 with TF32 off; sums over K <= 5120 products are
 # taken in another order (split-K partials vs cuBLAS), and the LayerNorm
 # divides the gate errors by the row's spread, so agreement to ~1e-6 is
 # expected and 1e-4 is the bar
 GRU_ATOL = 1e-4
+# the bf16 instance vs the plain version in bf16: both sum the same bf16
+# products in float32 (in other orders) and round the output to bf16 once, so
+# an output may land on the neighbouring bf16 value: one bf16 rounding,
+# rtol = atol = 2^-7 (the bar of tests/test_torch_gru.py's bf16 test)
+GRU_BF16_TOL = 2**-7
 # the batched serve step on the card vs on the CPU: the same float32 math
 # through cuDNN/cuBLAS (TF32 off) vs the CPU kernels, 8 recurrent steps deep
 SERVE_H_ATOL = 1e-3
+SERVE_H_ATOL_BF16 = 2**-5  # one step from the same carry: see serve_step_parity
 
 # (preset, B, K, H): DV3 recurrent cells, K = dense_units + recurrent size
 GRU_SHAPES = [
@@ -130,7 +152,8 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def gru_case(B: int, K: int, H: int, seed: int, device) -> tuple:
+def gru_case(B: int, K: int, H: int, seed: int, device, dtype=torch.float32) -> tuple:
+    """inp, hx, w, b in ``dtype``; scale and bias float32."""
     rng = np.random.default_rng(seed)
     arrs = (
         rng.standard_normal((B, K)),
@@ -140,7 +163,8 @@ def gru_case(B: int, K: int, H: int, seed: int, device) -> tuple:
         1.0 + 0.1 * rng.standard_normal(3 * H),
         0.1 * rng.standard_normal(3 * H),
     )
-    return tuple(torch.tensor(a, dtype=torch.float32, device=device) for a in arrs)
+    out = [torch.tensor(a, dtype=torch.float32, device=device) for a in arrs]
+    return (*(t.to(dtype) for t in out[:4]), *out[4:])
 
 
 def time_calls(fn, weights, iters: int) -> float:
@@ -186,17 +210,22 @@ def time_device(fn, weights, replays: int = 20) -> float:
     return start.elapsed_time(end) / (replays * calls)
 
 
-def gru_bytes(B: int, K: int, H: int) -> int:
-    """Bytes one step must move: each input read once, the output written once."""
+def gru_bytes(B: int, K: int, H: int, dtype=torch.float32) -> int:
+    """Bytes one step must move: each input read once, the output written
+    once; inp, hx, w, b and the output in ``dtype``, scale and bias float32."""
     n = 3 * H
-    return 4 * (B * K + B * H + K * n + 3 * n + B * H)
+    size = torch.tensor([], dtype=dtype).element_size()
+    return size * (B * K + B * H + K * n + n + B * H) + 4 * 2 * n
 
 
-def gru_bound(B: int, K: int, H: int) -> tuple:
+def gru_bound(B: int, K: int, H: int, dtype=torch.float32) -> tuple:
+    """The least time of one step in ms and what bounds it: the bytes over the
+    memory rate, or the operations over float32's peak (the float32 instance)
+    or over the bf16 tensor cores' (the bf16 instance)."""
     n = 3 * H
     flops = 2 * B * K * n + 12 * B * n
-    t_bytes = gru_bytes(B, K, H) / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_F32_FLOPS
+    t_bytes = gru_bytes(B, K, H, dtype) / PEAK_BYTES_PER_S
+    t_ops = flops / (PEAK_BF16_FLOPS if dtype == BF16 else PEAK_F32_FLOPS)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -269,35 +298,47 @@ def device_ms_by_kernel(fn, weights, calls: int = 8) -> dict:
     return {name: total[name] / count[name] for name in total}
 
 
-def check_gru(device) -> dict:
+def check_gru(device, dtype=torch.float32) -> dict:
+    """Every ``GRU_SHAPES`` row with operands in ``dtype``: the kernel against
+    the plain version on the card, the gradient at ``GRAD_SHAPES``, two calls
+    bitwise equal; then the kernel's, the plain version's and ``torch.matmul``'s
+    times and the bound."""
+    bf16 = dtype == BF16
+    tol = GRU_BF16_TOL if bf16 else GRU_ATOL
+    tag = "bf16" if bf16 else "f32"
+    size = torch.tensor([], dtype=dtype).element_size()
     rows = []
     for preset, B, K, H in GRU_SHAPES:
-        inp, hx, w, b, scale, bias = gru_case(B, K, H, seed=B + K, device=device)
+        inp, hx, w, b, scale, bias = gru_case(B, K, H, seed=B + K, device=device, dtype=dtype)
         torch.backends.cuda.matmul.allow_tf32 = False
         ref = ln_gru_step_plain(inp, hx, w, b, scale, bias)
         out = ln_gru_step(inp, hx, w, b, scale, bias)
         torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        if not (err <= GRU_ATOL and torch.isfinite(out).all()):
-            raise AssertionError(f"LN-GRU kernel vs plain at {preset} B={B}: max abs err {err} > {GRU_ATOL}")
-        row = {"preset": preset, "B": B, "K": K, "H": H, "max_abs_err": err}
+        err = float((out.float() - ref.float()).abs().max())
+        # float32: |err| <= 1e-4; bf16: |err| <= 2^-7 (1 + |ref|)
+        excess = float(((out.float() - ref.float()).abs() - tol * (ref.float().abs() if bf16 else 0)).max())
+        if not (out.dtype == dtype and excess <= tol and torch.isfinite(out.float()).all()):
+            raise AssertionError(f"LN-GRU {tag} kernel vs plain at {preset} B={B}: max abs err {err} over the bar")
+        row = {"preset": preset, "B": B, "K": K, "H": H, "dtype": tag, "max_abs_err": err}
         # no float atomics and fixed summation orders: a second call on the
         # same inputs gives the same bits
         again = ln_gru_step(inp, hx, w, b, scale, bias)
         torch.cuda.synchronize()
         row["bitwise_equal"] = bool(torch.equal(out, again))
         if not row["bitwise_equal"]:
-            raise AssertionError(f"LN-GRU kernel at {preset} B={B}: two calls on the same inputs differ")
+            raise AssertionError(f"LN-GRU {tag} kernel at {preset} B={B}: two calls on the same inputs differ")
         if (preset, B, K, H) in GRAD_SHAPES:
             args = [t.clone().requires_grad_(True) for t in (inp, hx, w, b, scale, bias)]
-            g_out = torch.randn(B, H, device=device, generator=torch.Generator(device).manual_seed(0))
+            g_out = torch.randn(B, H, device=device, generator=torch.Generator(device).manual_seed(0)).to(dtype)
             grads_k = torch.autograd.grad(ln_gru_step(*args), args, g_out)
             grads_p = torch.autograd.grad(ln_gru_step_plain(*args), args, g_out)
-            gerr = max(float((a - p).abs().max()) for a, p in zip(grads_k, grads_p))
-            if gerr > GRU_ATOL:
-                raise AssertionError(f"LN-GRU gradient vs plain at {preset} B={B}: max abs err {gerr}")
+            gerr = max(float((a.float() - p.float()).abs().max()) for a, p in zip(grads_k, grads_p))
+            gexcess = max(float(((a.float() - p.float()).abs() - tol * (p.float().abs() if bf16 else 0)).max())
+                          for a, p in zip(grads_k, grads_p))
+            if gexcess > tol:
+                raise AssertionError(f"LN-GRU {tag} gradient vs plain at {preset} B={B}: max abs err {gerr}")
             row["grad_max_abs_err"] = gerr
-        copies = max(2, math.ceil(2 * L2_BYTES / (4 * K * 3 * H)))
+        copies = max(2, math.ceil(2 * L2_BYTES / (size * K * 3 * H)))
         weights = [w.clone() for _ in range(copies)]
         fns = {
             "": lambda wi: ln_gru_step(inp, hx, wi, b, scale, bias),
@@ -308,9 +349,9 @@ def check_gru(device) -> dict:
             row[f"{prefix}ms"] = time_device(fn, weights)
         for prefix, fn in fns.items():
             row[f"{prefix}call_ms"] = time_calls(fn, weights, 200 if K * H < 4_000_000 else 50)
-        row["bound_ms"], row["bound_by"] = gru_bound(B, K, H)
+        row["bound_ms"], row["bound_by"] = gru_bound(B, K, H, dtype)
         row["kernel_over_bound"] = row["ms"] / row["bound_ms"]
-        row["achieved_GBps"] = gru_bytes(B, K, H) / (row["ms"] * 1e-3) / 1e9
+        row["achieved_GBps"] = gru_bytes(B, K, H, dtype) / (row["ms"] * 1e-3) / 1e9
         del weights
         rows.append(row)
         print(f"[chip-smoke] ln_gru {json.dumps(row)}", flush=True)
@@ -324,13 +365,24 @@ def profile_gru(rows: list, device) -> None:
     process, later eager launches cost more host time, which would slow the
     served ticks."""
     for row in rows:
-        inp, hx, w, b, scale, bias = gru_case(row["B"], row["K"], row["H"], seed=row["B"] + row["K"], device=device)
+        dtype = BF16 if row["dtype"] == "bf16" else torch.float32
+        inp, hx, w, b, scale, bias = gru_case(row["B"], row["K"], row["H"], seed=row["B"] + row["K"], device=device,
+                                              dtype=dtype)
         row["launches_per_call"] = graph_kernel_launches(lambda: ln_gru_step(inp, hx, w, b, scale, bias))
         row["device_ms_by_kernel"] = device_ms_by_kernel(
             lambda wi: ln_gru_step(inp, hx, wi, b, scale, bias), [w, w.clone()]
         )
-        print(f"[chip-smoke] ln_gru profile {row['preset']} B={row['B']}: {row['launches_per_call']} launches "
+        print(f"[chip-smoke] ln_gru profile {row['dtype']} {row['preset']} B={row['B']}: {row['launches_per_call']} launches "
               f"per call, device ms {json.dumps(row['device_ms_by_kernel'])}", flush=True)
+
+
+def _zero_launches() -> None:
+    for spec in KERNELS:
+        spec.zero_launches()
+
+
+def _launches() -> dict:
+    return {spec.name: spec.launches for spec in KERNELS}
 
 
 def main_path(out_dir: str) -> dict:
@@ -374,8 +426,7 @@ def main_path(out_dir: str) -> dict:
     del agent
 
     log_dir = os.path.join(out_dir, "serve")
-    for spec in KERNELS:
-        spec.launches = 0
+    _zero_launches()
     rc = serve_main(
         [
             f"checkpoint_path={run_dir}",
@@ -385,7 +436,7 @@ def main_path(out_dir: str) -> dict:
             f"serve.log_dir={log_dir}",
         ]
     )
-    launches = {spec.name: spec.launches for spec in KERNELS}
+    launches = _launches()
     with open(os.path.join(log_dir, "summary.json")) as f:
         summary = json.load(f)
     print(f"[chip-smoke] serve rc={rc} summary={json.dumps(summary)} launches={launches}", flush=True)
@@ -424,6 +475,34 @@ TRAIN_STEP_RTOL = 1e-3
 # missing one or a wrong clip scale moves most weights by about lr = 1e-4)
 TRAIN_PARAM_ATOL = 1e-5
 TRAIN_PARAM_SHARE = 0.999
+# the same two steps at bf16, both sides composing the same bf16 ops: the
+# card's and the CPU's float32 sums (cuBLAS and cuDNN against the CPU's
+# kernels) run in other orders, so some bf16 outputs land on the
+# neighbouring value (2^-9 relative); those flips pass through the scans and
+# the sums over the batch, as between the port and the JAX step on the CPU,
+# where they reach 0.8-3.8% (tests/test_torch_bf16_train.py): each metric
+# within 5% of the CPU's for the world model's metrics. The actor's and
+# critic's losses and gradient norms sum over 15 x 1024 imagined steps whose
+# sampled latents and actions flip wherever a logit plus its Gumbel noise
+# lands on a bf16 tie the two sides break apart, and the actor's terms
+# largely cancel (its gradient norm is ~0.01): those metrics take 25%, and
+# their summed relative distance must stay below the CPU's float32 step's
+# (a step computed in float32 lands ~97% away on the actor's two). The
+# parameters take Adam's own bound (adam_step_bound): a weight whose tiny
+# gradient has another sign on each side steps about lr the other way each
+# step, whatever the gradient's size.
+TRAIN_STEP_RTOL_BF16 = 5e-2
+TRAIN_IMAGINED_RTOL_BF16 = 0.25
+IMAGINED = ("Loss/policy_loss", "Loss/value_loss", "Grads/actor", "Grads/critic")
+# DV3 S at fabric.precision=bf16-mixed through the entry points: a shorter
+# run than the float32 one. learning_starts of 80 iterations (320 policy
+# steps) gives each env 80 rows, more than a 64-step sequence; iterations
+# 80 to 84 train (20 gradient steps). The resumed run waits the 80
+# iterations again and trains in the 3 after the governor's skipped one.
+BF16_PRECISION = "bf16-mixed"
+BF16_LEARNING_STARTS_ITERS = 80
+BF16_FIRST_ITERS = BF16_LEARNING_STARTS_ITERS + 4
+BF16_RESUME_ITERS = BF16_FIRST_ITERS + BF16_LEARNING_STARTS_ITERS + 4
 
 
 def train_overrides(run_dir: str = "") -> list:
@@ -489,10 +568,9 @@ def train_path(out_dir: str) -> dict:
 
     overrides = train_overrides(os.path.join(out_dir, "train"))
     out = {}
-    for spec in KERNELS:
-        spec.launches = 0
+    _zero_launches()
     first = run(overrides + [f"algo.total_steps={TRAIN_ENVS * FIRST_ITERS}"])
-    out["train"] = {"summary": first, "launches": {spec.name: spec.launches for spec in KERNELS}}
+    out["train"] = {"summary": first, "launches": _launches()}
     _check_train_run("first run", first, LN_GRU.launches)
     scalars = check_scalars("DV3 first run", first["log_dir"], DV3_TAGS)
     out["train"]["scalars"] = {t: scalars[t][-1] for t in DV3_TAGS}
@@ -501,11 +579,10 @@ def train_path(out_dir: str) -> dict:
         raise AssertionError(f"the first run's checkpoint lists memmap files that are not there: {listed}")
     if first["gradient_steps"] < 4:
         raise AssertionError(f"the first run took {first['gradient_steps']} gradient steps, fewer than 4")
-    for spec in KERNELS:
-        spec.launches = 0
+    _zero_launches()
     resumed = run(overrides + [f"algo.total_steps={TRAIN_ENVS * RESUME_ITERS}",
                                f"checkpoint.resume_from={first['checkpoint']}"])
-    out["resume"] = {"summary": resumed, "launches": {spec.name: spec.launches for spec in KERNELS}}
+    out["resume"] = {"summary": resumed, "launches": _launches()}
     _check_train_run("resumed run", resumed, LN_GRU.launches)
     if not resumed["log_dir"].endswith("version_1"):
         raise AssertionError(f"the resumed run wrote {resumed['log_dir']}, not the run's version_1")
@@ -517,10 +594,9 @@ def train_path(out_dir: str) -> dict:
           f"{rows['resumed']}", flush=True)
     if not rows["resumed"] > rows["first"]:
         raise AssertionError(f"the resumed run added no rows to the memmap buffer: {rows}")
-    for spec in KERNELS:
-        spec.launches = 0
+    _zero_launches()
     reward = evaluation([f"checkpoint_path={resumed['checkpoint']}"])
-    out["evaluation"] = {"reward": reward, "launches": {spec.name: spec.launches for spec in KERNELS}}
+    out["evaluation"] = {"reward": reward, "launches": _launches()}
     print(f"[chip-smoke] evaluation: reward {reward}, LN-GRU launches {LN_GRU.launches}", flush=True)
     if not (math.isfinite(reward) and LN_GRU.launches >= 1):
         raise AssertionError(f"evaluation: reward {reward}, {LN_GRU.launches} launches")
@@ -538,9 +614,9 @@ def train_path(out_dir: str) -> dict:
     return out
 
 
-def _s_trainers(devices, T: int, B: int, seed: int = 0):
-    """DV3 S trainers (the same weights from a seed) on each device, TF32 off,
-    and one random batch of [T, B] rows on the CPU."""
+def _s_trainers(devices, T: int, B: int, seed: int = 0, precision: str = "32-true"):
+    """DV3 S trainers (the same weights from a seed) on each device at
+    ``precision``, TF32 off, and one random batch of [T, B] rows on the CPU."""
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import DV3Trainer, build_optimizers
     from sheeprl_tpu_torch.config import compose
@@ -552,7 +628,7 @@ def _s_trainers(devices, T: int, B: int, seed: int = 0):
     space = make_env(cfg, 0, 0)().observation_space
     trainers, weights = {}, None
     for accel in devices:
-        fabric = Fabric(accelerator=accel, float32_matmul_precision="highest")
+        fabric = Fabric(accelerator=accel, precision=precision, float32_matmul_precision="highest")
         agent = build_agent(fabric, (2,), False, cfg, space, seed, weights)
         weights = weights or agent_to_flax(agent)
         trainers[accel] = DV3Trainer(agent, cfg, build_optimizers(cfg, agent))
@@ -592,14 +668,34 @@ def _state_gap(card, cpu) -> dict:
     }
 
 
-def train_step_parity(steps: int = 2) -> dict:
+def adam_step_bound(t: int, beta1: float, beta2: float) -> float:
+    """The most one Adam step can move a weight, in units of lr, at step t:
+    the bias-corrected ``m / sqrt(v)`` is at most this by Cauchy-Schwarz over
+    the t gradients (1 at t = 1, 1.0014 at t = 2 with the betas 0.9, 0.999)."""
+    total = sum(((1 - beta1) * beta1 ** (t - i)) ** 2 / ((1 - beta2) * beta2 ** (t - i)) for i in range(1, t + 1))
+    return math.sqrt((1 - beta2**t) / (1 - beta1**t) ** 2 * total)
+
+
+def train_step_parity(steps: int = 2, precision: str = "32-true") -> dict:
     """Two gradient steps on the card vs on the CPU at DV3 S width (T=16,
     B=4): the same weights, batches and noise. Every loss and gradient norm of
     each step (the second one's are taken at the weights the first update
     left), then the parameters, the target critic and Moments after the last
-    one: what the card's Adam, clipping, target EMA and Moments did."""
+    one: what the card's Adam, clipping, target EMA and Moments did.
+
+    At bf16 the CPU also takes the steps in float32 from the same noise, and
+    the bars are: the world model's metrics within ``TRAIN_STEP_RTOL_BF16``
+    of the CPU's bf16 values; the actor's and critic's (``IMAGINED``) within
+    ``TRAIN_IMAGINED_RTOL_BF16``, and their summed relative distance below
+    the CPU's float32 step's; the parameters within Adam's own bound, two
+    sides stepping opposite ways by the most ``adam_step_bound`` allows;
+    Moments within the bf16 bar."""
     T, B = 16, 4
-    trainers, batch = _s_trainers(("gpu", "cpu"), T, B)
+    bf16 = precision.startswith("bf16")
+    rtol = TRAIN_STEP_RTOL_BF16 if bf16 else TRAIN_STEP_RTOL
+    trainers, batch = _s_trainers(("gpu", "cpu"), T, B, precision=precision)
+    if bf16:
+        trainers["cpu_f32"] = _s_trainers(("cpu",), T, B)[0]["cpu"]
     lr = max(group["lr"] for opt in trainers["cpu"].optimizers.values() for group in opt.param_groups)
     worst, per_step = 0.0, []
     for step in range(steps):
@@ -608,34 +704,55 @@ def train_step_parity(steps: int = 2) -> dict:
         for accel, trainer in trainers.items():
             dev = trainer.device
             out = trainer.train_step({k: v.to(dev) for k, v in batch.items()}, step,
-                                     {k: v.to(dev) for k, v in noise.items()})
+                                     {k: v.to(dev, trainer.agent.dtype) for k, v in noise.items()})
             metrics[accel] = {k: float(v) for k, v in out.items()}
-        gap = max(abs(metrics["gpu"][k] - v) / max(abs(v), 1e-3) for k, v in metrics["cpu"].items())
         if not all(math.isfinite(v) for v in metrics["gpu"].values()):
             raise AssertionError(f"train step {step} on the card: non-finite metrics {metrics['gpu']}")
+        rel = {a: {k: abs(metrics[a][k] - v) / max(abs(v), 1e-3) for k, v in metrics["cpu"].items()}
+               for a in metrics if a != "cpu"}
+        if bf16:
+            if not all(t.dtype == torch.float32 for t in trainers["gpu"].agent.parameters()):
+                raise AssertionError("a bf16 train step left a parameter that is not float32")
+            gap = max(v for k, v in rel["gpu"].items() if k not in IMAGINED)
+            imagined = {a: sum(rel[a][k] for k in IMAGINED) for a in rel}
+            if not (max(rel["gpu"][k] for k in IMAGINED) <= TRAIN_IMAGINED_RTOL_BF16
+                    and imagined["gpu"] < imagined["cpu_f32"]):
+                raise AssertionError(f"bf16 train step {step}: the actor's and critic's metrics on the card are not "
+                                     f"within {TRAIN_IMAGINED_RTOL_BF16} of the CPU's bf16 ones, or no closer to them "
+                                     f"than the CPU's float32 ones are: {json.dumps(rel)}")
+        else:
+            gap = max(rel["gpu"].values())
         worst = max(worst, gap)
-        per_step.append({"worst_rel_err": gap, "card": metrics["gpu"], "cpu": metrics["cpu"]})
+        per_step.append({"worst_rel_err": gap, "rel_err": rel, **metrics})
     state = _state_gap(trainers["gpu"], trainers["cpu"])
-    print(f"[chip-smoke] train steps card vs CPU (T={T}, B={B}, {steps} steps): worst relative err of the "
-          f"metrics {worst} (bar {TRAIN_STEP_RTOL}); state after the last step {json.dumps(state)} (bars: every "
-          f"parameter within {steps} x 2 lr = {steps * 2 * lr:.1e}, a share >= {TRAIN_PARAM_SHARE} within "
-          f"{TRAIN_PARAM_ATOL}, Moments within {TRAIN_STEP_RTOL}); steps {json.dumps(per_step)}", flush=True)
-    if worst > TRAIN_STEP_RTOL:
-        raise AssertionError(f"train steps on the card disagree with the CPU: worst relative err {worst}")
-    if not (state["param_max_abs_gap"] <= steps * 2 * lr and state["param_share_within_atol"] >= TRAIN_PARAM_SHARE
-            and state["moments_rel_gap"] <= TRAIN_STEP_RTOL):
-        raise AssertionError(f"the card's updates disagree with the CPU's: {state}")
-    return {"worst_rel_err": worst, "state": state, "steps": per_step, "T": T, "B": B}
+    if bf16:
+        betas = trainers["cpu"].optimizers["world_model"].param_groups[0]["betas"]
+        # and a float32 rounding of each update of a weight below 2 in size
+        param_bar = 2 * lr * sum(adam_step_bound(t, *betas) for t in range(1, steps + 1)) + 2 * steps * 2**-23
+        share = 0.0
+    else:
+        param_bar, share = steps * 2 * lr, TRAIN_PARAM_SHARE
+    print(f"[chip-smoke] train steps card vs CPU at {precision} (T={T}, B={B}, {steps} steps): worst relative "
+          f"err of the metrics {worst} (bar {rtol}); state after the last step {json.dumps(state)} (bars: every "
+          f"parameter within {param_bar:.4e}, a share >= {share} within {TRAIN_PARAM_ATOL}, Moments within "
+          f"{rtol}); steps {json.dumps(per_step)}", flush=True)
+    if worst > rtol:
+        raise AssertionError(f"train steps at {precision} on the card disagree with the CPU: worst relative err {worst}")
+    if not (state["param_max_abs_gap"] <= param_bar and state["param_share_within_atol"] >= share
+            and state["moments_rel_gap"] <= rtol):
+        raise AssertionError(f"the card's updates at {precision} disagree with the CPU's: {state}")
+    return {"precision": precision, "worst_rel_err": worst, "state": state, "steps": per_step, "T": T, "B": B}
 
 
-def time_train_steps(steps: int = 5) -> tuple:
-    """Seconds per gradient step of DV3 S at the preset's batch (16 x 64), eager,
-    with TF32 as the config's float32 matmul precision sets it. Returns the
-    timing and the warm trainer with its batch, for the profile."""
+def time_train_steps(steps: int = 5, precision: str = "32-true") -> tuple:
+    """Seconds per gradient step of DV3 S at the preset's batch (16 x 64) and
+    ``precision``, eager, with TF32 as the config's float32 matmul precision
+    sets it. Returns the timing and the warm trainer with its batch, for the
+    profile."""
     from sheeprl_tpu_torch.parallel.fabric import apply_matmul_precision
 
     T, B = 64, 16
-    trainers, batch = _s_trainers(("gpu",), T, B, seed=2)
+    trainers, batch = _s_trainers(("gpu",), T, B, seed=2, precision=precision)
     trainer = trainers["gpu"]
     apply_matmul_precision("high")  # the config's float32_matmul_precision
     batch = {k: v.to(trainer.device) for k, v in batch.items()}
@@ -647,7 +764,8 @@ def time_train_steps(steps: int = 5) -> tuple:
     for cum in range(2, 2 + steps):
         trainer.train_step(batch, cum, trainer.draw_noise(T, B, generator))
     torch.cuda.synchronize()
-    out = {"T": T, "B": B, "steps": steps, "seconds_per_gradient_step": (time.perf_counter() - t0) / steps}
+    out = {"precision": precision, "T": T, "B": B, "steps": steps,
+           "seconds_per_gradient_step": (time.perf_counter() - t0) / steps}
     print(f"[chip-smoke] train step timing: {json.dumps(out)}", flush=True)
     return out, (trainer, batch, generator)
 
@@ -681,8 +799,82 @@ def profile_train_steps(warm: tuple, steps: int = 3) -> dict:
         "ln_gru_device_ms": {n: ms for n, ms in by_kernel.items() if "ln_gru" in n},
         "ln_gru_launches_per_step": {n: c / steps for n, c in count.items() if "ln_gru" in n},
     }
-    print(f"[chip-smoke] train step profile: {json.dumps(out)}", flush=True)
+    print(f"[chip-smoke] train step profile ({trainer.agent.dtype}): {json.dumps(out)}", flush=True)
     return out
+
+
+def _bf16_launches(name: str, need: int) -> dict:
+    """The LN-GRU kernel's launches of a bf16 run by dtype; fails unless
+    every one took bf16 operands and there are at least ``need``."""
+    by_dtype = dict(LN_GRU.launches_by_dtype)
+    print(f"[chip-smoke] {name}: LN-GRU launches by dtype {by_dtype} (need >= {need}, all bfloat16)", flush=True)
+    if by_dtype.get("bfloat16", 0) < max(need, 1) or by_dtype.get("bfloat16", 0) != LN_GRU.launches:
+        raise AssertionError(f"{name}: LN-GRU launches by dtype {by_dtype}, need >= {need}, all bfloat16")
+    return by_dtype
+
+
+def train_path_bf16(out_dir: str) -> dict:
+    """DV3 S at ``fabric.precision=bf16-mixed`` through the entry points: a
+    short run, a resume from its checkpoint, an evaluation. The launch counts
+    are zeroed just before each and read just after: every LN-GRU launch must
+    take bf16 operands, 79 a gradient step plus one a policy step."""
+    from sheeprl_tpu_torch.cli import evaluation, run
+
+    overrides = train_overrides(os.path.join(out_dir, "train_bf16")) + [
+        f"fabric.precision={BF16_PRECISION}",
+        f"algo.learning_starts={TRAIN_ENVS * BF16_LEARNING_STARTS_ITERS}",
+    ]
+    out = {}
+    _zero_launches()
+    first = run(overrides + [f"algo.total_steps={TRAIN_ENVS * BF16_FIRST_ITERS}"])
+    out["train"] = {"summary": first, "launches": _launches(),
+                    "by_dtype": _bf16_launches("bf16 first run", GRU_CALLS_PER_GRAD_STEP * first["gradient_steps"]
+                                               + first["player_calls"])}
+    _check_train_run("bf16 first run", first, LN_GRU.launches)
+    scalars = check_scalars("DV3 bf16 first run", first["log_dir"], DV3_TAGS)
+    out["train"]["scalars"] = {t: scalars[t][-1] for t in DV3_TAGS}
+    _zero_launches()
+    resumed = run(overrides + [f"algo.total_steps={TRAIN_ENVS * BF16_RESUME_ITERS}",
+                               f"checkpoint.resume_from={first['checkpoint']}"])
+    out["resume"] = {"summary": resumed, "launches": _launches(),
+                     "by_dtype": _bf16_launches("bf16 resumed run", GRU_CALLS_PER_GRAD_STEP * resumed["gradient_steps"]
+                                                + resumed["player_calls"])}
+    _check_train_run("bf16 resumed run", resumed, LN_GRU.launches)
+    if not resumed["log_dir"].endswith("version_1"):
+        raise AssertionError(f"the bf16 resumed run wrote {resumed['log_dir']}, not the run's version_1")
+    _zero_launches()
+    reward = evaluation([f"checkpoint_path={resumed['checkpoint']}"])
+    out["evaluation"] = {"reward": reward, "launches": _launches(),
+                         "by_dtype": _bf16_launches("bf16 evaluation", 1)}
+    print(f"[chip-smoke] bf16 evaluation: reward {reward}", flush=True)
+    if not math.isfinite(reward):
+        raise AssertionError(f"bf16 evaluation: reward {reward}")
+    out["seconds_per_gradient_step"] = first["train_seconds"] / first["gradient_steps"]
+    out["ckpt"] = first["checkpoint"]
+    return out
+
+
+def serve_path_bf16(ckpt: str, out_dir: str) -> dict:
+    """The bf16 run's checkpoint through ``serve_main`` at bf16-mixed: 4
+    slots, 4 sessions of 512 steps; every session completes and every tick
+    launches the LN-GRU kernel with bf16 operands."""
+    from sheeprl_tpu_torch.serve.main import serve_main
+
+    log_dir = os.path.join(out_dir, "serve_bf16")
+    _zero_launches()
+    rc = serve_main([
+        f"checkpoint_path={ckpt}", f"fabric.precision={BF16_PRECISION}", f"serve.slots={SLOTS}",
+        f"serve.sessions={SESSIONS}", f"serve.max_session_steps={MAX_SESSION_STEPS}",
+        f"env.wrapper.n_steps={MAX_SESSION_STEPS}", f"serve.log_dir={log_dir}",
+    ])
+    launches = _launches()
+    with open(os.path.join(log_dir, "summary.json")) as f:
+        summary = json.load(f)
+    print(f"[chip-smoke] bf16 serve rc={rc} summary={json.dumps(summary)} launches={launches}", flush=True)
+    if rc != 0 or summary["sessions_completed"] != SESSIONS or summary["steps"] != SESSIONS * MAX_SESSION_STEPS:
+        raise AssertionError(f"bf16 serving did not complete every session: rc {rc}, {summary}")
+    by_dtype = _bf16_launches("bf16 serving", summary["ticks"])
+    return {"summary": summary, "launches": launches, "by_dtype": by_dtype}
 
 
 # PPO on CartPole-v1 at the exp's settings: 4 envs x 128 steps, minibatches
@@ -706,11 +898,6 @@ A2C_TOTAL_STEPS = 5120  # 256 train phases of 4 envs x 5 steps
 A2C_RMSPROP_ATOL = 1e-6
 
 
-def _zero_launches() -> None:
-    for spec in KERNELS:
-        spec.launches = 0
-
-
 def ppo_path(out_dir: str) -> dict:
     """``exp=ppo`` through the entry points on the card: train for the exp's
     total steps with the metric log and the test episode, resume into
@@ -722,7 +909,7 @@ def ppo_path(out_dir: str) -> dict:
     out = {}
     _zero_launches()
     first = run(overrides + [f"algo.total_steps={PPO_TOTAL_STEPS}"])
-    out["train"] = {"summary": first, "launches": {spec.name: spec.launches for spec in KERNELS}}
+    out["train"] = {"summary": first, "launches": _launches()}
     scalars = check_scalars("PPO first run", first["log_dir"], PPO_TAGS)
     out["train"]["scalars"] = {t: scalars[t][-1] for t in PPO_TAGS}
     steps = first["train_phases"] * 128
@@ -742,7 +929,7 @@ def ppo_path(out_dir: str) -> dict:
     _zero_launches()
     resumed = run(overrides + [f"algo.total_steps={PPO_TOTAL_STEPS + PPO_RESUME_ITERS * PPO_STEPS_PER_ITER}",
                                f"checkpoint.resume_from={first['checkpoint']}"])
-    out["resume"] = {"summary": resumed, "launches": {spec.name: spec.launches for spec in KERNELS}}
+    out["resume"] = {"summary": resumed, "launches": _launches()}
     print(f"[chip-smoke] PPO resumed run: {resumed['train_phases']} train phases into {resumed['log_dir']}, "
           f"losses {json.dumps(resumed['metrics'])}", flush=True)
     if not (resumed["log_dir"].endswith("version_1") and resumed["train_phases"] == PPO_RESUME_ITERS):
@@ -751,7 +938,7 @@ def ppo_path(out_dir: str) -> dict:
         raise AssertionError(f"PPO resume: non-finite losses {resumed['metrics']}")
     _zero_launches()
     reward = evaluation([f"checkpoint_path={resumed['checkpoint']}"])
-    out["evaluation"] = {"reward": reward, "launches": {spec.name: spec.launches for spec in KERNELS}}
+    out["evaluation"] = {"reward": reward, "launches": _launches()}
     print(f"[chip-smoke] PPO evaluation: reward {reward}", flush=True)
     if not math.isfinite(reward):
         raise AssertionError(f"PPO evaluation: reward {reward}")
@@ -765,7 +952,7 @@ def a2c_path(out_dir: str) -> dict:
 
     _zero_launches()
     summary = run(["exp=a2c", f"algo.total_steps={A2C_TOTAL_STEPS}", f"hydra.run.dir={os.path.join(out_dir, 'a2c')}"])
-    launches = {spec.name: spec.launches for spec in KERNELS}
+    launches = _launches()
     check_scalars("A2C run", summary["log_dir"], ("Loss/policy_loss", "Loss/value_loss", "Time/sps_train"))
     print(f"[chip-smoke] A2C run: {summary['train_phases']} train phases in {summary['wall_seconds']:.2f}s, test "
           f"reward {summary['test_reward']}, losses {json.dumps(summary['metrics'])}, checkpoint "
@@ -978,7 +1165,7 @@ def sac_path(out_dir: str) -> dict:
     out = {}
     _zero_launches()
     first = run(overrides + [f"algo.total_steps={SAC_TOTAL_STEPS}"])
-    out["train"] = {"summary": first, "launches": {spec.name: spec.launches for spec in KERNELS}}
+    out["train"] = {"summary": first, "launches": _launches()}
     scalars = check_scalars("SAC first run", first["log_dir"], SAC_TAGS)
     out["train"]["scalars"] = {t: scalars[t][-1] for t in SAC_TAGS}
     out["train"]["rew_avg_curve"] = scalars["Rewards/rew_avg"]
@@ -1000,7 +1187,7 @@ def sac_path(out_dir: str) -> dict:
     _zero_launches()
     resumed = run(overrides + [f"algo.total_steps={SAC_TOTAL_STEPS + SAC_RESUME_STEPS}",
                                f"checkpoint.resume_from={first['checkpoint']}"])
-    out["resume"] = {"summary": resumed, "launches": {spec.name: spec.launches for spec in KERNELS}}
+    out["resume"] = {"summary": resumed, "launches": _launches()}
     print(f"[chip-smoke] SAC resumed run: {resumed['gradient_steps']} gradient steps into {resumed['log_dir']}, "
           f"test reward {resumed['test_reward']}, losses {json.dumps(resumed['metrics'])}", flush=True)
     if not (resumed["log_dir"].endswith("version_1") and resumed["gradient_steps"] > 0):
@@ -1009,7 +1196,7 @@ def sac_path(out_dir: str) -> dict:
         raise AssertionError(f"SAC resume: non-finite losses {resumed['metrics']}")
     _zero_launches()
     reward = evaluation([f"checkpoint_path={resumed['checkpoint']}"])
-    out["evaluation"] = {"reward": reward, "launches": {spec.name: spec.launches for spec in KERNELS}}
+    out["evaluation"] = {"reward": reward, "launches": _launches()}
     print(f"[chip-smoke] SAC evaluation: reward {reward}", flush=True)
     if not math.isfinite(reward):
         raise AssertionError(f"SAC evaluation: reward {reward}")
@@ -1031,7 +1218,7 @@ def sac_serve_path(ckpt: str, out_dir: str) -> dict:
     _zero_launches()
     rc = serve_main([f"checkpoint_path={ckpt}", f"serve.slots={SLOTS}", f"serve.sessions={SESSIONS}",
                      f"serve.log_dir={log_dir}"])
-    launches = {spec.name: spec.launches for spec in KERNELS}
+    launches = _launches()
     with open(os.path.join(log_dir, "summary.json")) as f:
         summary = json.load(f)
     print(f"[chip-smoke] SAC serve rc={rc} summary={json.dumps(summary)}", flush=True)
@@ -1061,7 +1248,7 @@ def droq_path(out_dir: str) -> dict:
     _zero_launches()
     summary = run(["exp=droq", "env.id=Pendulum-v1", f"algo.total_steps={DROQ_TOTAL_STEPS}",
                    f"hydra.run.dir={os.path.join(out_dir, 'droq')}"])
-    launches = {spec.name: spec.launches for spec in KERNELS}
+    launches = _launches()
     print(f"[chip-smoke] DroQ run: {summary['gradient_steps']} critic updates in {summary['train_phases']} train "
           f"phases in {summary['wall_seconds']:.2f}s (train {summary['train_seconds']:.2f}s), test reward "
           f"{summary['test_reward']}, losses {json.dumps(summary['metrics'])}, checkpoint "
@@ -1076,7 +1263,7 @@ def droq_path(out_dir: str) -> dict:
     if not math.isfinite(reward):
         raise AssertionError(f"DroQ evaluation: reward {reward}")
     return {"summary": summary, "launches": launches,
-            "evaluation": {"reward": reward, "launches": {spec.name: spec.launches for spec in KERNELS}}}
+            "evaluation": {"reward": reward, "launches": _launches()}}
 
 
 def _sac_trainers(algo: str, devices, precision: str = "highest", scale_heads: bool = True):
@@ -1243,22 +1430,35 @@ def profile_sac_train_phase(warm: tuple) -> dict:
     return out
 
 
-def serve_step_parity(ckpt: str) -> dict:
-    """The batched DV3 serve step on the card vs on the CPU, same weights/noise."""
+def serve_step_parity(ckpt: str, precision: str = "32-true") -> dict:
+    """The batched DV3 serve step on the card vs on the CPU at ``precision``,
+    same weights, observations and noise (in the policy's dtype), 8 ticks.
+
+    float32: both run free from the same fresh carries; h within 1e-3 and
+    every env action equal. bf16: a sampled posterior flips wherever a logit
+    plus its Gumbel noise lands on a bf16 tie that the two sides break apart,
+    and a flipped one-hot moves h by far more than a rounding, so each tick
+    starts both sides from the CPU's carry: h within 2^-5 after one step (8
+    bf16 roundings near |h| = 1), at least 95% of the sampled posterior
+    variables and 90% of the env actions the same."""
     from sheeprl_tpu_torch.algos.dreamer_v3.serve import get_serve_policy
     from sheeprl_tpu_torch.parallel.fabric import Fabric
     from sheeprl_tpu_torch.serve.main import build_serve_cfg
     from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
 
+    bf16 = precision.startswith("bf16")
     state = load_checkpoint(ckpt)
     cfg = build_serve_cfg([f"checkpoint_path={ckpt}"])
     policies = {}
     for accel in ("gpu", "cpu"):
-        fabric = Fabric(accelerator=accel, float32_matmul_precision="highest")
+        fabric = Fabric(accelerator=accel, precision=precision, float32_matmul_precision="highest")
         policies[accel] = get_serve_policy(fabric, cfg, state)
     rng = np.random.default_rng(7)
     carries = {k: p.init_slots(SLOTS) for k, p in policies.items()}
-    h_err, actions_equal, ticks = 0.0, 0, 8
+    h_err, actions_equal, z_equal, ticks = 0.0, 0, 0, 8
+    noise_dtype = policies["cpu"].noise_spec["repr"].dtype
+    discrete = policies["cpu"].module.discrete_size
+    card = policies["gpu"].device
     for _ in range(ticks):
         obs = {
             k: rng.integers(0, 256, (SLOTS, *s.shape)).astype(s.dtype)
@@ -1267,21 +1467,32 @@ def serve_step_parity(ckpt: str) -> dict:
             for k, s in policies["cpu"].obs_spec.items()
         }
         gumbel = -np.log(-np.log(rng.uniform(1e-12, 1.0, (SLOTS, policies["cpu"].noise_spec["repr"].size))))
+        if bf16:
+            carries["gpu"] = {k: v.to(card) for k, v in carries["cpu"].items()}
         out = {}
         for accel, policy in policies.items():
             dev = policy.device
             obs_t = {k: torch.from_numpy(v).to(dev) for k, v in obs.items()}
-            noise = {"repr": torch.tensor(gumbel, dtype=torch.float32, device=dev)}
+            noise = {"repr": torch.tensor(gumbel, dtype=torch.float32, device=dev).to(noise_dtype)}
             out[accel] = policy.step_slots(carries[accel], obs_t, noise)
             carries[accel] = out[accel][1]
-        h_err = max(h_err, float((out["gpu"][1]["h"].cpu() - out["cpu"][1]["h"]).abs().max()))
-        actions_equal += int(np.array_equal(out["gpu"][0].cpu().numpy(), out["cpu"][0].numpy()))
-        if not torch.isfinite(out["gpu"][1]["h"]).all():
+        h_err = max(h_err, float((out["gpu"][1]["h"].float().cpu() - out["cpu"][1]["h"].float()).abs().max()))
+        actions_equal += int((out["gpu"][0].cpu() == out["cpu"][0]).sum())
+        z = {a: o[1]["z"].float().cpu().reshape(SLOTS, -1, discrete).argmax(-1) for a, o in out.items()}
+        z_equal += int((z["gpu"] == z["cpu"]).sum())
+        if not torch.isfinite(out["gpu"][1]["h"].float()).all():
             raise AssertionError("non-finite recurrent state on the card")
-    print(f"[chip-smoke] serve step card vs CPU: h max abs err {h_err}, actions equal {actions_equal}/{ticks}", flush=True)
-    if h_err > SERVE_H_ATOL or actions_equal != ticks:
-        raise AssertionError(f"serve step on the card disagrees with the CPU: h err {h_err}, actions {actions_equal}/{ticks}")
-    return {"h_max_abs_err": h_err, "actions_equal": actions_equal, "ticks": ticks}
+    n_actions = ticks * int(out["cpu"][0].numel())
+    n_z = ticks * int(z["cpu"].numel())
+    h_bar, z_share, a_share = (SERVE_H_ATOL_BF16, 0.95, 0.9) if bf16 else (SERVE_H_ATOL, 0.0, 1.0)
+    print(f"[chip-smoke] serve step card vs CPU at {precision}: h max abs err {h_err} (bar {h_bar}), posterior "
+          f"samples equal {z_equal}/{n_z} (bar {z_share:.0%}), env actions equal {actions_equal}/{n_actions} "
+          f"(bar {a_share:.0%})", flush=True)
+    if h_err > h_bar or actions_equal < a_share * n_actions or z_equal < z_share * n_z:
+        raise AssertionError(f"serve step at {precision} on the card disagrees with the CPU: h err {h_err}, "
+                             f"samples {z_equal}/{n_z}, actions {actions_equal}/{n_actions}")
+    return {"precision": precision, "h_max_abs_err": h_err, "samples_equal": z_equal, "samples": n_z,
+            "actions_equal": actions_equal, "actions": n_actions, "ticks": ticks}
 
 
 def profile_ticks(ckpt: str, ticks: int = 32) -> dict:
@@ -1351,12 +1562,20 @@ def main() -> int:
           f"{', '.join(p.name for p in paths.values())}", flush=True)
 
     gru = check_gru(device)
+    gru_bf16 = check_gru(device, BF16)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         path = main_path(tmp)
         parity = serve_step_parity(path["ckpt"])
         train = train_path(tmp)
         train_parity = train_step_parity()
+        # seconds per gradient step in float32, then in bf16, one after the other
         train_timing, warm = time_train_steps()
+        bf16 = {}
+        bf16["timing"], warm_bf16 = time_train_steps(precision=BF16_PRECISION)
+        bf16.update(train_path_bf16(tmp))
+        bf16["serve"] = serve_path_bf16(bf16["ckpt"], tmp)
+        bf16["serve_parity"] = serve_step_parity(bf16["ckpt"], BF16_PRECISION)
+        bf16["train_parity"] = train_step_parity(precision=BF16_PRECISION)
         ppo = ppo_path(tmp)
         a2c = a2c_path(tmp)
         ppo["parity"] = ppo_train_phase_parity()
@@ -1368,12 +1587,13 @@ def main() -> int:
         sac["parity"] = sac_train_phase_parity("sac")
         droq["parity"] = sac_train_phase_parity("droq")
         sac["timing"], sac_warm = time_sac()
-        profile_gru(gru["rows"], device)
+        profile_gru(gru["rows"] + gru_bf16["rows"], device)
         profile = profile_ticks(path["ckpt"])
         train_timing["profile"] = profile_train_steps(warm)
+        bf16["timing"]["profile"] = profile_train_steps(warm_bf16)
         ppo["timing"]["profile"] = profile_ppo_train_phase(ppo_warm)
         sac["timing"]["profile"] = profile_sac_train_phase(sac_warm)
-        del warm, ppo_warm, sac_warm
+        del warm, warm_bf16, ppo_warm, sac_warm
 
     main_row = next(r for r in gru["rows"] if (r["preset"], r["B"], r["K"], r["H"]) == MAIN_SHAPE)
     train_rows = [r for r in gru["rows"] if (r["preset"], r["B"], r["K"], r["H"]) in TRAIN_SHAPES]
@@ -1398,7 +1618,15 @@ def main() -> int:
                    for name in ("train", "resume", "evaluation", "serve")},
                 "droq": droq["launches"][LN_GRU.name],
                 "droq_evaluation": droq["evaluation"]["launches"][LN_GRU.name],
+                # DV3 S at fabric.precision=bf16-mixed: every launch with bf16 operands
+                **{f"bf16_{name}": bf16[name]["launches"][LN_GRU.name]
+                   for name in ("train", "resume", "evaluation", "serve")},
             },
+            "launches_by_dtype": {
+                name: bf16[name]["by_dtype"] for name in ("train", "resume", "evaluation", "serve")
+            },
+            "bf16_rows": [{k: r[k] for k in keep if k in r} for r in gru_bf16["rows"]],
+            "bf16_max_abs_err": gru_bf16["max_abs_err"],
             "train_rows": [{k: r[k] for k in keep} for r in train_rows],
             "max_abs_err": gru["max_abs_err"],
             "ms": main_row["ms"],
@@ -1420,6 +1648,7 @@ def main() -> int:
                 {"card": card, "torch": torch.__version__, "gru": gru, "serve": path["summary"],
                  "launches": path["launches"], "serve_parity": parity, "serve_profile": profile,
                  "train": train, "train_parity": train_parity, "train_timing": train_timing,
+                 "gru_bf16": gru_bf16, "bf16": bf16,
                  "ppo": ppo, "a2c": a2c, "sac": sac, "droq": droq, "kernels": kernels},
                 f, indent=2,
             )

@@ -13,7 +13,15 @@ parameters one to one, and checkpoints hold the Flax layout as numpy trees:
   own ``torch.Generator``;
 - initializers are the Hafner ones of the JAX package (truncated normal with
   variance 1/fan_avg, and scaled uniform heads), drawn from an explicit
-  ``torch.Generator``.
+  ``torch.Generator``;
+- every block takes the compute ``dtype`` (``Fabric.compute_dtype``), as the
+  JAX blocks take Flax's ``dtype``: parameters stay float32 and are cast where
+  they are used (``models.models.dense``/``layer_norm``/``conv``), the RSSM's
+  carry keeps the compute dtype through the scans (which cast each parameter
+  once, ``cast_once``), and the samplers take noise in the compute dtype. In
+  bf16 the categorical and two-hot math composes the ops JAX composes, each
+  rounded to bf16 (``utils/distribution.py``), and Python constants are
+  rounded to bf16 as JAX's weakly typed scalars are (``weak_scalar``).
 
 The RSSM unrolls (``dynamic_scan`` over the sequence, ``imagination_scan`` over
 the horizon) and ``PlayerDV3`` step the recurrent cell through the LayerNorm-GRU
@@ -29,16 +37,25 @@ import numpy as np
 import torch
 from torch import nn
 
-from sheeprl_tpu_torch.models.models import LayerNormGRUCell, resolve_activation
+from sheeprl_tpu_torch.models.models import (
+    LayerNormGRUCell,
+    cast_once,
+    conv,
+    dense,
+    layer_norm,
+    resolve_activation,
+)
 from sheeprl_tpu_torch.utils.distribution import (
     Distribution,
     Independent,
     Normal,
-    OneHotCategorical,
     OneHotCategoricalStraightThrough,
     draw_gumbel,
+    log_softmax,
+    sigmoid,
+    softmax,
 )
-from sheeprl_tpu_torch.utils.utils import symlog
+from sheeprl_tpu_torch.utils.utils import symlog, weak_scalar
 
 # truncated normal on [-2, 2] standard deviations has this standard deviation
 _TRUNC_NORMAL_STD = 0.87962566103423978
@@ -95,10 +112,17 @@ class DenseStack(nn.Module):
     """[Linear(no bias) -> LayerNorm -> act] x n — the Dreamer-V3 MLP block."""
 
     def __init__(
-        self, in_dim: int, units: int, n_layers: int, activation: Any = "silu", eps: float = 1e-3
+        self,
+        in_dim: int,
+        units: int,
+        n_layers: int,
+        activation: Any = "silu",
+        eps: float = 1e-3,
+        dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
         self.act = resolve_activation(activation)
+        self.dtype = dtype
         dims = [in_dim] + [units] * n_layers
         self.linears = nn.ModuleList(
             nn.Linear(dims[i], units, bias=False) for i in range(n_layers)
@@ -111,8 +135,9 @@ class DenseStack(nn.Module):
             hafner_init_(linear.weight, "linear", generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
         for linear, norm in zip(self.linears, self.norms):
-            x = self.act(norm(linear(x)))
+            x = self.act(layer_norm(norm, dense(linear, x, self.dtype), self.dtype))
         return x
 
 
@@ -128,11 +153,13 @@ class MLPHead(nn.Module):
         activation: Any = "silu",
         eps: float = 1e-3,
         head_init_scale: Optional[float] = None,
+        dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
-        self.stack = DenseStack(in_dim, units, n_layers, activation, eps)
+        self.stack = DenseStack(in_dim, units, n_layers, activation, eps, dtype)
         self.head = nn.Linear(self.stack.out_dim, output_dim)
         self.head_init_scale = head_init_scale
+        self.dtype = dtype
 
     def init_weights(self, generator: torch.Generator) -> None:
         self.stack.init_weights(generator)
@@ -140,7 +167,7 @@ class MLPHead(nn.Module):
         nn.init.zeros_(self.head.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.head(self.stack(x))
+        return dense(self.head, self.stack(x), self.dtype)
 
 
 class CNNEncoder(nn.Module):
@@ -156,10 +183,12 @@ class CNNEncoder(nn.Module):
         activation: Any = "silu",
         eps: float = 1e-3,
         image_size: int = 64,
+        dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
         self.keys = tuple(keys)
         self.act = resolve_activation(activation)
+        self.dtype = dtype
         chans = [in_channels] + [(2**i) * channels_multiplier for i in range(stages)]
         self.convs = nn.ModuleList(
             nn.Conv2d(chans[i], chans[i + 1], 4, stride=2, padding=1, bias=False)
@@ -176,10 +205,10 @@ class CNNEncoder(nn.Module):
     def forward(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
         x = torch.cat([obs[k] for k in self.keys], dim=-3)
         lead = x.shape[:-3]
-        x = x.reshape(-1, *x.shape[-3:])
-        for i, (conv, norm) in enumerate(zip(self.convs, self.norms)):
+        x = x.reshape(-1, *x.shape[-3:]).to(self.dtype)
+        for i, (module, norm) in enumerate(zip(self.convs, self.norms)):
             # LayerNorm over the channels of each pixel (the Flax NHWC LayerNorm)
-            x = self.act(norm(conv(x).permute(0, 2, 3, 1)))
+            x = self.act(layer_norm(norm, conv(module, x, self.dtype).permute(0, 2, 3, 1), self.dtype))
             if i + 1 < len(self.convs):
                 x = x.permute(0, 3, 1, 2)
         return x.reshape(*lead, -1)  # NHWC flatten order
@@ -197,11 +226,12 @@ class MLPEncoder(nn.Module):
         activation: Any = "silu",
         eps: float = 1e-3,
         symlog_inputs: bool = True,
+        dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
         self.keys = tuple(keys)
         self.symlog_inputs = symlog_inputs
-        self.stack = DenseStack(in_dim, dense_units, mlp_layers, activation, eps)
+        self.stack = DenseStack(in_dim, dense_units, mlp_layers, activation, eps, dtype)
         self.out_dim = self.stack.out_dim
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -239,8 +269,7 @@ class Encoder(nn.Module):
 
 class CNNDecoder(nn.Module):
     """latent -> 4x4 -> stride-2 transposed-conv stages -> channel-first images
-    per key (JAX agent.py CNNDecoder). Built so the checkpoint tree is whole;
-    its parity is held in a later slice."""
+    per key (JAX agent.py CNNDecoder)."""
 
     def __init__(
         self,
@@ -253,11 +282,13 @@ class CNNDecoder(nn.Module):
         activation: Any = "silu",
         eps: float = 1e-3,
         hafner_heads: bool = True,
+        dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
         self.keys = tuple(keys)
         self.output_channels = tuple(int(c) for c in output_channels)
         self.act = resolve_activation(activation)
+        self.dtype = dtype
         self.hafner_heads = hafner_heads
         self.spatial = image_size[0] // (2**stages)
         self.top_channels = (2 ** (stages - 1)) * channels_multiplier
@@ -287,12 +318,13 @@ class CNNDecoder(nn.Module):
         nn.init.zeros_(last.bias)
 
     def forward(self, latent: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = self.linear(latent)
+        dtype = self.dtype
+        x = dense(self.linear, latent, dtype)
         lead = x.shape[:-1]
         x = x.reshape(-1, self.spatial, self.spatial, self.top_channels).permute(0, 3, 1, 2)
         for deconv, norm in zip(self.deconvs[:-1], self.norms):
-            x = self.act(norm(deconv(x).permute(0, 2, 3, 1))).permute(0, 3, 1, 2)
-        x = self.deconvs[-1](x)
+            x = self.act(layer_norm(norm, conv(deconv, x, dtype).permute(0, 2, 3, 1), dtype)).permute(0, 3, 1, 2)
+        x = conv(self.deconvs[-1], x, dtype)
         x = x.reshape(*lead, *x.shape[-3:])
         return dict(zip(self.keys, torch.split(x, list(self.output_channels), dim=-3)))
 
@@ -310,12 +342,14 @@ class MLPDecoder(nn.Module):
         activation: Any = "silu",
         eps: float = 1e-3,
         hafner_heads: bool = True,
+        dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
         self.keys = tuple(keys)
         self.hafner_heads = hafner_heads
-        self.stack = DenseStack(latent_dim, dense_units, mlp_layers, activation, eps)
+        self.stack = DenseStack(latent_dim, dense_units, mlp_layers, activation, eps, dtype)
         self.heads = nn.ModuleList(nn.Linear(self.stack.out_dim, int(d)) for d in output_dims)
+        self.dtype = dtype
 
     def init_weights(self, generator: torch.Generator) -> None:
         self.stack.init_weights(generator)
@@ -325,7 +359,7 @@ class MLPDecoder(nn.Module):
 
     def forward(self, latent: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = self.stack(latent)
-        return {k: head(x) for k, head in zip(self.keys, self.heads)}
+        return {k: dense(head, x, self.dtype) for k, head in zip(self.keys, self.heads)}
 
 
 class Decoder(nn.Module):
@@ -358,11 +392,12 @@ class RecurrentModel(nn.Module):
         dense_units: int,
         activation: Any = "silu",
         eps: float = 1e-3,
+        dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
-        self.stack = DenseStack(in_dim, dense_units, 1, activation, eps)
+        self.stack = DenseStack(in_dim, dense_units, 1, activation, eps, dtype)
         self.cell = LayerNormGRUCell(
-            dense_units, recurrent_state_size, bias=False, layer_norm_eps=eps
+            dense_units, recurrent_state_size, bias=False, layer_norm_eps=eps, dtype=dtype
         )
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -387,11 +422,13 @@ class Actor(nn.Module):
         mlp_layers: int = 5,
         activation: Any = "silu",
         eps: float = 1e-3,
+        dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
         self.actions_dim = tuple(int(d) for d in actions_dim)
         self.is_continuous = is_continuous
-        self.stack = DenseStack(latent_dim, dense_units, mlp_layers, activation, eps)
+        self.dtype = dtype
+        self.stack = DenseStack(latent_dim, dense_units, mlp_layers, activation, eps, dtype)
         if is_continuous:
             dims = [int(np.sum(self.actions_dim)) * 2]
         else:
@@ -406,7 +443,7 @@ class Actor(nn.Module):
 
     def forward(self, state: torch.Tensor) -> List[torch.Tensor]:
         x = self.stack(state)
-        return [head(x) for head in self.heads]
+        return [dense(head, x, self.dtype) for head in self.heads]
 
 
 # ---------------------------------------------------------------------------------
@@ -416,8 +453,10 @@ def unimix_logits(logits: torch.Tensor, discrete: int, unimix: float) -> torch.T
     """1% uniform mixing of categorical probs over flat [..., S*D] logits."""
     shaped = logits.reshape(*logits.shape[:-1], -1, discrete)
     if unimix > 0.0:
-        probs = torch.softmax(shaped, dim=-1)
-        probs = (1 - unimix) * probs + unimix * (torch.ones_like(probs) / discrete)
+        dtype = shaped.dtype
+        probs = softmax(shaped, dim=-1)
+        uniform = torch.ones_like(probs) / discrete
+        probs = weak_scalar(1 - unimix, dtype) * probs + weak_scalar(unimix, dtype) * uniform
         shaped = torch.log(probs)
     return shaped.reshape(*shaped.shape[:-2], -1)
 
@@ -440,10 +479,11 @@ def stochastic_state(
 
 def categorical_kl(post_logits: torch.Tensor, prior_logits: torch.Tensor, discrete: int) -> torch.Tensor:
     """KL(Cat(post) || Cat(prior)) summed over the stochastic variables; flat
-    [..., S*D] logits in, [...] out."""
-    post = OneHotCategorical(logits=post_logits.reshape(*post_logits.shape[:-1], -1, discrete))
-    prior = OneHotCategorical(logits=prior_logits.reshape(*prior_logits.shape[:-1], -1, discrete))
-    return torch.sum(post.probs * (post.logits - prior.logits), dim=(-2, -1))
+    [..., S*D] logits in, [...] out. The JAX composition: ``exp(lp_post) *
+    (lp_post - lp_prior)`` summed over the classes, then over the variables."""
+    post_lp = log_softmax(post_logits.reshape(*post_logits.shape[:-1], -1, discrete), dim=-1)
+    prior_lp = log_softmax(prior_logits.reshape(*prior_logits.shape[:-1], -1, discrete), dim=-1)
+    return torch.sum(torch.exp(post_lp) * (post_lp - prior_lp), dim=-1).sum(dim=-1)
 
 
 def actor_dists(agent: "DV3Agent", pre_dist: List[torch.Tensor]) -> List[Distribution]:
@@ -453,7 +493,11 @@ def actor_dists(agent: "DV3Agent", pre_dist: List[torch.Tensor]) -> List[Distrib
     cfg = agent.actor_cfg
     if agent.is_continuous:
         mean, std_raw = torch.chunk(pre_dist[0], 2, dim=-1)
-        std = (cfg["max_std"] - cfg["min_std"]) * torch.sigmoid(std_raw + cfg["init_std"]) + cfg["min_std"]
+        dtype = std_raw.dtype
+        span, init_std, min_std = (
+            weak_scalar(v, dtype) for v in (cfg["max_std"] - cfg["min_std"], cfg["init_std"], cfg["min_std"])
+        )
+        std = span * sigmoid(std_raw + init_std) + min_std
         return [Independent(Normal(torch.tanh(mean), std), 1)]
     unimix = cfg.get("unimix", 0.01)
     return [
@@ -494,23 +538,30 @@ def actor_sample(
 def draw_actor_noise(
     agent: "DV3Agent", shape: Sequence[int], generator: Optional[torch.Generator], device
 ) -> torch.Tensor:
-    """Noise for :func:`actor_sample` over ``shape`` leading dims: one normal
-    draw per continuous action, one Gumbel draw per logit of the discrete heads."""
+    """Noise for :func:`actor_sample` over ``shape`` leading dims, in the
+    agent's compute dtype (the dtype JAX draws it in for the heads' outputs):
+    one normal draw per continuous action, one Gumbel draw per logit of the
+    discrete heads."""
     size = (*shape, int(np.sum(agent.actions_dim)))
     if agent.is_continuous:
-        return torch.randn(size, device=device, generator=generator)
-    return draw_gumbel(size, generator, device)
+        return torch.randn(size, device=device, generator=generator).to(agent.dtype)
+    return draw_gumbel(size, generator, device, agent.dtype)
 
 
 def actor_logprob_entropy(
     agent: "DV3Agent", pre_dist: List[torch.Tensor], actions: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Log-prob of the concatenated ``actions`` under the actor heads, [..., 1],
-    and the heads' total entropy, [...]."""
+    and the heads' total entropy, [...]. A discrete head's entropy is the JAX
+    agent's ``-sum(exp(lp) * lp)`` over its log-probs."""
     dists = actor_dists(agent, pre_dist)
     blocks = [actions] if agent.is_continuous else torch.split(actions, list(agent.actions_dim), dim=-1)
     lp = torch.stack([dist.log_prob(act) for dist, act in zip(dists, blocks)], dim=-1).sum(dim=-1, keepdim=True)
-    return lp, torch.stack([dist.entropy() for dist in dists], dim=-1).sum(dim=-1)
+    if agent.is_continuous:
+        ents = [dists[0].entropy()]
+    else:
+        ents = [-torch.sum(torch.exp(dist.logits) * dist.logits, dim=-1) for dist in dists]
+    return lp, torch.stack(ents, dim=-1).sum(dim=-1)
 
 
 # ---------------------------------------------------------------------------------
@@ -519,7 +570,8 @@ def actor_logprob_entropy(
 class DV3Agent(nn.Module):
     """Every Dreamer-V3 module, plus the RSSM primitives the player uses.
     ``world_model`` holds encoder, recurrent/representation/transition models,
-    decoder, reward and continue heads and the learnable initial state."""
+    decoder, reward and continue heads and the learnable initial state.
+    ``dtype`` is the compute dtype of every block."""
 
     def __init__(
         self,
@@ -538,8 +590,10 @@ class DV3Agent(nn.Module):
         actor_cfg: Dict[str, Any],
         learnable_initial_recurrent_state: bool = True,
         decoupled_rssm: bool = False,
+        dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
+        self.dtype = dtype
         self.world_model = world_model
         self.initial_recurrent_state = nn.Parameter(initial_recurrent_state)
         self.actor = actor
@@ -568,7 +622,8 @@ class DV3Agent(nn.Module):
         return self.stoch_state_size + self.recurrent_state_size
 
     def initial_state(self, batch_shape: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tanh(learnable w) expanded + transition-mode posterior."""
+        """tanh(learnable w) expanded (float32, as the JAX agent keeps it) +
+        transition-mode posterior (in the compute dtype)."""
         w = self.initial_recurrent_state
         if not self.learnable_initial_recurrent_state:
             w = w.detach()
@@ -595,6 +650,7 @@ class DV3Agent(nn.Module):
         logits = self.world_model["transition_model"](h)
         return unimix_logits(logits, self.discrete_size, self.unimix)
 
+    @cast_once()
     def dynamic_scan(
         self,
         embedded: torch.Tensor,
@@ -608,9 +664,12 @@ class DV3Agent(nn.Module):
         ``embedded`` [T, B, E], ``actions`` [T, B, A] (the action that led to
         each observation), ``is_first`` [T, B, 1], ``gumbel`` [T, B, S*D] the
         posterior samples' noise. Returns (recurrent states, posteriors,
-        posterior logits, prior logits), time-major, stochastic states flat."""
+        posterior logits, prior logits), time-major, stochastic states flat.
+        Each parameter is cast to the compute dtype once for the whole scan."""
         T, B = embedded.shape[:2]
         h0, z0 = self.initial_state((B,))
+        # the carry keeps the compute dtype through the whole scan
+        h0, z0 = h0.to(embedded.dtype), z0.to(embedded.dtype)
         h = torch.zeros((B, self.recurrent_state_size), dtype=embedded.dtype, device=embedded.device)
         z = torch.zeros((B, self.stoch_state_size), dtype=embedded.dtype, device=embedded.device)
         actions = actions.to(embedded.dtype)
@@ -636,6 +695,7 @@ class DV3Agent(nn.Module):
             posts.append(post)
         return torch.stack(hs), torch.stack(zs), torch.stack(posts), torch.stack(priors)
 
+    @cast_once()
     def imagination_scan(
         self,
         z0: torch.Tensor,
@@ -649,7 +709,8 @@ class DV3Agent(nn.Module):
         (the continuous-control pathwise objective needs them).
         ``transition_noise`` [horizon, N, S*D] is the prior samples' Gumbel
         noise, ``action_noise`` [horizon + 1, N, A] the actor's. Returns
-        (latents [horizon+1, N, L], actions [horizon+1, N, A])."""
+        (latents [horizon+1, N, L], actions [horizon+1, N, A]). Each parameter
+        is cast to the compute dtype once for the whole rollout."""
         latent = torch.cat([z0, h0], dim=-1)
         a = actor_sample(self, self.actor(latent.detach()), action_noise[0])
         latents, actions = [latent], [a]
@@ -685,7 +746,9 @@ def player_step(
 
 class PlayerDV3:
     """The env-interaction wrapper: holds each env's carry (previous action,
-    recurrent and stochastic state) and steps every env at once.
+    recurrent and stochastic state) and steps every env at once. ``h`` and
+    ``z`` are in the compute dtype after the first step; the actions are kept
+    float32, as the env takes them.
 
     ``get_actions`` takes the posterior's Gumbel noise and the actor's noise as
     arguments, or draws them from ``generator``."""
@@ -732,7 +795,7 @@ class PlayerDV3:
     ) -> torch.Tensor:
         if noise is None:
             n = self.num_envs
-            noise = {"repr": draw_gumbel((n, self.agent.stoch_state_size), generator, self.device)}
+            noise = {"repr": draw_gumbel((n, self.agent.stoch_state_size), generator, self.device, self.agent.dtype)}
             if not greedy:
                 noise["act"] = draw_actor_noise(self.agent, (n,), generator, self.device)
         actions, self.recurrent_state, self.stochastic_state = player_step(
@@ -745,8 +808,8 @@ class PlayerDV3:
             None if greedy else noise["act"],
             greedy,
         )
-        self.actions = actions
-        return actions
+        self.actions = actions.float()
+        return self.actions
 
 
 def build_agent(
@@ -773,6 +836,7 @@ def build_agent(
     screen = int(cfg.env.screen_size)
     cnn_stages = int(np.log2(screen) - np.log2(4))
     eps = 1e-3
+    dtype = fabric.compute_dtype
 
     cnn_encoder = (
         CNNEncoder(
@@ -783,6 +847,7 @@ def build_agent(
             activation=cfg.algo.cnn_act,
             eps=eps,
             image_size=screen,
+            dtype=dtype,
         )
         if cnn_keys
         else None
@@ -795,6 +860,7 @@ def build_agent(
             dense_units=wm_cfg.encoder.dense_units,
             activation=cfg.algo.dense_act,
             eps=eps,
+            dtype=dtype,
         )
         if mlp_keys
         else None
@@ -822,6 +888,7 @@ def build_agent(
             activation=cfg.algo.cnn_act,
             eps=eps,
             hafner_heads=cfg.algo.hafner_initialization,
+            dtype=dtype,
         )
         if cnn_dec_keys
         else None
@@ -836,6 +903,7 @@ def build_agent(
             activation=cfg.algo.dense_act,
             eps=eps,
             hafner_heads=cfg.algo.hafner_initialization,
+            dtype=dtype,
         )
         if mlp_dec_keys
         else None
@@ -849,6 +917,7 @@ def build_agent(
                 wm_cfg.recurrent_model.dense_units,
                 cfg.algo.dense_act,
                 eps,
+                dtype,
             ),
             "representation_model": MLPHead(
                 encoder.out_dim if decoupled_rssm else recurrent_state_size + encoder.out_dim,
@@ -858,6 +927,7 @@ def build_agent(
                 wm_cfg.representation_model.dense_act,
                 eps,
                 posterior_scale,
+                dtype,
             ),
             "transition_model": MLPHead(
                 recurrent_state_size,
@@ -867,6 +937,7 @@ def build_agent(
                 wm_cfg.transition_model.dense_act,
                 eps,
                 posterior_scale,
+                dtype,
             ),
             "observation_model": Decoder(cnn_decoder, mlp_decoder),
             "reward_model": MLPHead(
@@ -877,6 +948,7 @@ def build_agent(
                 cfg.algo.dense_act,
                 eps,
                 zero_head,
+                dtype,
             ),
             "continue_model": MLPHead(
                 latent_state_size,
@@ -886,6 +958,7 @@ def build_agent(
                 cfg.algo.dense_act,
                 eps,
                 posterior_scale,
+                dtype,
             ),
         }
     )
@@ -909,6 +982,7 @@ def build_agent(
             critic_cfg.dense_act,
             eps,
             zero_head,
+            dtype,
         )
 
     agent = DV3Agent(
@@ -922,6 +996,7 @@ def build_agent(
             actor_cfg.mlp_layers,
             actor_cfg.dense_act,
             eps,
+            dtype,
         ),
         make_critic(),
         make_critic(),
@@ -940,6 +1015,7 @@ def build_agent(
         },
         learnable_initial_recurrent_state=wm_cfg.learnable_initial_recurrent_state,
         decoupled_rssm=decoupled_rssm,
+        dtype=dtype,
     )
 
     if agent_state is not None:

@@ -47,12 +47,12 @@ from sheeprl_tpu_torch.utils.distribution import (
     BernoulliSafeMode,
     Independent,
     MSEDistribution,
-    OneHotCategorical,
     SymlogDistribution,
     TwoHotEncodingDistribution,
+    log_softmax,
 )
 from sheeprl_tpu_torch.utils.timer import timer
-from sheeprl_tpu_torch.utils.utils import Ratio, compute_lambda_values, save_configs
+from sheeprl_tpu_torch.utils.utils import Ratio, compute_lambda_values, save_configs, weak_scalar
 
 Batch = Dict[str, torch.Tensor]
 
@@ -78,12 +78,19 @@ def build_optimizers(cfg, agent: DV3Agent) -> Dict[str, torch.optim.Optimizer]:
 
 
 def _cat_entropy(logits: torch.Tensor, discrete: int) -> torch.Tensor:
-    """Mean entropy of the [..., S, D] categorical stack of flat logits."""
-    return Independent(OneHotCategorical(logits=logits.reshape(*logits.shape[:-1], -1, discrete)), 1).entropy().mean()
+    """Mean entropy of the [..., S, D] categorical stack of flat logits (the
+    JAX metric's ``-sum(exp(lp) * lp)`` over both axes)."""
+    lp = log_softmax(logits.reshape(*logits.shape[:-1], -1, discrete), dim=-1)
+    return -torch.sum(torch.exp(lp) * lp, dim=(-2, -1)).mean()
 
 
 class DV3Trainer:
-    """Owns the optimizers and the Moments state, and takes gradient steps."""
+    """Owns the optimizers and the Moments state, and takes gradient steps.
+
+    At a bf16 compute dtype the losses are computed as the JAX step computes
+    them (bf16 blocks, float32 where JAX promotes), the gradients land on the
+    float32 parameters, and the optimizers, the global-norm clip and the
+    target critic's EMA are the float32 ones."""
 
     def __init__(self, agent: DV3Agent, cfg, optimizers: Dict[str, torch.optim.Optimizer]):
         self.agent = agent
@@ -120,9 +127,10 @@ class DV3Trainer:
         Gumbel noise [T, B, S*D], the imagined prior samples' [horizon, T*B,
         S*D] and the imagined actions' [horizon + 1, T*B, A]."""
         agent, N = self.agent, T * B
+        dtype = agent.dtype
         return {
-            "posterior": draw_gumbel((T, B, agent.stoch_state_size), generator, self.device),
-            "transition": draw_gumbel((self.horizon, N, agent.stoch_state_size), generator, self.device),
+            "posterior": draw_gumbel((T, B, agent.stoch_state_size), generator, self.device, dtype),
+            "transition": draw_gumbel((self.horizon, N, agent.stoch_state_size), generator, self.device, dtype),
             "action": draw_actor_noise(agent, (self.horizon + 1, N), generator, self.device),
         }
 
@@ -208,12 +216,14 @@ class DV3Trainer:
         discount = (torch.cumprod(continues * self.gamma, dim=0) / self.gamma).detach()
 
         offset, invscale, new_moments = update_moments(self.moments, lambda_values, **self.moments_kw)
-        baseline = predicted_values[:-1]
+        # the 0-d float32 Moments promote a bf16 baseline to float32 in JAX;
+        # torch would keep bf16 for a 0-d operand, so the cast is written out
+        baseline = predicted_values[:-1].float()
         advantage = (lambda_values - offset) / invscale - (baseline - offset) / invscale
         pre = agent.actor(latents.detach())
         lp, ent = actor_logprob_entropy(agent, pre, actions.detach())
         objective = advantage if agent.is_continuous else lp[:-1] * advantage.detach()
-        entropy = self.ent_coef * ent[..., None]
+        entropy = weak_scalar(self.ent_coef, ent.dtype) * ent[..., None]
         policy_loss = -torch.mean(discount[:-1] * (objective + entropy[:-1]))
         return policy_loss, (latents, lambda_values, discount, new_moments)
 
@@ -282,7 +292,7 @@ class DV3Trainer:
             batch = {k: v[g] for k, v in data.items()}
             all_metrics.append(self.train_step(batch, cum_steps + g, self.draw_noise(T, B, generator)))
         keys = sorted(all_metrics[0])
-        means = torch.stack([torch.stack([m[k] for m in all_metrics]).mean() for k in keys]).cpu()
+        means = torch.stack([torch.stack([m[k] for m in all_metrics]).float().mean() for k in keys]).cpu()
         return dict(zip(keys, means.tolist()))
 
     # -- checkpoint state ----------------------------------------------------------

@@ -12,6 +12,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import categorical_kl
+from sheeprl_tpu_torch.utils.utils import weak_scalar
 
 
 def reconstruction_loss(
@@ -29,19 +30,22 @@ def reconstruction_loss(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (loss, kl, state_loss, reward_loss, observation_loss, continue_loss).
 
-    The log-probs are per element, [T, B]; the logits are [T, B, S*D]."""
+    The log-probs are per element, [T, B]; the logits are [T, B, S*D]. In bf16
+    the KL terms and the continue loss stay bf16 and the sum is float32, as
+    JAX promotes them; the scales act as JAX's weakly typed constants."""
     observation_loss = -sum(observation_log_probs.values())
     reward_loss = -reward_log_prob
     kl = categorical_kl(posteriors_logits.detach(), priors_logits, discrete_size)
-    dyn_loss = kl_dynamic * torch.clamp(kl, min=kl_free_nats)
+    dtype = kl.dtype
+    dyn_loss = weak_scalar(kl_dynamic, dtype) * torch.clamp(kl, min=weak_scalar(kl_free_nats, dtype))
     repr_kl = categorical_kl(posteriors_logits, priors_logits.detach(), discrete_size)
-    repr_loss = kl_representation * torch.clamp(repr_kl, min=kl_free_nats)
+    repr_loss = weak_scalar(kl_representation, dtype) * torch.clamp(repr_kl, min=weak_scalar(kl_free_nats, dtype))
     kl_loss = dyn_loss + repr_loss
     if continue_log_prob is not None:
-        continue_loss = continue_scale_factor * -continue_log_prob
+        continue_loss = weak_scalar(continue_scale_factor, continue_log_prob.dtype) * -continue_log_prob
     else:
         continue_loss = torch.zeros_like(reward_loss)
-    loss = (kl_regularizer * kl_loss + observation_loss + reward_loss + continue_loss).mean()
+    loss = (weak_scalar(kl_regularizer, dtype) * kl_loss + observation_loss + reward_loss + continue_loss).mean()
     return (
         loss,
         kl.mean(),

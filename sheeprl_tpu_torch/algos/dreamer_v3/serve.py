@@ -6,6 +6,11 @@ recurrent state ``h`` and stochastic state ``z``, plus the session's own
 :func:`dv3_step_slots` is the JAX ``step_slot`` written batched over slots —
 encoder, recurrent model, posterior, actor — so the LayerNorm-GRU step runs
 once per tick at ``[slots, K]`` through the hand-written kernel.
+
+At a bf16 compute dtype the carry is the JAX table's: ``action`` float32,
+``h`` float32 holding the bf16 step's values (the fresh carry's ``tanh(w)``
+is float32, and the masked update keeps the table's dtype), ``z`` bf16; the
+noise is drawn in bf16.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ def dv3_step_slots(
         actions, h, z = player_step(
             agent, norm, carry["action"], carry["h"], carry["z"], noise["repr"], noise.get("act"), greedy
         )
+    actions = actions.float()
     if agent.is_continuous:
         env_action = actions.reshape(S, *action_shape)
     else:
@@ -98,10 +104,10 @@ def get_serve_policy(fabric, cfg: Dict[str, Any], state: Dict[str, Any]) -> Serv
     cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
     mlp_keys = tuple(cfg.algo.mlp_keys.encoder)
     greedy = bool((cfg.get("serve") or {}).get("greedy", True))
-    noise_spec = {"repr": NoiseSpec("gumbel", agent.stoch_state_size)}
+    noise_spec = {"repr": NoiseSpec("gumbel", agent.stoch_state_size, agent.dtype)}
     if not greedy:
         act_size = int(np.sum(actions_dim))
-        noise_spec["act"] = NoiseSpec("normal" if is_continuous else "gumbel", act_size)
+        noise_spec["act"] = NoiseSpec("normal" if is_continuous else "gumbel", act_size, agent.dtype)
 
     def step_slots(carry, obs, noise):
         return dv3_step_slots(

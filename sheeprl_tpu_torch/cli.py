@@ -10,6 +10,10 @@ is set, refuses what is not ported, and runs the algorithm's loop on the card
 plays one test episode of a checkpoint (written by either package) with the
 config saved beside it.
 
+``fabric.precision=bf16-mixed|bf16-true`` runs Dreamer-V3 in bf16 (float32
+parameters); the other algorithms refuse it as not yet ported, in training,
+evaluation and serving alike.
+
 Config keys the port keeps but does not act on yet accept only their off
 values: telemetry, the profiler, the supervisor, fault injection, the
 watchdog, gangs, the replay prefetch thread and service backend, sharded and
@@ -107,12 +111,29 @@ def unported_settings(cfg) -> List[str]:
     return [name for name, on in checks.items() if on]
 
 
+# the algorithms ported at the bf16 policies (fabric.precision=bf16-mixed|bf16-true)
+BF16_ALGORITHMS = ("dreamer_v3",)
+
+
+def unported_precision(cfg) -> None:
+    """Raise for a bf16 ``fabric.precision`` of an algorithm the port runs
+    only in float32 (the JAX package runs PPO, A2C, SAC and DroQ at bf16 too)."""
+    precision = str((cfg.get("fabric") or {}).get("precision", "32-true"))
+    algo = str((cfg.get("algo") or {}).get("name", ""))
+    if precision.startswith("bf16") and algo not in BF16_ALGORITHMS:
+        raise NotImplementedError(
+            f"fabric.precision={precision} for {algo}: bf16 is not yet ported to sheeprl_tpu_torch "
+            f"for this algorithm (ported at bf16: {', '.join(BF16_ALGORITHMS)})"
+        )
+
+
 def check_configs(cfg) -> Callable:
     """The training loop of ``cfg.algo.name``; raises for an unknown algorithm
     or a setting that is not yet ported."""
     from sheeprl_tpu_torch.utils.registry import ALGORITHMS, load_entrypoint
 
     main = load_entrypoint(ALGORITHMS, cfg.algo.name, "training loop")
+    unported_precision(cfg)
     unported = unported_settings(cfg)
     if unported:
         raise NotImplementedError(
@@ -223,5 +244,6 @@ def evaluation(args: Optional[Sequence[str]] = None) -> Any:
     if cfg.get("float32_matmul_precision", "high") not in ("default", "high", "highest", "medium"):
         raise ValueError(f"float32_matmul_precision={cfg.float32_matmul_precision!r} is not a torch setting")
     evaluate_fn = load_entrypoint(EVALUATIONS, cfg.algo.name, "evaluation")
+    unported_precision(cfg)
     fabric = _fabric(cfg)
     return evaluate_fn(fabric, cfg, load_checkpoint(cfg.checkpoint_path))

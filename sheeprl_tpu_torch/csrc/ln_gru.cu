@@ -8,7 +8,7 @@
 //   r  = sigmoid(n[:H]);  c = tanh(r * n[H:2H]);  u = sigmoid(n[2H:] - 1)
 //   h' = u * c + (1 - u) * h
 //
-// Bound on an H100. At the serving shapes (DV3 S: K=1024, 3H=1536, B=1..64) the
+// Bound on an H100 (float32 instance). At the serving shapes (DV3 S: K=1024, 3H=1536, B=1..64) the
 // work is one pass over W: 6.29 MB of f32 weights against 2*B*K*3H flops, i.e.
 // B/2 flops per weight byte. Below B=40 that is under the card's f32 ridge
 // point (67 TFLOP/s / 3.35 TB/s = 20 flops/byte), so the serving step (B =
@@ -51,10 +51,33 @@
 // grows while the grid keeps to one block an SM, so each SM streams one long
 // contiguous run of K (at DV3 S, B = 4: 16 clusters of 8 blocks, 128 K rows
 // each). Where an operand does not allow 16-byte copies (W or inp not
-// 16-byte aligned, or 3H or K not a multiple of 4), the same kernel takes
-// 4-byte copies of both (the kVec=false instance). Any B >= 1, K >= 1 and
-// H >= 1 run; ragged edges are zero-filled by the copies and masked on the
-// way out. Only float32 is taken; the wrapper refuses other dtypes.
+// 16-byte aligned, or 3H or K not a multiple of the elements in 16 bytes),
+// the same kernel takes element copies of both (the kVec=false instance).
+// Any B >= 1, K >= 1 and H >= 1 run; ragged edges are zero-filled by the
+// copies and masked on the way out.
+//
+// Two element types, one kernel template (T):
+//
+//   float          every operand float32 (ln_gru_forward);
+//   __nv_bfloat16  inp, hx, W, b and the output bf16, scale and shift
+//                  float32 (ln_gru_forward_bf16): the TPU kernel's bf16 pass,
+//                  whose operands keep their storage dtype and whose dot
+//                  accumulates in f32 (gru.py:36-65).
+//
+// In the bf16 instance W and x move into shared memory as bf16, so a stage
+// of 32 K rows is half the bytes; the ring has 9 stages instead of 5, which
+// keeps the same 48 KB of W in flight. A 16-byte copy carries 8 elements, so
+// the 16-byte path needs K and 3H to be multiples of 8; otherwise each
+// element is copied by a plain load and store (cp.async copies no fewer than
+// 4 bytes). Products and sums are f32: each bf16 value is widened with
+// __bfloat162float, and a bf16 x bf16 product is exact in f32, so the FMAs
+// compute what the TPU kernel's f32-accumulated dot computes up to the order
+// of the sums. The gate scratch and the LayerNorm partials stay f32, the
+// reductions keep their fixed order (two calls give the same bits), and the
+// output is rounded to bf16 once (__float2bfloat16_rn). The bf16 bound at
+// DV3 S is half the f32 one at small B (W is 3.1 MB), and at B = 1024 it is
+// the tensor cores' 989 TFLOP/s: these FMAs do not reach it (a wgmma
+// instance is later work).
 //
 // Measured on an H100 (PERF.md): within 1.2-1.4x of the bound at the
 // L and XL cells, where streaming W is the whole cost (~2.5-2.9 TB/s). At S
@@ -63,6 +86,7 @@
 // (~2 us), and the finish launch (~1 us) do not shrink with W.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,26 +96,29 @@ namespace {
 
 constexpr int kColGroup = 32;               // columns of each third a cluster owns
 constexpr int kCols = 3 * kColGroup;        // columns of a block's tile
-constexpr int kQuads = kCols / 4;           // float4 column quads of a tile
+constexpr int kQuads = kCols / 4;           // 4-column quads of a tile
 constexpr int kKLanes = 8;                  // threads sharing a quad, splitting K
 constexpr int kThreads = kQuads * kKLanes;  // 192
 constexpr int kStageK = 32;                 // K rows per pipeline stage
-constexpr int kStages = 5;                  // 4 in flight: a 128-row chunk at once
 constexpr int kMaxCluster = 8;              // the portable cluster size
 constexpr int kFinishThreads = 128;
 
-// Shared memory of a block with a tile of TB batch rows.
-template <int TB>
+// Shared memory of a block with a tile of TB batch rows of element type T:
+// the ring of stages (W as [k][col], then x as [row][k], both in T), and,
+// in float32 after the stream, the K lanes' sums over the ring and the
+// block's partial tile.
+template <typename T, int TB>
 struct Tile {
-  static constexpr int kW = kStageK * kCols;  // floats of W per stage, [k][col]
-  static constexpr int kX = kStageK * TB;     // floats of x per stage, [row][k]
-  static constexpr int kStage = kW + kX;
-  static constexpr int kRing = kStages * kStage;
-  static constexpr int kRed = kKLanes * TB * kCols;  // the K lanes' sums, reusing the ring
-  static constexpr int kPart = TB * kCols;           // the block's partial tile
-  static constexpr int kPartOffset = kRing > kRed ? kRing : kRed;
-  static constexpr size_t kBytes = sizeof(float) * (kPartOffset + kPart);
-  static_assert(kStage % 4 == 0 && kW % 4 == 0, "stages must keep 16-byte alignment");
+  static constexpr int kStages = sizeof(T) == 4 ? 5 : 9;  // 48 KB of W in flight either way
+  static constexpr int kW = kStageK * kCols;              // elements of W per stage
+  static constexpr int kX = kStageK * TB;                 // elements of x per stage
+  static constexpr int kStage = kW + kX;                  // elements of a stage
+  static constexpr size_t kStageBytes = sizeof(T) * kStage;
+  static constexpr size_t kRingBytes = kStages * kStageBytes;
+  static constexpr size_t kRedBytes = sizeof(float) * kKLanes * TB * kCols;
+  static constexpr size_t kPartOffset = kRingBytes > kRedBytes ? kRingBytes : kRedBytes;
+  static constexpr size_t kBytes = kPartOffset + sizeof(float) * TB * kCols;
+  static_assert(kStageBytes % 16 == 0 && (sizeof(T) * kW) % 16 == 0, "stages must keep 16-byte alignment");
   static_assert(kStageK == 4 * kKLanes, "each K lane takes 4 rows of a stage");
 };
 
@@ -101,13 +128,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 // 16 (or 4) bytes from device memory to shared memory, asynchronously; when
 // `ok` is false nothing is read and the destination is zero-filled
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(ok ? 16 : 0)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(ok ? 4 : 0)
                : "memory");
@@ -118,6 +145,39 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One copy of the stage ring: 16 bytes on the vector path; one element
+// otherwise (cp.async for a float, a plain load and store for a bf16, which
+// is below cp.async's smallest size). Zero-fills when `ok` is false.
+template <typename T, bool kVec>
+__device__ __forceinline__ void copy_in(T* dst, const T* src, bool ok) {
+  if constexpr (kVec) {
+    cp_async16(dst, src, ok);
+  } else if constexpr (sizeof(T) == 4) {
+    cp_async4(dst, src, ok);
+  } else {
+    *reinterpret_cast<unsigned short*>(dst) = ok ? *reinterpret_cast<const unsigned short*>(src) : 0;
+  }
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) { return __float2bfloat16_rn(v); }
+
+// four consecutive elements of shared memory (16- or 8-byte aligned), widened to float
+__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -131,15 +191,17 @@ __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x
 // Grid: x = groups * C (a cluster of C blocks per column group, along K),
 // y = row tiles of TB rows. gates [B, 3H] gets g (bias added); stats [B,
 // groups, 2] gets each row's (mean, M2) over the group's columns.
-template <int TB, bool kVec>
+template <typename T, int TB, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-ln_gru_gemm(const float* __restrict__ inp, const float* __restrict__ w, const float* __restrict__ b,
+ln_gru_gemm(const T* __restrict__ inp, const T* __restrict__ w, const T* __restrict__ b,
             float* __restrict__ gates, float* __restrict__ stats, int B, int K, int H, int k_chunk) {
-  using S = Tile<TB>;
+  using S = Tile<T, TB>;
+  constexpr int kStages = S::kStages;
   // the finish launch may be scheduled from now on; it waits for this grid's
   // writes at its griddepcontrol.wait
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -161,26 +223,29 @@ ln_gru_gemm(const float* __restrict__ inp, const float* __restrict__ w, const fl
   float bias[3] = {0.f, 0.f, 0.f};
   if (col_ok) {
 #pragma unroll
-    for (int seg = 0; seg < 3; ++seg) bias[seg] = b[seg * H + j0 + lane];
+    for (int seg = 0; seg < 3; ++seg) bias[seg] = to_float(b[seg * H + j0 + lane]);
   }
 
   // Each thread's copies keep their place in the tile from stage to stage,
-  // so their offsets are worked out once. 16-byte path: the thread copies
-  // quad q of its own 4 K rows (lane_k * 4 + m), the very quads it
-  // multiplies, and x moves as [TB][32] quads. 4-byte path: column tid % 96 of
-  // rows tid / 96 + 2m, and x element by element.
+  // so their offsets are worked out once. A copy moves kE elements: a row of
+  // a stage's W takes kThreadsPerRow threads, and each thread copies the
+  // same columns of kWCopies consecutive K rows (with float 16-byte copies,
+  // quad q of the very 4 K rows the thread multiplies). x moves as [TB][32]
+  // runs of kE elements.
+  constexpr int kE = kVec ? static_cast<int>(16 / sizeof(T)) : 1;  // elements a copy
   constexpr int kKPerLane = kStageK / kKLanes;
-  constexpr int kWCopies = kVec ? kKPerLane : kStageK * kCols / kThreads;
-  constexpr int kWRowStep = kVec ? 1 : kThreads / kCols;
-  constexpr int kXWidth = kVec ? 4 : 1;                 // floats a copy
-  constexpr int kXPerStage = TB * kStageK / kXWidth;    // copies of a stage
+  constexpr int kThreadsPerRow = kCols / kE;
+  constexpr int kRowGroups = kThreads / kThreadsPerRow;
+  constexpr int kWCopies = kStageK / kRowGroups;
+  constexpr int kXPerStage = TB * kStageK / kE;  // copies of a stage
   constexpr int kXCopies = (kXPerStage + kThreads - 1) / kThreads;
-  static_assert(kStageK * kCols % kThreads == 0 && kThreads % kCols == 0, "copies must tile a stage");
-  const int w_col = kVec ? q * 4 : tid % kCols;  // column within the tile
-  const int w_row = kVec ? lane_k * kKPerLane : tid / kCols;
+  static_assert(kCols % kE == 0 && kThreads % kThreadsPerRow == 0 && kStageK % kRowGroups == 0,
+                "copies must tile a stage");
+  const int w_col = (tid % kThreadsPerRow) * kE;  // column within the tile
+  const int w_row = (tid / kThreadsPerRow) * kWCopies;
   const int w_seg = w_col / kColGroup, w_jj = w_col % kColGroup;
-  const bool w_col_ok = j0 + w_jj < H;  // with H % 4 == 0, a quad is whole or out
-  const float* w_src = w + (size_t)k_begin * N + w_seg * H + j0 + w_jj;
+  const bool w_col_ok = j0 + w_jj < H;  // with H % kE == 0, a copy is whole or out
+  const T* w_src = w + (size_t)k_begin * N + w_seg * H + j0 + w_jj;
   const int w_dst = w_row * kCols + w_col;
   size_t x_src[kXCopies];
   int x_dst[kXCopies];
@@ -188,38 +253,28 @@ ln_gru_gemm(const float* __restrict__ inp, const float* __restrict__ w, const fl
 #pragma unroll
   for (int m = 0; m < kXCopies; ++m) {
     const int i = tid + m * kThreads;
-    const int r = i / (kStageK / kXWidth), kk = (i % (kStageK / kXWidth)) * kXWidth;
+    const int r = i / (kStageK / kE), kk = (i % (kStageK / kE)) * kE;
     x_ok[m] = i < kXPerStage && row0 + r < B;
     x_src[m] = (size_t)(row0 + r) * K + k_begin + kk;
     x_dst[m] = r * kStageK + kk;
   }
 
   auto load_stage = [&](int stage, int slot) {
-    float* ws = smem + slot * S::kStage;
-    float* xs = ws + S::kW;
+    T* ws = smem + slot * S::kStage;
+    T* xs = ws + S::kW;
     const int k0 = stage * kStageK;  // from k_begin
 #pragma unroll
     for (int m = 0; m < kWCopies; ++m) {
-      const int kk = w_row + m * kWRowStep;
+      const int kk = w_row + m;
       const bool ok = w_col_ok && k_begin + k0 + kk < k_end;
-      const float* src = ok ? w_src + (size_t)(k0 + kk) * N : w;
-      if (kVec) {
-        cp_async16(ws + w_dst + m * kWRowStep * kCols, src, ok);
-      } else {
-        cp_async4(ws + w_dst + m * kWRowStep * kCols, src, ok);
-      }
+      copy_in<T, kVec>(ws + w_dst + m * kCols, ok ? w_src + (size_t)(k0 + kk) * N : w, ok);
     }
 #pragma unroll
     for (int m = 0; m < kXCopies; ++m) {
       if (tid + m * kThreads < kXPerStage) {
-        // K % 4 == 0 on the 16-byte path: a quad of k is whole or out
+        // K % kE == 0 on the 16-byte path: a run of k is whole or out
         const bool ok = x_ok[m] && k_begin + k0 + (x_dst[m] % kStageK) < k_end;
-        const float* src = ok ? inp + x_src[m] + k0 : inp;
-        if (kVec) {
-          cp_async16(xs + x_dst[m], src, ok);
-        } else {
-          cp_async4(xs + x_dst[m], src, ok);
-        }
+        copy_in<T, kVec>(xs + x_dst[m], ok ? inp + x_src[m] + k0 : inp, ok);
       }
     }
   };
@@ -243,14 +298,14 @@ ln_gru_gemm(const float* __restrict__ inp, const float* __restrict__ w, const fl
     cp_async_commit();
     // this thread's 4 K rows: W quads from shared memory once, then x for
     // 4 batch rows at a time, 4 k each
-    const float* ws = smem + (s % kStages) * S::kStage + lane_k * kKPerLane * kCols + q * 4;
-    const float* xs = smem + (s % kStages) * S::kStage + S::kW + lane_k * kKPerLane;
+    const T* ws = smem + (s % kStages) * S::kStage + lane_k * kKPerLane * kCols + q * 4;
+    const T* xs = smem + (s % kStages) * S::kStage + S::kW + lane_k * kKPerLane;
     float4 wv[kKPerLane];
 #pragma unroll
-    for (int i = 0; i < kKPerLane; ++i) wv[i] = *reinterpret_cast<const float4*>(ws + i * kCols);
+    for (int i = 0; i < kKPerLane; ++i) wv[i] = load4(ws + i * kCols);
 #pragma unroll
     for (int r = 0; r < TB; ++r) {
-      const float4 xv = *reinterpret_cast<const float4*>(xs + r * kStageK);
+      const float4 xv = load4(xs + r * kStageK);
       const float xk[kKPerLane] = {xv.x, xv.y, xv.z, xv.w};
 #pragma unroll
       for (int i = 0; i < kKPerLane; ++i) {
@@ -265,8 +320,8 @@ ln_gru_gemm(const float* __restrict__ inp, const float* __restrict__ w, const fl
   // sum the K lanes in a fixed order into the block's partial tile
   cp_async_wait<0>();
   __syncthreads();
-  float* red = smem;  // [kKLanes][TB][kCols], over the ring
-  float* part = smem + S::kPartOffset;
+  float* red = reinterpret_cast<float*>(smem_raw);  // [kKLanes][TB][kCols], over the ring
+  float* part = reinterpret_cast<float*>(smem_raw + S::kPartOffset);
 #pragma unroll
   for (int r = 0; r < TB; ++r) {
     *reinterpret_cast<float4*>(red + (lane_k * TB + r) * kCols + q * 4) =
@@ -350,11 +405,13 @@ ln_gru_gemm(const float* __restrict__ inp, const float* __restrict__ w, const fl
 }
 
 // Grid: x = B rows, y = ceil(H / kFinishThreads). Launched as a programmatic
-// dependent of ln_gru_gemm.
+// dependent of ln_gru_gemm. hx and out are T; the gates, statistics, scale
+// and shift float32.
+template <typename T>
 __global__ void __launch_bounds__(kFinishThreads)
 ln_gru_finish(const float* __restrict__ gates, const float* __restrict__ stats,
-              const float* __restrict__ hx, const float* __restrict__ scale,
-              const float* __restrict__ shift, float* __restrict__ out, int H, int groups,
+              const T* __restrict__ hx, const float* __restrict__ scale,
+              const float* __restrict__ shift, T* __restrict__ out, int H, int groups,
               float eps) {
   const int row = blockIdx.x;
   const int j = blockIdx.y * kFinishThreads + threadIdx.x;
@@ -368,7 +425,7 @@ ln_gru_finish(const float* __restrict__ gates, const float* __restrict__ stats,
       sc[s] = scale[s * H + j];
       sh[s] = shift[s * H + j];
     }
-    h = hx[(size_t)row * H + j];
+    h = to_float(hx[(size_t)row * H + j]);
   }
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
 
@@ -403,15 +460,14 @@ ln_gru_finish(const float* __restrict__ gates, const float* __restrict__ stats,
   const float reset = sigmoidf(nr);
   const float cand = tanhf(reset * nc);
   const float update = sigmoidf(nu - 1.f);
-  out[(size_t)row * H + j] = update * cand + (1.f - update) * h;
+  out[(size_t)row * H + j] = from_float<T>(update * cand + (1.f - update) * h);
 }
 
-template <int TB, bool kVec>
-cudaError_t launch_gemm(const float* inp, const float* w, const float* b, float* gates,
-                        float* stats, int B, int K, int H, int cluster, int k_chunk,
-                        cudaStream_t stream) {
-  auto kernel = ln_gru_gemm<TB, kVec>;
-  constexpr size_t smem = Tile<TB>::kBytes;
+template <typename T, int TB, bool kVec>
+cudaError_t launch_gemm(const T* inp, const T* w, const T* b, float* gates, float* stats, int B,
+                        int K, int H, int cluster, int k_chunk, cudaStream_t stream) {
+  auto kernel = ln_gru_gemm<T, TB, kVec>;
+  constexpr size_t smem = Tile<T, TB>::kBytes;
   static bool opted_in = false;  // past 48 KB of dynamic shared memory a kernel opts in once
   if (!opted_in) {
     cudaError_t err =
@@ -435,18 +491,10 @@ cudaError_t launch_gemm(const float* inp, const float* w, const float* b, float*
   return cudaLaunchKernelEx(&cfg, kernel, inp, w, b, gates, stats, B, K, H, k_chunk);
 }
 
-}  // namespace
-
-// Launches both kernels on `stream`. All pointers are device pointers to
-// contiguous float32 arrays: inp [B,K], hx [B,H], w [K,3H], b/scale/shift [3H],
-// scratch [B*3H + B*groups*2] (gates, then LayerNorm partials; groups =
-// ceil(H/32)), out [B,H]. The plan (tile_b rows a block, a cluster of
-// `cluster` blocks along K, k_chunk K rows a block) comes from
-// ops/gru.py::_launch_plan. Returns a cudaError_t (0 = launched).
-extern "C" int ln_gru_forward(const float* inp, const float* hx, const float* w,
-                              const float* b, const float* scale, const float* shift,
-                              float* scratch, float* out, int B, int K, int H, int tile_b,
-                              int cluster, int k_chunk, float eps, void* stream) {
+template <typename T>
+int forward(const T* inp, const T* hx, const T* w, const T* b, const float* scale, const float* shift,
+            float* scratch, T* out, int B, int K, int H, int tile_b, int cluster, int k_chunk, float eps,
+            void* stream) {
   const bool plan_ok = B >= 1 && K >= 1 && H >= 1 && (tile_b == 4 || tile_b == 16) &&
                        (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8) &&
                        k_chunk > 0 && k_chunk % kStageK == 0 && (long long)cluster * k_chunk >= K;
@@ -455,17 +503,19 @@ extern "C" int ln_gru_forward(const float* inp, const float* hx, const float* w,
   const int groups = (H + kColGroup - 1) / kColGroup;
   float* gates = scratch;
   float* stats = scratch + (size_t)B * 3 * H;
-  // 16-byte copies need 16-byte aligned rows of W and of inp
-  const bool vec = reinterpret_cast<uintptr_t>(w) % 16 == 0 && H % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(inp) % 16 == 0 && K % 4 == 0;
+  // 16-byte copies need 16-byte aligned rows of W and of inp: aligned base
+  // pointers, and K and H multiples of the elements in 16 bytes
+  constexpr int kE = static_cast<int>(16 / sizeof(T));
+  const bool vec = reinterpret_cast<uintptr_t>(w) % 16 == 0 && H % kE == 0 &&
+                   reinterpret_cast<uintptr_t>(inp) % 16 == 0 && K % kE == 0;
 
   cudaError_t err;
   if (tile_b == 4) {
-    err = vec ? launch_gemm<4, true>(inp, w, b, gates, stats, B, K, H, cluster, k_chunk, s)
-                : launch_gemm<4, false>(inp, w, b, gates, stats, B, K, H, cluster, k_chunk, s);
+    err = vec ? launch_gemm<T, 4, true>(inp, w, b, gates, stats, B, K, H, cluster, k_chunk, s)
+              : launch_gemm<T, 4, false>(inp, w, b, gates, stats, B, K, H, cluster, k_chunk, s);
   } else {
-    err = vec ? launch_gemm<16, true>(inp, w, b, gates, stats, B, K, H, cluster, k_chunk, s)
-                : launch_gemm<16, false>(inp, w, b, gates, stats, B, K, H, cluster, k_chunk, s);
+    err = vec ? launch_gemm<T, 16, true>(inp, w, b, gates, stats, B, K, H, cluster, k_chunk, s)
+              : launch_gemm<T, 16, false>(inp, w, b, gates, stats, B, K, H, cluster, k_chunk, s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -479,13 +529,39 @@ extern "C" int ln_gru_forward(const float* inp, const float* hx, const float* w,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, ln_gru_finish, static_cast<const float*>(gates),
+  err = cudaLaunchKernelEx(&cfg, ln_gru_finish<T>, static_cast<const float*>(gates),
                            static_cast<const float*>(stats), hx, scale, shift, out, H, groups, eps);
   return static_cast<int>(err);
 }
 
+}  // namespace
+
+// Launch both kernels on `stream`. All pointers are device pointers to
+// contiguous arrays: inp [B,K], hx [B,H], w [K,3H], b [3H] and out [B,H] in
+// the entry point's element type; scale/shift [3H] float32; scratch [B*3H +
+// B*groups*2] float32 (gates, then LayerNorm partials; groups = ceil(H/32)).
+// The plan (tile_b rows a block, a cluster of `cluster` blocks along K,
+// k_chunk K rows a block) comes from ops/gru.py::_launch_plan. Return a
+// cudaError_t (0 = launched).
+extern "C" int ln_gru_forward(const float* inp, const float* hx, const float* w, const float* b,
+                              const float* scale, const float* shift, float* scratch, float* out,
+                              int B, int K, int H, int tile_b, int cluster, int k_chunk, float eps,
+                              void* stream) {
+  return forward<float>(inp, hx, w, b, scale, shift, scratch, out, B, K, H, tile_b, cluster, k_chunk,
+                        eps, stream);
+}
+
+extern "C" int ln_gru_forward_bf16(const __nv_bfloat16* inp, const __nv_bfloat16* hx,
+                                   const __nv_bfloat16* w, const __nv_bfloat16* b, const float* scale,
+                                   const float* shift, float* scratch, __nv_bfloat16* out, int B, int K,
+                                   int H, int tile_b, int cluster, int k_chunk, float eps, void* stream) {
+  return forward<__nv_bfloat16>(inp, hx, w, b, scale, shift, scratch, out, B, K, H, tile_b, cluster,
+                                k_chunk, eps, stream);
+}
+
 // The plan constants the Python wrapper needs: columns of each third a
-// cluster owns, K rows of a pipeline stage, and the largest cluster.
+// cluster owns, K rows of a pipeline stage, and the largest cluster. The
+// plan counts K rows, so one plan serves both element types.
 extern "C" int ln_gru_col_group() { return kColGroup; }
 extern "C" int ln_gru_stage_k() { return kStageK; }
 extern "C" int ln_gru_max_cluster() { return kMaxCluster; }

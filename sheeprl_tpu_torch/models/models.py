@@ -8,6 +8,15 @@
 initialised as Flax initialises them (:func:`lecun_init_`), from a
 ``torch.Generator``.
 
+Under a bf16 compute dtype (``Fabric.compute_dtype``) parameters stay
+float32 and are cast where they are used, as Flax casts them: :func:`dense`,
+:func:`layer_norm` and :func:`conv` compute what ``nn.Dense``, ``nn.LayerNorm``
+and ``nn.Conv`` compute with ``dtype=bf16``, rounding where Flax rounds. Inside
+:func:`cast_once` (the RSSM scans) each parameter is cast once for the whole
+block instead of once per step; its gradient still reaches the float32
+parameter, accumulated in float32 over the steps as the JAX scan accumulates
+it. In float32 every helper is the plain torch module call.
+
 ``EnsembleMLP``'s dropout takes its keep-masks as an argument (one boolean
 tensor per hidden layer, shaped like that layer's output), as every sampler
 of the port takes its noise: kept units are scaled by ``1 / (1 - rate)``,
@@ -18,13 +27,25 @@ the layers are deterministic (Flax's ``deterministic=True``).
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Sequence, Union
+import threading
+from contextlib import contextmanager
+from typing import Callable, Dict, Iterator, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from sheeprl_tpu_torch.ops.gru import ln_gru_step
+from sheeprl_tpu_torch.utils.distribution import sigmoid
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``, ``x * sigmoid(x)``: in float32 torch's fused op;
+    otherwise the JAX composition, rounded after each op."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * sigmoid(x)
+
 
 _ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "tanh": torch.tanh,
@@ -34,9 +55,9 @@ _ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "leakyrelu": F.leaky_relu,
     "elu": F.elu,
     "gelu": F.gelu,
-    "silu": F.silu,
-    "swish": F.silu,
-    "sigmoid": torch.sigmoid,
+    "silu": _silu,
+    "swish": _silu,
+    "sigmoid": sigmoid,
     "softplus": F.softplus,
     "identity": lambda x: x,
     "none": lambda x: x,
@@ -45,7 +66,9 @@ _ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 
 def resolve_activation(act: Union[None, str, Callable]) -> Callable:
     """Accept plain names ("tanh"), torch-style names ("torch.nn.Tanh") and
-    callables, as the JAX package does."""
+    callables, as the JAX package does. SiLU (Dreamer-V3's activation) and
+    the sigmoid compose JAX's ops in bf16; the others are torch's ops in every
+    dtype."""
     if act is None:
         return lambda x: x
     if callable(act):
@@ -54,6 +77,92 @@ def resolve_activation(act: Union[None, str, Callable]) -> Callable:
     if name in _ACTIVATIONS:
         return _ACTIVATIONS[name]
     raise ValueError(f"unknown activation {act!r}")
+
+
+# ---------------------------------------------------------------------------------
+# the compute dtype: parameters cast where they are used (Flax's dtype=)
+# ---------------------------------------------------------------------------------
+class _CastCache(threading.local):
+    cache: Optional[Dict[int, tuple]] = None
+
+
+_CAST = _CastCache()
+
+
+class _CastUse(torch.autograd.Function):
+    """One use of a parameter's cached cast: the forward hands out the cast
+    value (a view, no kernel); the backward returns this use's gradient in the
+    parameter's dtype, so autograd sums the uses in float32."""
+
+    @staticmethod
+    def forward(ctx, param: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+        ctx.dtype = param.dtype
+        return value.view_as(value)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad.to(ctx.dtype), None
+
+
+@contextmanager
+def cast_once() -> Iterator[None]:
+    """Inside the block (or the call of a function it decorates), :func:`cast`
+    converts each tensor once; its uses share that value. The RSSM scans run
+    inside one, so a gradient step casts the recurrent kernel once per scan,
+    not once per step."""
+    outer = _CAST.cache
+    _CAST.cache = {} if outer is None else outer
+    try:
+        yield
+    finally:
+        _CAST.cache = outer
+
+
+def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` in ``dtype`` (``t`` itself when it already is), differentiable."""
+    if t.dtype == dtype:
+        return t
+    cache = _CAST.cache
+    if cache is None:
+        return t.to(dtype)
+    hit = cache.get(id(t))
+    if hit is None or hit[0] is not t:
+        hit = (t, t.detach().to(dtype))
+        cache[id(t)] = hit
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _CastUse.apply(t, hit[1])
+    return hit[1]
+
+
+def dense(linear: nn.Linear, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``flax.linen.Dense(dtype=dtype)`` with ``linear``'s parameters. In
+    float32 one fused ``F.linear``; in bf16 the product of bf16 operands
+    (float32 sums, rounded once), then the bf16 bias added and rounded again,
+    the two steps Flax takes."""
+    if dtype == torch.float32:
+        return linear(x)
+    y = F.linear(x.to(dtype), cast(linear.weight, dtype))
+    return y if linear.bias is None else y + cast(linear.bias, dtype)
+
+
+def layer_norm(norm: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``flax.linen.LayerNorm(dtype=dtype)`` with ``norm``'s parameters: Flax
+    takes the statistics and the affine map in float32 whatever the input, and
+    rounds the output to ``dtype`` once."""
+    if dtype == torch.float32:
+        return norm(x)
+    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias, norm.eps).to(dtype)
+
+
+def conv(module: Union[nn.Conv2d, nn.ConvTranspose2d], x: torch.Tensor, dtype: torch.dtype = torch.float32):
+    """A Flax convolution (or transposed convolution) of ``dtype`` with the
+    torch module's parameters: in bf16 the convolution of bf16 operands, then
+    the bf16 bias added, as :func:`dense`."""
+    if dtype == torch.float32:
+        return module(x)
+    fn = F.conv_transpose2d if isinstance(module, nn.ConvTranspose2d) else F.conv2d
+    y = fn(x.to(dtype), cast(module.weight, dtype), None, module.stride, module.padding)
+    return y if module.bias is None else y + cast(module.bias, dtype).reshape(-1, 1, 1)
 
 
 # the standard deviation of a unit normal truncated to [-2, 2]
@@ -207,14 +316,25 @@ class LayerNormGRUCell(nn.Module):
     the fused op (``ops/gru.py``). Parameters keep the Flax cell's names and
     layout: ``kernel`` [input+hidden, 3H] with rows ordered ``concat(x, h)`` and
     columns (reset, candidate, update); ``bias``, ``ln_scale``, ``ln_bias`` [3H].
-    (The Flax cell's ``layer_norm=False`` form has no user in the port.)"""
+    (The Flax cell's ``layer_norm=False`` form has no user in the port.)
+
+    ``dtype`` is the compute dtype, with the JAX cell's mix: ``concat(x, h)``,
+    ``h``, the kernel and the bias in ``dtype`` (the kernel and the bias cast
+    from their float32 parameters), the LayerNorm's scale and shift float32,
+    the new state in ``dtype``."""
 
     def __init__(
-        self, input_size: int, hidden_size: int, bias: bool = True, layer_norm_eps: float = 1e-3
+        self,
+        input_size: int,
+        hidden_size: int,
+        bias: bool = True,
+        layer_norm_eps: float = 1e-3,
+        dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
         self.hidden_size = hidden_size
         self.layer_norm_eps = layer_norm_eps
+        self.dtype = dtype
         n = 3 * hidden_size
         self.kernel = nn.Parameter(torch.empty(input_size + hidden_size, n))
         if bias:
@@ -226,5 +346,7 @@ class LayerNormGRUCell(nn.Module):
         self.ln_bias = nn.Parameter(torch.zeros(n))
 
     def forward(self, hx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        inp = torch.cat([x, hx], dim=-1)
-        return ln_gru_step(inp, hx, self.kernel, self.bias, self.ln_scale, self.ln_bias, self.layer_norm_eps)
+        dtype = self.dtype
+        inp = torch.cat([x, hx], dim=-1).to(dtype)
+        w, b = cast(self.kernel, dtype), cast(self.bias, dtype)
+        return ln_gru_step(inp, hx.to(dtype), w, b, self.ln_scale, self.ln_bias, self.layer_norm_eps)

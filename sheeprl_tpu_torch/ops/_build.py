@@ -16,7 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, List, Sequence
 
@@ -36,13 +36,23 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 class KernelSpec:
     """One hand-written kernel of the port: where its source lives, which TPU
     kernel it replaces, and how often the main path launched it (``launches``
-    is bumped by the wrapper at each launch and nowhere else)."""
+    is bumped by the wrapper at each launch and nowhere else, and
+    ``launches_by_dtype`` beside it by the operands' dtype)."""
 
     name: str
     source: str  # file name under csrc/
     replaces: str  # file:line of the Pallas kernel in the JAX package
     route: str = "cuda"
     launches: int = 0
+    launches_by_dtype: Dict[str, int] = field(default_factory=dict)
+
+    def count_launch(self, dtype: str) -> None:
+        self.launches += 1
+        self.launches_by_dtype[dtype] = self.launches_by_dtype.get(dtype, 0) + 1
+
+    def zero_launches(self) -> None:
+        self.launches = 0
+        self.launches_by_dtype.clear()
 
     @property
     def source_path(self) -> Path:

@@ -12,7 +12,11 @@ This module holds four things:
   policy (operands in their storage dtype, products accumulated in float32).
   The CPU path and the kernel's oracle.
 - the CUDA kernel ``csrc/ln_gru.cu`` (built by ``ops/_build.py``), launched by
-  :func:`_launch`, the only place that bumps ``LN_GRU.launches``.
+  :func:`_launch`, the only place that counts ``LN_GRU``'s launches. It has two
+  instances: every operand float32, or ``inp``, ``hx``, ``w`` and ``b`` bf16
+  with ``scale`` and ``bias`` float32 (the JAX cell's mix under a bf16
+  policy), the output in ``hx``'s dtype. Any other mix raises: a bf16 operand
+  is never widened to reach the float32 instance.
 - :class:`_LnGruStep`, the ``torch.autograd.Function`` counterpart of the JAX
   custom VJP: the forward is the kernel, the backward recomputes through the
   plain math (as ``_fused_bwd`` does through ``ln_gru_step_reference``).
@@ -25,7 +29,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
@@ -104,19 +108,33 @@ def ln_gru_step_plain(
     return (update * cand + (1.0 - update) * hidden).to(hx.dtype)
 
 
+# the operand mixes the kernel takes: (inp, hx, w, b) dtype -> its C entry point;
+# scale and bias are float32 in both, as the JAX cell keeps its LayerNorm
+# parameters
+_ENTRY_POINTS = {torch.float32: "ln_gru_forward", torch.bfloat16: "ln_gru_forward_bf16"}
+
+
 def _check_operands(inp, hx, w, b, scale, bias) -> None:
     tensors = {"inp": inp, "hx": hx, "w": w, "b": b, "scale": scale, "bias": bias}
     device = inp.device
     for name, t in tensors.items():
         if t.device != device:
             raise ValueError(f"ln_gru_step: {name} is on {t.device}, inp on {device}")
-        if t.dtype != torch.float32:
-            raise NotImplementedError(
-                f"ln_gru_step: the CUDA kernel takes float32 only, {name} is {t.dtype} "
-                "(bf16 operands are not yet ported)"
-            )
         if not t.is_contiguous():
             raise ValueError(f"ln_gru_step: {name} must be contiguous")
+    dtypes = {name: t.dtype for name, t in tensors.items()}
+    compute = inp.dtype
+    if (
+        compute not in _ENTRY_POINTS
+        or any(dtypes[n] != compute for n in ("hx", "w", "b"))
+        or dtypes["scale"] != torch.float32
+        or dtypes["bias"] != torch.float32
+    ):
+        got = ", ".join(f"{n} {str(d).replace('torch.', '')}" for n, d in dtypes.items())
+        raise NotImplementedError(
+            "ln_gru_step: the CUDA kernel takes inp, hx, w and b all float32 or all bfloat16, "
+            f"with scale and bias float32; got {got}"
+        )
     B, K = inp.shape
     H = hx.shape[-1]
     if hx.shape != (B, H) or w.shape != (K, 3 * H):
@@ -136,43 +154,47 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _kernel() -> Tuple[ctypes.CDLL, Tuple[int, int, int]]:
-    """The built library with its entry point typed, and its plan constants
-    (col_group, stage_k, max_cluster)."""
+def _kernel(dtype: torch.dtype) -> Tuple[Callable, Tuple[int, int, int]]:
+    """The entry point of ``dtype``'s instance in the built library, typed,
+    and the plan constants (col_group, stage_k, max_cluster)."""
     lib = load(LN_GRU)
-    fn = lib.ln_gru_forward
+    fn = getattr(lib, _ENTRY_POINTS[dtype])
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return lib, (lib.ln_gru_col_group(), lib.ln_gru_stage_k(), lib.ln_gru_max_cluster())
+    return fn, (lib.ln_gru_col_group(), lib.ln_gru_stage_k(), lib.ln_gru_max_cluster())
 
 
 def _launch(inp, hx, w, b, scale, bias, eps: float) -> torch.Tensor:
-    """Run the CUDA kernel on [B,K] / [B,H] float32 CUDA tensors."""
+    """Run the CUDA kernel on [B,K] / [B,H] CUDA tensors: float32, or bf16
+    with float32 ``scale`` and ``bias``. The output has ``hx``'s dtype."""
     _check_operands(inp, hx, w, b, scale, bias)
-    lib, consts = _kernel()
+    fn, consts = _kernel(inp.dtype)
     B, K = inp.shape
     H = hx.shape[-1]
+    # the plan counts K rows and columns, not bytes: one plan serves both
+    # instances (the 16-byte copy rules for 2-byte elements are the kernel's)
     plan = _launch_plan(B, K, H, *consts, _sm_count(inp.device))
     # the gates [B,3H] between the two launches, then the LayerNorm partials
-    # [B, groups, 2]
+    # [B, groups, 2], float32 in both instances
     scratch = torch.empty(B * (3 * H + 2 * plan.groups), dtype=torch.float32, device=inp.device)
-    out = torch.empty((B, H), dtype=torch.float32, device=inp.device)
+    out = torch.empty((B, H), dtype=hx.dtype, device=inp.device)
     stream = torch.cuda.current_stream(inp.device).cuda_stream
-    err = lib.ln_gru_forward(
+    err = fn(
         inp.data_ptr(), hx.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
         bias.data_ptr(), scratch.data_ptr(), out.data_ptr(),
         B, K, H, plan.tile_b, plan.cluster, plan.k_chunk, float(eps), stream,
     )
     if err != 0:
-        raise RuntimeError(f"ln_gru_forward launch failed with cudaError {err}")
-    LN_GRU.launches += 1
+        raise RuntimeError(f"{_ENTRY_POINTS[inp.dtype]} launch failed with cudaError {err}")
+    LN_GRU.count_launch(str(inp.dtype).replace("torch.", ""))
     return out
 
 
 class _LnGruStep(torch.autograd.Function):
     """Kernel forward; the backward differentiates the plain math, as the JAX
-    custom VJP's backward differentiates its XLA reference."""
+    custom VJP's backward differentiates its XLA reference (which keeps the
+    bf16 dtype policy: bf16 operands get bf16 gradients)."""
 
     @staticmethod
     def forward(ctx, inp, hx, w, b, scale, bias, eps):

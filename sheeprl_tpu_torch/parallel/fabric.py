@@ -7,7 +7,22 @@ counterpart of ``sheeprl_tpu/parallel/fabric.py`` for a single device).
   the port never carries on on the CPU by itself;
 - ``cpu`` selects the host CPU (the tests pass it).
 
-``precision`` is ``32-true``; the bf16 policies are not yet ported and raise.
+``precision`` (kept as given in ``self.precision``):
+
+- ``32-true`` (or ``32``, ``32-mixed``): everything in float32;
+- ``bf16-mixed`` and ``bf16-true``: the JAX package's bf16 policy. Its
+  ``compute_dtype`` is bf16 under both; parameters and optimizer states stay
+  float32 under both (``param_dtype``), because the JAX package's
+  ``param_dtype`` has no caller: its modules keep float32 parameters and cast
+  them to the compute dtype where they are used. So there is no loss scaling,
+  and a checkpoint written at bf16 has the float32 layout of one written at
+  ``32-true``. The algorithms that run at bf16 check ``compute_dtype``; the
+  others refuse the bf16 policies (``cli.unported_precision``).
+
+Under a bf16 policy on a card the fabric also sets
+``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False``:
+the JAX dot of bf16 operands accumulates the products in float32, while
+cuBLAS may, by default, reduce a split-K product's partial sums in bf16.
 
 ``float32_matmul_precision`` (the root config key) maps onto PyTorch's TF32
 switches, which the fabric sets for the whole process:
@@ -32,7 +47,8 @@ import random
 import numpy as np
 import torch
 
-_PRECISIONS = ("32-true", "32", "32-mixed")
+_F32_PRECISIONS = ("32-true", "32", "32-mixed")
+_BF16_PRECISIONS = ("bf16-mixed", "bf16-true")
 _MATMUL_PRECISIONS = ("highest", "high", "medium", "default")
 
 
@@ -78,16 +94,28 @@ class Fabric:
             raise ValueError(f"fabric.accelerator={accelerator!r}; choose auto, gpu or cpu")
         self.accelerator = accelerator
         precision = str(precision)
-        if precision not in _PRECISIONS:
-            raise NotImplementedError(
-                f"fabric.precision={precision}: only 32-true is ported (bf16 is not yet ported)"
+        if precision not in _F32_PRECISIONS + _BF16_PRECISIONS:
+            raise ValueError(
+                f"fabric.precision={precision!r}; choose one of "
+                f"{', '.join(_F32_PRECISIONS + _BF16_PRECISIONS)}"
             )
-        self.precision = "32-true"
-        self.dtype = torch.float32
+        self.precision = precision
         self.float32_matmul_precision = str(float32_matmul_precision)
         apply_matmul_precision(self.float32_matmul_precision)
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
+            if self.compute_dtype == torch.bfloat16:
+                torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """bf16 under both bf16 policies, else float32."""
+        return torch.bfloat16 if self.precision in _BF16_PRECISIONS else torch.float32
+
+    @property
+    def param_dtype(self) -> torch.dtype:
+        """float32 under every policy (see the module docstring)."""
+        return torch.float32
 
     @property
     def device_name(self) -> str:

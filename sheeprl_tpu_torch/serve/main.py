@@ -14,6 +14,9 @@ Serving knobs (``serve.*``) and what the port does with them:
   ``max_session_steps``, ``request_timeout``, ``log_dir``, ``max_queue``,
   ``deadline_ms``, ``degraded_wait_factor``, ``drain_grace_s`` — as in the JAX
   package;
+- ``fabric.precision`` — the checkpoint's policy, or a dotted override:
+  ``bf16-mixed``/``bf16-true`` serve a Dreamer-V3 checkpoint in bf16 (its
+  float32 weights cast where they are used); other families refuse bf16;
 - ``prime``, ``explore``, ``reload``, ``supervisor`` and ``telemetry`` — kept so
   the key set matches, but not yet ported: only their off values are accepted.
   ``telemetry.enabled`` therefore defaults to false here.
@@ -150,9 +153,12 @@ def serve_main(args: Optional[Sequence[str]] = None) -> int:
     from sheeprl_tpu_torch.serve.server import PolicyServer
     from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
 
+    from sheeprl_tpu_torch.cli import unported_precision
+
     overrides = list(args if args is not None else sys.argv[1:])
     cfg = build_serve_cfg(overrides)
     _check_unported(cfg)
+    unported_precision(cfg)
     serve_cfg = cfg.serve
 
     sessions = int(serve_cfg.sessions)

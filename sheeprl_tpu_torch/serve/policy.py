@@ -44,10 +44,12 @@ class ObsSpec:
 @dataclass(frozen=True)
 class NoiseSpec:
     """``size`` values per slot and step: ``gumbel`` (standard Gumbel) or
-    ``normal`` (standard normal)."""
+    ``normal`` (standard normal), drawn in float32 and handed to the step in
+    ``dtype`` (the policy's compute dtype, the dtype JAX draws it in)."""
 
     kind: str
     size: int
+    dtype: torch.dtype = torch.float32
 
 
 @dataclass
@@ -90,7 +92,7 @@ def draw_noise(
         out = gumbel_from_uniform(out)
     elif spec.kind != "normal":
         raise ValueError(f"unknown noise kind {spec.kind!r}")
-    return out
+    return out.to(spec.dtype)
 
 
 def space_obs_spec(observation_space, obs_keys: Sequence[str]) -> Dict[str, ObsSpec]:

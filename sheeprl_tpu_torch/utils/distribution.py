@@ -8,6 +8,14 @@ standard Gumbel noise for the categoricals (Gumbel-max, as
 ``jax.random.categorical`` samples). Straight-through gradients detach the
 sample and add ``probs - probs.detach()``. ``TruncatedNormal`` (Dreamer-V2's
 actor) is not ported: Dreamer-V3 does not use it.
+
+In bf16 the math follows JAX's type rules op by op: bf16 with float32 gives
+float32, a Python constant takes the array's dtype (``weak_scalar``), and
+where a JAX composition rounds to bf16 between its ops the same ops are
+composed here (:func:`sigmoid`, :func:`softmax`, :func:`log_softmax`,
+:func:`logsumexp`, the two-hot bins, ``logaddexp``) instead of torch's fused
+kernels, which work in float32 inside and round once. In float32 the fused
+kernels are kept.
 """
 
 from __future__ import annotations
@@ -19,7 +27,7 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from sheeprl_tpu_torch.utils.utils import symexp, symlog
+from sheeprl_tpu_torch.utils.utils import symexp, symlog, weak_scalar
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -30,10 +38,62 @@ def _sum_rightmost(x: torch.Tensor, ndims: int) -> torch.Tensor:
     return x.sum(dim=tuple(range(-ndims, 0)))
 
 
-def draw_gumbel(shape: Sequence[int], generator: Optional[torch.Generator], device) -> torch.Tensor:
-    """Standard Gumbel noise: ``argmax(logits + g)`` is a categorical draw."""
+def draw_gumbel(
+    shape: Sequence[int], generator: Optional[torch.Generator], device, dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """Standard Gumbel noise in ``dtype`` (drawn in float32, then rounded):
+    ``argmax(logits + g)`` is a categorical draw, the sum taken in the
+    logits' dtype as ``jax.random.categorical`` takes it."""
     u = torch.rand(tuple(shape), device=device, generator=generator)
-    return -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+    return (-torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))).to(dtype)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``: in float32 torch's; otherwise JAX's lowering,
+    ``1 / (1 + exp(-x))``, each op rounded to ``x``'s dtype."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return torch.reciprocal(1 + torch.exp(-x))
+
+
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``jax.nn.softmax``: in float32 torch's fused kernel; otherwise JAX's
+    ops, each rounded to ``x``'s dtype: ``exp(x - max)`` over its sum."""
+    if x.dtype == torch.float32:
+        return torch.softmax(x, dim=dim)
+    unnormalized = torch.exp(x - x.detach().amax(dim=dim, keepdim=True))
+    return unnormalized / unnormalized.sum(dim=dim, keepdim=True)
+
+
+def log_softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``jax.nn.log_softmax``: in float32 torch's fused kernel; otherwise
+    ``shifted - log(sum(exp(shifted)))`` with ``shifted = x - max``, each op
+    rounded to ``x``'s dtype."""
+    if x.dtype == torch.float32:
+        return torch.log_softmax(x, dim=dim)
+    shifted = x - x.detach().amax(dim=dim, keepdim=True)
+    return shifted - torch.log(torch.exp(shifted).sum(dim=dim, keepdim=True))
+
+
+def logsumexp(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``jax.nn.logsumexp`` over ``dim`` (kept): in float32 torch's fused
+    kernel; otherwise ``log(sum(exp(x - max))) + max``, each op rounded."""
+    if x.dtype == torch.float32:
+        return torch.logsumexp(x, dim=dim, keepdim=True)
+    amax = x.detach().amax(dim=dim, keepdim=True)
+    return torch.log(torch.exp(x - amax).sum(dim=dim, keepdim=True)) + amax
+
+
+def _linspace(low: float, high: float, n: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """``jnp.linspace(low, high, n, dtype=dtype)``: in float32 torch's; in bf16
+    JAX's bf16 arithmetic, ``low * (1 - step) + high * step`` with ``step =
+    iota / (n - 1)``, each op rounded to bf16, then ``high``."""
+    if dtype == torch.float32 or n < 2:
+        return torch.linspace(low, high, n, dtype=dtype, device=device)
+    div = torch.full((n - 1,), n - 1, dtype=dtype, device=device)
+    step = torch.arange(n - 1, device=device).to(dtype) / div
+    out = weak_scalar(low, dtype) * (1 - step) + weak_scalar(high, dtype) * step
+    return torch.cat([out, torch.full((1,), high, dtype=dtype, device=device)])
 
 
 class Distribution:
@@ -83,10 +143,11 @@ class Normal(Distribution):
 
     def log_prob(self, value: torch.Tensor) -> torch.Tensor:
         var = torch.square(self.scale)
-        return -torch.square(value - self.loc) / (2 * var) - torch.log(self.scale) - _HALF_LOG_2PI
+        half_log_2pi = weak_scalar(_HALF_LOG_2PI, self.scale.dtype)
+        return -torch.square(value - self.loc) / (2 * var) - torch.log(self.scale) - half_log_2pi
 
     def entropy(self) -> torch.Tensor:
-        return 0.5 + _HALF_LOG_2PI + torch.log(self.scale)
+        return weak_scalar(0.5 + _HALF_LOG_2PI, self.scale.dtype) + torch.log(self.scale)
 
 
 class Independent(Distribution):
@@ -131,11 +192,11 @@ class OneHotCategorical(Distribution):
 
     @functools.cached_property
     def logits(self) -> torch.Tensor:
-        return torch.log_softmax(self._raw, dim=-1)
+        return log_softmax(self._raw, dim=-1)
 
     @property
     def probs(self) -> torch.Tensor:
-        return torch.softmax(self._raw, dim=-1)
+        return softmax(self._raw, dim=-1)
 
     @property
     def mean(self) -> torch.Tensor:
@@ -241,7 +302,7 @@ class TwoHotEncodingDistribution(Distribution):
     ):
         self.logits = logits
         self.dims = dims
-        self.bins = torch.linspace(low, high, logits.shape[-1], dtype=logits.dtype, device=logits.device)
+        self.bins = _linspace(low, high, logits.shape[-1], logits.dtype, logits.device)
         self.low = low
         self.high = high
         self.transfwd = transfwd
@@ -249,7 +310,7 @@ class TwoHotEncodingDistribution(Distribution):
 
     @property
     def probs(self) -> torch.Tensor:
-        return torch.softmax(self.logits, dim=-1)
+        return softmax(self.logits, dim=-1)
 
     @property
     def mean(self) -> torch.Tensor:
@@ -280,7 +341,7 @@ class TwoHotEncodingDistribution(Distribution):
             F.one_hot(below, n_bins).to(self.logits.dtype) * weight_below[..., None]
             + F.one_hot(above, n_bins).to(self.logits.dtype) * weight_above[..., None]
         )[..., 0, :]
-        log_pred = self.logits - torch.logsumexp(self.logits, dim=-1, keepdim=True)
+        log_pred = self.logits - logsumexp(self.logits, dim=-1)
         lp = torch.sum(target * log_pred, dim=-1, keepdim=True)
         return _sum_rightmost(lp, self.dims) if self.dims > 0 else lp[..., 0]
 
@@ -296,7 +357,7 @@ class Bernoulli(Distribution):
 
     @property
     def probs(self) -> torch.Tensor:
-        return torch.sigmoid(self.logits)
+        return sigmoid(self.logits)
 
     @property
     def mean(self) -> torch.Tensor:
@@ -308,7 +369,11 @@ class Bernoulli(Distribution):
 
     def log_prob(self, value: torch.Tensor) -> torch.Tensor:
         # -log(1 + exp(-l)) where the value is 1, -log(1 + exp(l)) where it is 0
-        return -F.softplus(torch.where(value > 0.5, -self.logits, self.logits))
+        x = torch.where(value > 0.5, -self.logits, self.logits)
+        if x.dtype == torch.float32:
+            return -F.softplus(x)
+        # jnp.logaddexp(0, x) in x's dtype, op by op
+        return -(torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x))))
 
     def entropy(self) -> torch.Tensor:
         p = self.probs

@@ -5,11 +5,24 @@ run's config dump and the copy of trained weights into a host-side actor."""
 
 from __future__ import annotations
 
+import functools
 import os
 import warnings
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def weak_scalar(value: float, dtype: torch.dtype) -> float:
+    """A Python constant as JAX applies it to an array of ``dtype``: a weakly
+    typed scalar takes the array's dtype, so against a bf16 array it is rounded
+    to bf16 first (0.1 acts as 0.10009765625). Torch keeps the constant in
+    float32 inside a bf16 op, so the port rounds it here; in float32 the value
+    is returned as is."""
+    if dtype == torch.float32:
+        return float(value)
+    return float(torch.tensor(float(value), dtype=dtype))
 
 
 def symlog(x: torch.Tensor) -> torch.Tensor:

@@ -131,7 +131,7 @@ def test_kernel_replays_from_a_cuda_graph(cuda, B):
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
     args = _case(4, 64, 32, cuda)
-    with pytest.raises(NotImplementedError, match="float32 only"):
+    with pytest.raises(NotImplementedError, match="all float32 or all bfloat16"):
         ln_gru_step(*[a.to(torch.bfloat16) for a in args])
     w_t = args[2].t().contiguous().t()  # same values, not contiguous
     with pytest.raises(ValueError, match="contiguous"):

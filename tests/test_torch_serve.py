@@ -325,7 +325,6 @@ def test_auto_accelerator_needs_a_card(tmp_path):
         "serve.supervisor.enabled=true",
         "serve.prime=true",
         "serve.explore.fraction=0.5",
-        "fabric.precision=bf16-mixed",
     ],
 )
 def test_unported_knobs_raise(tmp_path, override):
@@ -334,6 +333,23 @@ def test_unported_knobs_raise(tmp_path, override):
     run = _write_run(tmp_path, "discrete", "torch")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         serve_main([f"checkpoint_path={run}", "fabric.accelerator=cpu", override])
+
+
+def test_serving_a_sac_checkpoint_at_bf16_is_not_yet_ported(tmp_path):
+    """Dreamer-V3 serves at the bf16 policies; a SAC checkpoint served at
+    bf16 is refused by name, as SAC's training is."""
+    from sheeprl_tpu_torch.interop.flax_to_torch import sac_to_flax
+    from sheeprl_tpu_torch.serve.main import serve_main
+    from sheeprl_tpu_torch.utils.checkpoint import save_checkpoint
+    from test_torch_helpers import port_sac
+
+    agent, cfg = port_sac()
+    run = tmp_path / "run_sac"
+    save_checkpoint(str(run / "version_0" / "checkpoint" / "ckpt_0_0.ckpt"), {"agent": sac_to_flax(agent)})
+    with open(run / "version_0" / "config.yaml", "w") as f:
+        yaml.safe_dump(cfg.as_dict(), f, sort_keys=False)
+    with pytest.raises(NotImplementedError, match="bf16 is not yet ported"):
+        serve_main([f"checkpoint_path={run}", "fabric.accelerator=cpu", "fabric.precision=bf16-mixed"])
 
 
 def test_exit_codes_nothing_to_drive_and_drain(tmp_path):
