@@ -99,12 +99,15 @@ def _jax_agent(kind: str, extra: Tuple[str, ...], seed: int):
 
 def paired_agents(kind: str = "discrete", extra: Sequence[str] = (), seed: int = 3) -> Tuple:
     """(jax_agent, jax_params, torch_agent, cfg_jax, cfg_torch) at the small
-    widths, a fresh torch agent loaded from the JAX parameters."""
+    widths, a fresh torch agent loaded from the JAX parameters. ``jax_params``
+    is the caller's own copy: a test that steps it leaves the cached tree, and
+    the tests after it on the same worker, as they were."""
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
     from sheeprl_tpu_torch.config import compose
     from sheeprl_tpu_torch.parallel.fabric import Fabric
 
     jax_agent, params, cfg_jax, obs_space = _jax_agent(kind, tuple(extra), seed)
+    params = jax.tree_util.tree_map(np.copy, params)
     actions_dim, is_continuous = ACTIONS[kind]
     cfg_torch = compose(overrides(kind, extra))
     torch_agent = build_agent(

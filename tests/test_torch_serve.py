@@ -338,12 +338,16 @@ def test_unported_knobs_raise(tmp_path, override):
 def test_serving_a_sac_checkpoint_at_bf16_is_not_yet_ported(tmp_path):
     """Dreamer-V3 serves at the bf16 policies; a SAC checkpoint served at
     bf16 is refused by name, as SAC's training is."""
+    from sheeprl_tpu_torch.algos.sac.agent import build_agent
+    from sheeprl_tpu_torch.config import compose
     from sheeprl_tpu_torch.interop.flax_to_torch import sac_to_flax
+    from sheeprl_tpu_torch.parallel.fabric import Fabric
     from sheeprl_tpu_torch.serve.main import serve_main
     from sheeprl_tpu_torch.utils.checkpoint import save_checkpoint
-    from test_torch_helpers import port_sac
+    from test_torch_helpers import SAC_SMALL, sac_spaces
 
-    agent, cfg = port_sac()
+    cfg = compose(SAC_SMALL)
+    agent = build_agent(Fabric(accelerator="cpu"), cfg, *sac_spaces(), 0)
     run = tmp_path / "run_sac"
     save_checkpoint(str(run / "version_0" / "checkpoint" / "ckpt_0_0.ckpt"), {"agent": sac_to_flax(agent)})
     with open(run / "version_0" / "config.yaml", "w") as f:
