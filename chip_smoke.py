@@ -25,9 +25,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    checkpoint and its config.yaml into a temporary run dir, and serve it
    through ``serve_main`` with 4 slots and 4 concurrent env sessions of 512
    steps; the kernels' launch counts are zeroed just before and read just
-   after, and every kernel must have been launched at least once per tick.
-   Then the batched serve step on the card is held against the same step on
-   the CPU (the plain path) on the same weights, observations and noise;
+   after, and every kernel must have been launched at least once per tick;
+   the run's ``telemetry.jsonl`` (on by default) must hold windows whose
+   device memory comes from ``torch.cuda.memory_stats``. Then the batched
+   serve step on the card is held against the same step on the CPU (the plain
+   path) on the same weights, observations and noise;
 5. the training path (the slice's main path) through the entry points:
    ``run`` trains DV3 S at full width (``env=dummy``, 4 envs, batch 16 x 64,
    horizon 15) for a few gradient steps and writes a checkpoint, ``run``
@@ -38,6 +40,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
    card against the same step on the CPU (TF32 off, T=16, B=4), and the
    seconds per gradient step at 16 x 64, eager, in float32 and then at
    ``fabric.precision=bf16-mixed``;
+5a. the serving planes, on the first DV3 run's checkpoint (A) and the
+   resumed run's (B): serve A with ``serve.reload.enabled`` on a watched run
+   dir and publish B there (renamed into place, then its sidecar) once the
+   first telemetry window is written; the reload event carries version 1,
+   every session completes, and the LN-GRU kernel launched once a tick under
+   both versions. The same with a ``reload_torn`` fault: the candidate is
+   rejected, ``serve.weights.failures`` is 1 and version 0 serves to the end.
+   A swap driven directly: the staging and apply times of the whole tree, and
+   the step after it from a fixed carry bit-equal to a policy booted from B
+   on the card and within the serve bar of the CPU's. ``serve.supervisor``
+   with a ``crash`` fault at served step 200: one restart, exit 0. Ticks/s of
+   the float32 serving run with telemetry on and off, in turns;
 5b. the same slice at ``fabric.precision=bf16-mixed``: a shorter run,
    a resume and an evaluation through the entry points, every LN-GRU launch
    counted by dtype and all bf16 (79 a gradient step plus one a policy step);
@@ -53,7 +67,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and ``Time/sps_*``. A short ``exp=a2c`` run (finite losses, a
    checkpoint). Then one PPO train phase on the card vs the CPU (TF32 off)
    and three A2C RMSprop steps likewise, the seconds per PPO train phase and
-   the ms of one host acting step;
+   the ms of one host acting step. The PPO checkpoint is served through
+   ``serve_main`` (4 slots, 4 sessions) and its greedy step held card vs CPU
+   (logits within 1e-5, equal actions);
 7. SAC (``exp=sac env.id=Pendulum-v1``, the exp's widths, batch and replay
    ratio, 4 envs) through the entry points on the card: 12,000 policy steps
    with the metric log and the test episode (its reward must reach -400), a
@@ -426,6 +442,8 @@ def main_path(out_dir: str) -> dict:
     del agent
 
     log_dir = os.path.join(out_dir, "serve")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what earlier phases left allocated
     _zero_launches()
     rc = serve_main(
         [
@@ -447,7 +465,11 @@ def main_path(out_dir: str) -> dict:
     for name, count in launches.items():
         if count < summary["ticks"]:
             raise AssertionError(f"kernel {name} launched {count} times in {summary['ticks']} ticks")
-    return {"summary": summary, "launches": launches, "ckpt": ckpt}
+    tel = check_telemetry("float32 serve", log_dir)
+    print(f"[chip-smoke] float32 serving's peak device memory over what the process held before it: "
+          f"{tel['hbm_peak_bytes'] - held} bytes ({held} held)", flush=True)
+    return {"summary": summary, "launches": launches, "ckpt": ckpt, "hbm_peak_bytes": tel["hbm_peak_bytes"],
+            "hbm_held_before": held}
 
 
 TRAIN_ENVS = 4
@@ -874,7 +896,407 @@ def serve_path_bf16(ckpt: str, out_dir: str) -> dict:
     if rc != 0 or summary["sessions_completed"] != SESSIONS or summary["steps"] != SESSIONS * MAX_SESSION_STEPS:
         raise AssertionError(f"bf16 serving did not complete every session: rc {rc}, {summary}")
     by_dtype = _bf16_launches("bf16 serving", summary["ticks"])
-    return {"summary": summary, "launches": launches, "by_dtype": by_dtype}
+    tel = check_telemetry("bf16 serve", log_dir)
+    return {"summary": summary, "launches": launches, "by_dtype": by_dtype, "hbm_peak_bytes": tel["hbm_peak_bytes"]}
+
+
+# -- the serving planes (hot reload, faults, supervisor, telemetry, PPO) ------------
+RELOAD_SESSION_STEPS = 2048  # a long run, so the swap lands while every session is served
+SUPERVISED_SESSION_STEPS = 128
+CRASH_AT = 200  # served steps: the first attempt dies mid-run, holding all 4 sessions
+TELEMETRY_ROUNDS = 4  # serving runs with telemetry on and off, this many times each, in alternating order
+TELEMETRY_TICKS = 4096  # observe_tick calls timed alone
+
+
+def read_events(log_dir: str) -> list:
+    path = os.path.join(log_dir, "telemetry.jsonl")
+    if not os.path.isfile(path):
+        return []
+    out = []
+    with open(path) as f:
+        for line in f:
+            try:
+                out.append(json.loads(line))
+            except ValueError:
+                pass  # a line in flight
+    return out
+
+
+def check_telemetry(name: str, log_dir: str) -> dict:
+    """The serve run's ``telemetry.jsonl`` (on by default): a start event on
+    the gpu, windows whose ``hbm`` comes from ``torch.cuda.memory_stats``, and
+    a clean summary. Returns the peak device bytes and the windows."""
+    events = read_events(log_dir)
+    windows = [e for e in events if e["event"] == "window"]
+    start = next((e for e in events if e["event"] == "start"), {})
+    summary = next((e for e in events if e["event"] == "summary"), {})
+    hbm = [w["hbm"] for w in windows]
+    print(f"[chip-smoke] {name} telemetry: {len(events)} events, {len(windows)} windows, platform "
+          f"{start.get('platform')}, last hbm {hbm[-1] if hbm else None}, peak {summary.get('hbm_peak_bytes')}, "
+          f"compile {summary.get('compile')}", flush=True)
+    if start.get("platform") != "gpu" or not windows or not summary.get("clean_exit"):
+        raise AssertionError(f"{name}: telemetry start {start}, {len(windows)} windows, summary {summary}")
+    if not all(h and h.get("bytes_in_use", 0) > 0 and h.get("peak_bytes", 0) > 0 for h in hbm):
+        raise AssertionError(f"{name}: windows without device memory: {hbm}")
+    return {"events": len(events), "windows": windows, "hbm_peak_bytes": summary.get("hbm_peak_bytes")}
+
+
+def _serve_run_dir(ckpt: str, run_dir: str) -> str:
+    """A run dir to serve from: ``ckpt``'s config.yaml and a copy of ``ckpt``
+    with its sidecar. Returns the checkpoint directory."""
+    import shutil
+
+    ckpt_dir = os.path.join(run_dir, "version_0", "checkpoint")
+    os.makedirs(ckpt_dir)
+    shutil.copyfile(os.path.join(os.path.dirname(os.path.dirname(ckpt)), "config.yaml"),
+                    os.path.join(run_dir, "version_0", "config.yaml"))
+    publish(ckpt, os.path.join(ckpt_dir, "ckpt_0_0.ckpt"))
+    return ckpt_dir
+
+
+def publish(src: str, dst: str) -> None:
+    """Publish a checkpoint as a trainer commits one: the file renamed into
+    place, then its sha256 sidecar."""
+    import shutil
+
+    shutil.copyfile(src, dst + ".tmp")
+    os.replace(dst + ".tmp", dst)
+    shutil.copyfile(src + ".sha256", dst + ".sha256.tmp")
+    os.replace(dst + ".sha256.tmp", dst + ".sha256")
+
+
+def publish_after_first_window(log_dir: str, src: str, dst: str):
+    """A thread that publishes ``src`` at ``dst`` once the serve run's first
+    telemetry window is written (sessions are being served by then)."""
+    import threading
+
+    done = threading.Event()
+
+    def run():
+        while not done.is_set():
+            if any(e["event"] == "window" for e in read_events(log_dir)):
+                publish(src, dst)
+                return
+            done.wait(0.05)
+
+    thread = threading.Thread(target=run, name="chip-smoke-publish", daemon=True)
+    thread.start()
+    return thread, done
+
+
+def _serve_args(run_dir: str, log_dir: str, steps: int, *extra: str) -> list:
+    return [f"checkpoint_path={run_dir}", f"serve.slots={SLOTS}", f"serve.sessions={SESSIONS}",
+            f"serve.max_session_steps={steps}", f"env.wrapper.n_steps={steps}", f"serve.log_dir={log_dir}", *extra]
+
+
+def _swap_window(windows: list) -> dict:
+    """The request latency of the window that holds the swap (it serves two
+    weight versions) against the median of the windows that do not."""
+    swap = [w for w in windows if len((w["serve"].get("versions") or {})) > 1]
+    steady = [w for w in windows[1:] if len((w["serve"].get("versions") or {})) == 1]
+    if not swap or not steady:
+        raise AssertionError(f"no window holds the swap, or none is without one: {len(swap)}, {len(steady)}")
+    lat = swap[0]["serve"]["latency_ms"]
+    step_ms = 1000.0 * swap[0]["phases"]["serve_step"] / swap[0]["serve"]["ticks"]
+    return {
+        "swap_window": {"p50_ms": lat["p50"], "p99_ms": lat["p99"], "step_ms_per_tick": step_ms,
+                        "ticks": swap[0]["serve"]["ticks"]},
+        "other_windows": {
+            "p50_ms": float(np.median([w["serve"]["latency_ms"]["p50"] for w in steady])),
+            "p99_ms": float(np.median([w["serve"]["latency_ms"]["p99"] for w in steady])),
+            "step_ms_per_tick": float(np.median([1000.0 * w["phases"]["serve_step"] / w["serve"]["ticks"]
+                                                 for w in steady])),
+            "windows": len(steady),
+        },
+    }
+
+
+def reload_path(ckpt_a: str, ckpt_b: str, out_dir: str) -> dict:
+    """Hot reload through ``serve_main``: serve A with ``serve.reload.enabled``
+    on its run dir and publish B there once serving has begun. The reload
+    event carries version 1, every session completes, and the LN-GRU kernel
+    ran once a tick under both versions."""
+    from sheeprl_tpu_torch.serve.main import serve_main
+
+    run_dir = os.path.join(out_dir, "reload_run")
+    ckpt_dir = _serve_run_dir(ckpt_a, run_dir)
+    log_dir = os.path.join(out_dir, "serve_reload")
+    thread, done = publish_after_first_window(log_dir, ckpt_b, os.path.join(ckpt_dir, "ckpt_1_0.ckpt"))
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _zero_launches()
+    rc = serve_main(_serve_args(run_dir, log_dir, RELOAD_SESSION_STEPS, "serve.reload.enabled=true",
+                                "serve.reload.poll_s=0.2"))
+    launches = _launches()
+    done.set()
+    thread.join(timeout=60)
+    with open(os.path.join(log_dir, "summary.json")) as f:
+        summary = json.load(f)
+    tel = check_telemetry("reload serve", log_dir)
+    reloads = [e for e in read_events(log_dir) if e["event"] == "reload"]
+    by_version = summary["ticks_by_version"]
+    print(f"[chip-smoke] reload serve rc={rc} summary={json.dumps(summary)} launches={launches} "
+          f"reload events={json.dumps(reloads)}", flush=True)
+    if rc != 0 or summary["sessions_completed"] != SESSIONS or summary["steps"] != SESSIONS * RELOAD_SESSION_STEPS:
+        raise AssertionError(f"reload serving did not complete every session: rc {rc}, {summary}")
+    if [(e["status"], e["version"]) for e in reloads] != [("applied", 1)] or summary["weight_version"] != 1:
+        raise AssertionError(f"the published checkpoint was not applied once as version 1: {reloads}")
+    if not (by_version.get("0", 0) > 0 and by_version.get("1", 0) > 0):
+        raise AssertionError(f"the swap did not land mid-run: ticks by version {by_version}")
+    if launches[LN_GRU.name] != summary["ticks"]:
+        raise AssertionError(f"LN-GRU launched {launches[LN_GRU.name]} times in {summary['ticks']} ticks "
+                             f"({by_version} by version)")
+    latency = _swap_window(tel["windows"])
+    print(f"[chip-smoke] reload serve: {json.dumps(latency)}; swap stage {reloads[0]['stage_ms']:.3f} ms, apply "
+          f"{reloads[0]['apply_ms']:.3f} ms (host); peak device memory {tel['hbm_peak_bytes'] - held} bytes over "
+          f"the {held} held before serving", flush=True)
+    return {"summary": summary, "launches": launches, "reload": reloads[0], "latency": latency,
+            "hbm_peak_bytes": tel["hbm_peak_bytes"], "hbm_held_before": held}
+
+
+def torn_reload_path(ckpt_a: str, ckpt_b: str, out_dir: str) -> dict:
+    """The ``reload_torn`` fault: the published candidate is torn before it is
+    read, it is rejected, and version 0 serves every session to the end."""
+    from sheeprl_tpu_torch.resilience import faults
+    from sheeprl_tpu_torch.serve.main import serve_main
+
+    run_dir = os.path.join(out_dir, "torn_run")
+    ckpt_dir = _serve_run_dir(ckpt_a, run_dir)
+    log_dir = os.path.join(out_dir, "serve_torn")
+    thread, done = publish_after_first_window(log_dir, ckpt_b, os.path.join(ckpt_dir, "ckpt_1_0.ckpt"))
+    faults.reset_faults()
+    _zero_launches()
+    try:
+        rc = serve_main(_serve_args(run_dir, log_dir, MAX_SESSION_STEPS, "serve.reload.enabled=true",
+                                    "serve.reload.poll_s=0.1", "resilience.fault.kind=reload_torn",
+                                    "resilience.fault.at_policy_step=1"))
+    finally:
+        faults.reset_faults()
+    launches = _launches()
+    done.set()
+    thread.join(timeout=60)
+    with open(os.path.join(log_dir, "summary.json")) as f:
+        summary = json.load(f)
+    tel = check_telemetry("torn reload serve", log_dir)
+    reloads = [e for e in read_events(log_dir) if e["event"] == "reload"]
+    failures = tel["windows"][-1]["serve"]["weights"]["failures"]
+    print(f"[chip-smoke] torn reload serve rc={rc} summary={json.dumps(summary)} reload events={json.dumps(reloads)} "
+          f"serve.weights.failures={failures}", flush=True)
+    if rc != 0 or summary["sessions_completed"] != SESSIONS or summary["steps"] != SESSIONS * MAX_SESSION_STEPS:
+        raise AssertionError(f"torn-reload serving did not complete every session: rc {rc}, {summary}")
+    if [e["status"] for e in reloads] != ["rejected"] or failures != 1 or summary["weight_version"] != 0:
+        raise AssertionError(f"the torn candidate was not rejected once while version 0 served: {reloads}, "
+                             f"failures {failures}, version {summary['weight_version']}")
+    if launches[LN_GRU.name] != summary["ticks"]:
+        raise AssertionError(f"LN-GRU launched {launches[LN_GRU.name]} times in {summary['ticks']} ticks")
+    return {"summary": summary, "launches": launches, "reload": reloads[0], "failures": failures}
+
+
+def supervisor_path(ckpt: str, out_dir: str) -> dict:
+    """``serve.supervisor.enabled`` with a ``crash`` fault at served step 200:
+    the first attempt dies holding every session, the supervisor restarts it
+    once in the process, the second serves every session, exit 0."""
+    from sheeprl_tpu_torch.resilience import faults
+    from sheeprl_tpu_torch.serve.main import serve_main
+
+    log_dir = os.path.join(out_dir, "serve_supervised")
+    faults.reset_faults()
+    _zero_launches()
+    try:
+        rc = serve_main(_serve_args(os.path.dirname(os.path.dirname(os.path.dirname(ckpt))), log_dir,
+                                    SUPERVISED_SESSION_STEPS, "serve.supervisor.enabled=true",
+                                    "serve.supervisor.backoff=0", "resilience.fault.kind=crash",
+                                    f"resilience.fault.at_policy_step={CRASH_AT}"))
+    finally:
+        faults.reset_faults()
+    launches = _launches()
+    with open(os.path.join(log_dir, "summary.json")) as f:
+        summary = json.load(f)
+    events = read_events(log_dir)
+    restarts = [e for e in events if e["event"] == "restart"]
+    print(f"[chip-smoke] supervised serve rc={rc} summary={json.dumps(summary)} restarts={json.dumps(restarts)} "
+          f"launches={launches}", flush=True)
+    if rc != 0 or len(restarts) != 1 or restarts[0]["sessions_lost"] != SESSIONS or summary["restarts"] != 1:
+        raise AssertionError(f"the crash did not give one restart and exit 0: rc {rc}, {restarts}, {summary}")
+    if summary["sessions_completed"] != SESSIONS or summary["steps"] != SESSIONS * SUPERVISED_SESSION_STEPS:
+        raise AssertionError(f"the restarted attempt did not serve every session: {summary}")
+    # the crashed attempt's ticks (CRASH_AT / SLOTS of them) launched the kernel too
+    if launches[LN_GRU.name] < summary["ticks"] + CRASH_AT // SLOTS:
+        raise AssertionError(f"LN-GRU launched {launches[LN_GRU.name]} times for {summary['ticks']} ticks "
+                             f"after the restart and {CRASH_AT // SLOTS} before it")
+    return {"summary": summary, "launches": launches, "restart": restarts[0]}
+
+
+def _fixed_carry(policy, rng) -> tuple:
+    """A carry, observations and posterior noise for ``SLOTS`` rows, on the CPU."""
+    agent = policy.module
+    carry = {
+        "action": torch.from_numpy(np.eye(int(sum(agent.actions_dim)), dtype=np.float32)[rng.integers(0, 2, SLOTS)]),
+        "h": torch.from_numpy(np.tanh(rng.standard_normal((SLOTS, agent.recurrent_state_size))).astype(np.float32)),
+        "z": torch.from_numpy(np.eye(agent.discrete_size, dtype=np.float32)[
+            rng.integers(0, agent.discrete_size, (SLOTS, agent.stochastic_size))].reshape(SLOTS, -1)),
+    }
+    obs = {k: rng.integers(0, 256, (SLOTS, *s.shape)).astype(s.dtype) if np.issubdtype(s.dtype, np.integer)
+           else rng.standard_normal((SLOTS, *s.shape)).astype(s.dtype) for k, s in policy.obs_spec.items()}
+    gumbel = -np.log(-np.log(rng.uniform(1e-12, 1.0, (SLOTS, policy.noise_spec["repr"].size)))).astype(np.float32)
+    return carry, obs, gumbel
+
+
+def _step_from(policy, carry, obs, gumbel) -> tuple:
+    dev = policy.device
+    with torch.no_grad():
+        actions, new = policy.step_slots({k: v.to(dev) for k, v in carry.items()},
+                                         {k: torch.from_numpy(v).to(dev) for k, v in obs.items()},
+                                         {"repr": torch.from_numpy(gumbel).to(dev)})
+    return actions.cpu(), {k: v.float().cpu() for k, v in new.items()}
+
+
+def swap_parity(ckpt_a: str, ckpt_b: str, out_dir: str, repeats: int = 3) -> dict:
+    """A swap from A to B driven directly (``WeightReloader.step`` on the
+    reload thread's side of the stream, the server's swap under its lock), TF32
+    off: the staging and apply times of the whole DV3 S tree; then the batched
+    step from a fixed carry after the swap equals, bit for bit, the step of a
+    policy booted from B on the card, and the CPU's B step within the serve bar
+    (h within 1e-3, every env action equal)."""
+    import shutil
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.serve import get_serve_policy
+    from sheeprl_tpu_torch.parallel.fabric import Fabric
+    from sheeprl_tpu_torch.serve.main import build_serve_cfg
+    from sheeprl_tpu_torch.serve.reload import CheckpointReloadSource, WeightReloader
+    from sheeprl_tpu_torch.serve.server import PolicyServer
+    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
+
+    watch = os.path.join(out_dir, "swap_watch")
+    os.makedirs(watch)
+    boot = os.path.join(watch, "ckpt_0_0.ckpt")
+    publish(ckpt_a, boot)
+    cfg = build_serve_cfg([f"checkpoint_path={ckpt_a}"])
+    fabric = Fabric(accelerator="gpu", float32_matmul_precision="highest")
+    swapped = get_serve_policy(fabric, cfg, load_checkpoint(ckpt_a))
+    server = PolicyServer(swapped, slots=SLOTS)
+    reloader = WeightReloader(server, CheckpointReloadSource(watch, current_path=boot))
+    publish(ckpt_b, os.path.join(watch, "ckpt_1_0.ckpt"))
+    tree_bytes = sum(t.numel() * t.element_size() for t in swapped.module.state_dict().values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if reloader.step() != 1:
+        raise AssertionError("the reloader did not stage B as version 1")
+    poll_ms = (time.perf_counter() - t0) * 1e3
+    timings = []
+    tree = load_checkpoint(ckpt_b)["agent"]
+    for i in range(repeats + 1):
+        if i:  # the same tree staged again: the stage and the apply alone
+            server.update_params(reloader.stager.stage(tree), 1)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        with server._cond:
+            server._apply_pending_params_locked()
+        end.record()
+        end.synchronize()
+        timings.append({"stage_ms": server.last_swap["stage_ms"], "apply_host_ms": server.last_swap["apply_ms"],
+                        "apply_device_ms": start.elapsed_time(end)})
+    shutil.rmtree(watch)
+    booted = get_serve_policy(fabric, cfg, load_checkpoint(ckpt_b))
+    cpu = get_serve_policy(Fabric(accelerator="cpu"), cfg, load_checkpoint(ckpt_b))
+    carry, obs, gumbel = _fixed_carry(cpu, np.random.default_rng(13))
+    out = {name: _step_from(p, carry, obs, gumbel) for name, p in (("swapped", swapped), ("booted", booted),
+                                                                   ("cpu", cpu))}
+    vs_booted = max(float((out["swapped"][1][k] - out["booted"][1][k]).abs().max()) for k in ("h", "z", "action"))
+    vs_cpu = float((out["swapped"][1]["h"] - out["cpu"][1]["h"]).abs().max())
+    actions_equal = bool(torch.equal(out["swapped"][0], out["cpu"][0]))
+    result = {"tree_bytes": tree_bytes, "poll_and_stage_ms": poll_ms, "timings": timings,
+              "max_abs_err_vs_booted": vs_booted, "h_max_abs_err_vs_cpu": vs_cpu, "actions_equal_cpu": actions_equal}
+    print(f"[chip-smoke] swap of the DV3 S tree ({tree_bytes} bytes): {json.dumps(result)} (bars: bitwise vs the "
+          f"booted policy, h {SERVE_H_ATOL} and equal actions vs the CPU)", flush=True)
+    if vs_booted != 0.0 or not torch.equal(out["swapped"][0], out["booted"][0]):
+        raise AssertionError(f"the swapped policy's step differs from a policy booted from B: {vs_booted}")
+    if not (vs_cpu <= SERVE_H_ATOL and actions_equal):
+        raise AssertionError(f"the swapped policy's step disagrees with the CPU's: h {vs_cpu}, actions {actions_equal}")
+    return result
+
+
+def telemetry_cost(ckpt: str, out_dir: str) -> dict:
+    """What the serving telemetry costs: ticks per second of the float32
+    serving run (4 slots, 4 sessions of 512 steps) with telemetry on and off,
+    in the order on, off, off, on, ... in one process; and the host time of
+    ``ServingTelemetry.observe_tick`` alone, over ticks of 4 requests with a
+    window every 256 steps, as the tick loop calls it."""
+    from sheeprl_tpu_torch.parallel.fabric import Fabric
+    from sheeprl_tpu_torch.serve.main import build_serve_cfg, serve_main
+    from sheeprl_tpu_torch.serve.telemetry import ServingTelemetry
+
+    run_dir = os.path.dirname(os.path.dirname(os.path.dirname(ckpt)))
+    rates = {"on": [], "off": []}
+    for i in range(TELEMETRY_ROUNDS):
+        for mode in (("on", "off") if i % 2 == 0 else ("off", "on")):
+            log_dir = os.path.join(out_dir, f"serve_telemetry_{mode}_{i}")
+            rc = serve_main(_serve_args(run_dir, log_dir, MAX_SESSION_STEPS,
+                                        f"serve.telemetry.enabled={str(mode == 'on').lower()}"))
+            with open(os.path.join(log_dir, "summary.json")) as f:
+                summary = json.load(f)
+            if rc != 0 or summary["sessions_completed"] != SESSIONS:
+                raise AssertionError(f"telemetry {mode} serving failed: rc {rc}, {summary}")
+            if os.path.isfile(os.path.join(log_dir, "telemetry.jsonl")) != (mode == "on"):
+                raise AssertionError(f"serve.telemetry.enabled={mode == 'on'} and a stream that says otherwise")
+            rates[mode].append({"ticks_per_s": summary["ticks"] / summary["wall_s"],
+                                "tick_ms_p50": summary["tick_ms_p50"], "tick_ms_p99": summary["tick_ms_p99"]})
+    tel = ServingTelemetry(Fabric(accelerator="gpu"), build_serve_cfg([f"checkpoint_path={ckpt}"]),
+                           os.path.join(out_dir, "telemetry_alone"))
+    rng = np.random.default_rng(0)
+    latencies = rng.gamma(2.0, 1.5, (TELEMETRY_TICKS, SLOTS)).tolist()
+    t0 = time.perf_counter()
+    for i in range(TELEMETRY_TICKS):
+        tel.observe_tick(batch=SLOTS, slots=SLOTS, active=SLOTS, queue_depth=0, step_seconds=0.003,
+                         wait_seconds=0.0005, latencies_ms=latencies[i], state_bytes=1 << 20, weight_version=0,
+                         degraded=False)
+    per_tick_us = (time.perf_counter() - t0) / TELEMETRY_TICKS * 1e6
+    tel.close()
+    medians = {mode: float(np.median([r["ticks_per_s"] for r in runs])) for mode, runs in rates.items()}
+    out = {"runs": rates, "median_ticks_per_s": medians, "observe_tick_us": per_tick_us}
+    print(f"[chip-smoke] serving with telemetry on vs off: {json.dumps(out)}", flush=True)
+    return out
+
+
+def ppo_serve_path(ckpt: str, out_dir: str) -> dict:
+    """The PPO checkpoint through ``serve_main`` on the card (4 slots, 4
+    greedy CartPole sessions); then the batched greedy step on the card
+    against the CPU's on the same weights and observations (TF32 off): the
+    actor's logits within 1e-5 and every action equal."""
+    from sheeprl_tpu_torch.algos.ppo.serve import get_serve_policy
+    from sheeprl_tpu_torch.parallel.fabric import Fabric
+    from sheeprl_tpu_torch.serve.main import build_serve_cfg, serve_main
+    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
+
+    log_dir = os.path.join(out_dir, "ppo_serve")
+    _zero_launches()
+    rc = serve_main([f"checkpoint_path={ckpt}", f"serve.slots={SLOTS}", f"serve.sessions={SESSIONS}",
+                     f"serve.log_dir={log_dir}"])
+    launches = _launches()
+    with open(os.path.join(log_dir, "summary.json")) as f:
+        summary = json.load(f)
+    print(f"[chip-smoke] PPO serve rc={rc} summary={json.dumps(summary)} launches={launches}", flush=True)
+    if rc != 0 or summary["sessions_completed"] != SESSIONS or summary["steps"] < SESSIONS:
+        raise AssertionError(f"PPO serving did not complete every session: rc {rc}, {summary}")
+    check_telemetry("PPO serve", log_dir)
+    state = load_checkpoint(ckpt)
+    cfg = build_serve_cfg([f"checkpoint_path={ckpt}"])
+    policies = {accel: get_serve_policy(Fabric(accelerator=accel, float32_matmul_precision="highest"), cfg, state)
+                for accel in ("gpu", "cpu")}
+    obs = np.random.default_rng(17).uniform(-2, 2, (SLOTS, 4)).astype(np.float32)
+    out = {}
+    for accel, p in policies.items():
+        t = {"state": torch.from_numpy(obs).to(p.device)}
+        with torch.no_grad():
+            logits = p.module({"state": t["state"]})[0][0].cpu()
+        out[accel] = (p.step_slots({}, t, {})[0].cpu(), logits)
+    err = float((out["gpu"][1] - out["cpu"][1]).abs().max())
+    equal = bool(torch.equal(out["gpu"][0], out["cpu"][0]))
+    print(f"[chip-smoke] PPO serve step card vs CPU: logits max abs err {err} (bar 1e-5), actions equal {equal}",
+          flush=True)
+    if not (err <= 1e-5 and equal):
+        raise AssertionError(f"the PPO serve step on the card disagrees with the CPU: {err}, {equal}")
+    return {"summary": summary, "launches": launches, "step_max_abs_err": err}
 
 
 # PPO on CartPole-v1 at the exp's settings: 4 envs x 128 steps, minibatches
@@ -1568,6 +1990,12 @@ def main() -> int:
         parity = serve_step_parity(path["ckpt"])
         train = train_path(tmp)
         train_parity = train_step_parity()
+        # the serving planes: the first DV3 run's checkpoint (A) and the
+        # resumed run's (B, the same run's version_1)
+        ckpt_a, ckpt_b = (train[name]["summary"]["checkpoint"] for name in ("train", "resume"))
+        planes = {"reload": reload_path(ckpt_a, ckpt_b, tmp), "torn_reload": torn_reload_path(ckpt_a, ckpt_b, tmp),
+                  "swap": swap_parity(ckpt_a, ckpt_b, tmp), "supervisor": supervisor_path(path["ckpt"], tmp),
+                  "telemetry_cost": telemetry_cost(path["ckpt"], tmp)}
         # seconds per gradient step in float32, then in bf16, one after the other
         train_timing, warm = time_train_steps()
         bf16 = {}
@@ -1577,6 +2005,7 @@ def main() -> int:
         bf16["serve_parity"] = serve_step_parity(bf16["ckpt"], BF16_PRECISION)
         bf16["train_parity"] = train_step_parity(precision=BF16_PRECISION)
         ppo = ppo_path(tmp)
+        ppo["serve"] = ppo_serve_path(ppo["train"]["summary"]["checkpoint"], tmp)
         a2c = a2c_path(tmp)
         ppo["parity"] = ppo_train_phase_parity()
         a2c["rmsprop_parity"] = a2c_rmsprop_parity()
@@ -1611,7 +2040,8 @@ def main() -> int:
                 "serve": path["launches"][LN_GRU.name],
                 **{name: train[name]["launches"][LN_GRU.name] for name in ("train", "resume", "evaluation")},
                 # PPO and A2C reach no TPU kernel
-                **{f"ppo_{name}": ppo[name]["launches"][LN_GRU.name] for name in ("train", "resume", "evaluation")},
+                **{f"ppo_{name}": ppo[name]["launches"][LN_GRU.name]
+                   for name in ("train", "resume", "evaluation", "serve")},
                 "a2c": a2c["launches"][LN_GRU.name],
                 # SAC and DroQ reach no TPU kernel either
                 **{f"sac_{name}": sac[name]["launches"][LN_GRU.name]
@@ -1621,6 +2051,10 @@ def main() -> int:
                 # DV3 S at fabric.precision=bf16-mixed: every launch with bf16 operands
                 **{f"bf16_{name}": bf16[name]["launches"][LN_GRU.name]
                    for name in ("train", "resume", "evaluation", "serve")},
+                # the serving planes: one launch a tick across the swap, under the
+                # torn candidate, and in both attempts of the supervised run
+                **{f"serve_{name}": planes[name]["launches"][LN_GRU.name]
+                   for name in ("reload", "torn_reload", "supervisor")},
             },
             "launches_by_dtype": {
                 name: bf16[name]["by_dtype"] for name in ("train", "resume", "evaluation", "serve")
@@ -1646,9 +2080,10 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump(
                 {"card": card, "torch": torch.__version__, "gru": gru, "serve": path["summary"],
+                 "serve_hbm": {k: path[k] for k in ("hbm_peak_bytes", "hbm_held_before")},
                  "launches": path["launches"], "serve_parity": parity, "serve_profile": profile,
                  "train": train, "train_parity": train_parity, "train_timing": train_timing,
-                 "gru_bf16": gru_bf16, "bf16": bf16,
+                 "gru_bf16": gru_bf16, "bf16": bf16, "serving_planes": planes,
                  "ppo": ppo, "a2c": a2c, "sac": sac, "droq": droq, "kernels": kernels},
                 f, indent=2,
             )

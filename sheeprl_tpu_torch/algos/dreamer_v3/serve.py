@@ -23,6 +23,7 @@ import torch
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import DV3Agent, build_agent, player_step
 from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.envs.spaces import action_space_dims
+from sheeprl_tpu_torch.interop.flax_to_torch import agent_to_flax, load_flax_params
 from sheeprl_tpu_torch.serve.policy import NoiseSpec, ServePolicy, space_obs_spec
 from sheeprl_tpu_torch.utils.env import make_env
 
@@ -132,4 +133,6 @@ def get_serve_policy(fabric, cfg: Dict[str, Any], state: Dict[str, Any]) -> Serv
         action_dtype=np.float32 if is_continuous else np.int32,
         module=agent,
         meta={"family": "dreamer_v3", "greedy": greedy, "recurrent": True},
+        params_tree=agent_to_flax,
+        load_params=load_flax_params,
     )

@@ -17,6 +17,7 @@ import torch
 
 from sheeprl_tpu_torch.algos.sac.agent import greedy_action, squash_and_logprob
 from sheeprl_tpu_torch.envs import spaces
+from sheeprl_tpu_torch.interop.flax_to_torch import load_sac_params, sac_to_flax
 from sheeprl_tpu_torch.serve.policy import NoiseSpec, ServePolicy, space_obs_spec
 from sheeprl_tpu_torch.utils.env import make_env
 
@@ -60,6 +61,8 @@ def _sac_like_serve_policy(fabric, cfg, state, build_agent: Callable) -> ServePo
         action_dtype=np.float32,
         module=agent,
         meta={"family": "sac", "greedy": greedy, "recurrent": False},
+        params_tree=sac_to_flax,
+        load_params=load_sac_params,
     )
 
 

@@ -35,6 +35,19 @@ class Wrapper:
         self.env.close()
 
 
+class InjectedEnvFault(Wrapper):
+    """One-shot ``env.step`` exception driven by ``resilience.fault=env_step``
+    (``resilience/faults.py``). The armed flag is process-global, so it reaches
+    every in-process env: the serve verb's session envs."""
+
+    def step(self, action):
+        from sheeprl_tpu_torch.resilience.faults import InjectedFaultError, consume_env_fault
+
+        if consume_env_fault():
+            raise InjectedFaultError("resilience.fault=env_step: injected exception in env.step")
+        return self.env.step(action)
+
+
 class ActionRepeat(Wrapper):
     """Repeat each action ``amount`` times, accumulating reward, stopping on done."""
 

@@ -1,0 +1,1951 @@
+"""Rule-based diagnosis over telemetry streams: "why is this run slow/sick?".
+
+Copy of ``sheeprl_tpu/obs/diagnose.py`` kept by the port (which imports
+nothing of the JAX package); its events keep the JAX package's names and
+``SCHEMA_VERSION``, so either package's offline verbs read the other's streams.
+
+The telemetry plane makes every run *emit* a structured event stream (``telemetry.jsonl``:
+window gauges, health events, resilience lifecycle); this module is the
+*consumer*. A catalog of detectors walks the merged, ordered stream
+(``obs/streams.py``) and turns raw gauges into findings — each with a severity,
+the evidence events that triggered it, and the config knob most likely to fix
+it. Exposed three ways:
+
+- ``python sheeprl.py diagnose <run_dir>`` — human bottleneck report on stdout
+  plus machine-readable ``diagnosis.json`` in the run dir;
+- in-loop: ``RunTelemetry`` runs the same detectors over its own window history
+  at window cadence and emits live ``health`` events (``status=diagnosis``);
+- ``bench.py`` attaches the verdicts of each steady-window run under
+  ``conditions.diagnosis``, so BENCH JSONs are regression-gateable on *causes*
+  (a recompile storm, a starved pipeline), not just on env-steps/sec.
+
+Detector catalog (see ``howto/observability.md`` for the full reference):
+
+==================  ============================================================
+recompile_storm     XLA recompiles in windows after the first trained window
+                    (shape churn: varying gradient-step counts, env batch drift)
+prefetch_starvation replay/prefetch wait is a large fraction of train time
+mfu_collapse        windows whose MFU falls far below the run median
+hbm_creep           device memory marching toward the HBM capacity limit
+checkpoint_heavy    checkpoint writes eat a material share of wall time
+env_instability     env crash-restart clusters and watchdog stall events
+interruptions       preempt / crash-restart / giveup lifecycle events
+nonfinite_loss      the loss-finiteness health guard tripped
+unattributed_time   the phases breakdown leaves too much wall time unnamed
+occupancy_collapse  (serving) batch occupancy fell away with sessions attached
+latency_regression  (serving) window p99 step latency far above the run median
+slot_starvation     (serving) sessions queued while the slot table ran full
+shed_rate           (serving) admissions rejected by overload protection
+deadline_misses     (serving) requests dropped past their serve.deadline_ms
+reload_stall        (serving) hot reload rejecting candidates / falling behind
+weight_staleness    (service) actors acting with weights far behind the learner
+row_age_drift       (service) the learner trains on increasingly old rows
+ingest_backpressure (service) actors blocked on flow control / ingest backlog
+grad_explosion      (learning) gradient norms far above the run median / nonfinite
+entropy_collapse    (learning) policy entropy fell off a cliff vs early training
+value_overestimation (learning) value estimates grew far past the return scale
+update_ratio_anomaly (learning) update-to-param ratio spiked vs the run median
+kl_balance_drift    (learning, dreamer) KL collapsed/exploded or the posterior/
+                    prior entropy balance drifted (posterior collapse signal)
+reward_plateau      (learning) episode returns rose, then flattened for the
+                    rest of the run (advisory — sample-efficiency signal)
+comm_bound          (profile) collectives dominate the window capture's device
+                    time (``profile_analysis`` events — obs/xprof.py)
+copy_bound          (profile) copy/layout ops dominate the capture's device time
+host_gap            (profile) the device sat idle / fed by host transfers for a
+                    large share of the capture (fused calls gapped by the host)
+==================  ============================================================
+
+The three serving detectors read the ``serve`` block of a serving run's
+windows (``sheeprl_tpu/serve/telemetry.py``); the three experience-plane
+detectors read the ``dataflow`` block (``data/service.py`` lineage,
+``buffer.backend=service`` runs). Training streams without those blocks carry
+none of either, so all six are free no-ops there. The three profile detectors
+read ``profile_analysis`` events (emitted when a ``metric.profiler.mode=window``
+capture completes, or synthesized by ``sheeprl.py profile``) — runs that never
+captured a window carry none, so they too are structural no-ops.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+Finding = Dict[str, Any]
+Events = Sequence[Dict[str, Any]]
+
+_SEVERITY_RANK = {"critical": 0, "warning": 1, "info": 2}
+
+# thresholds (module constants so tests and operators can reason about them)
+PREFETCH_WAIT_WARNING = 0.25  # replay wait as a fraction of train time
+PREFETCH_WAIT_CRITICAL = 0.50
+MFU_COLLAPSE_RATIO = 0.5  # window MFU below this fraction of the run median
+MFU_MIN_WINDOWS = 4
+HBM_NEAR_LIMIT = 0.92  # bytes_in_use / bytes_limit
+HBM_CREEP_GROWTH = 0.2  # relative in-use growth over the run that flags a creep
+HBM_MIN_WINDOWS = 4
+CHECKPOINT_WARNING = 0.10  # checkpoint seconds as a fraction of wall time
+CHECKPOINT_CRITICAL = 0.25
+ENV_RESTART_CLUSTER = 3  # restarts within ENV_RESTART_CLUSTER_SECONDS
+ENV_RESTART_CLUSTER_SECONDS = 120.0
+UNATTRIBUTED_FRACTION = 0.10  # >10% of steady wall time unnamed
+UNATTRIBUTED_MIN_WALL_SECONDS = 5.0  # ignore micro-runs where noise dominates
+RECOMPILE_STORM_WINDOWS = 3  # affected windows that escalate to critical
+# serving detectors (windows carrying a `serve` block — sheeprl_tpu/serve)
+SERVE_MIN_WINDOWS = 4
+OCCUPANCY_COLLAPSE_RATIO = 0.5  # late-half median occupancy vs early-half
+OCCUPANCY_COLLAPSE_CRITICAL = 0.25
+LATENCY_REGRESSION_RATIO = 2.0  # window p99 vs run median p99
+LATENCY_REGRESSION_CRITICAL = 4.0
+# co-located live gang (sheeprl.py live): the learner thread CONTENDS with the
+# tick loop for host cores by design, so millisecond-scale jitter carries no
+# SLO signal there — only spikes past this absolute floor are drift
+LIVE_LATENCY_FLOOR_MS = 25.0
+SLOT_STARVATION_OCCUPANCY = 0.95  # "table full" occupancy floor
+SLOT_STARVATION_FRACTION = 0.5  # share of windows with a waiting queue
+# serving robustness plane (shed/deadline/reload state in the serve block)
+SHED_RATE_WARNING = 0.1  # window shed/offered fraction that flags overload
+SHED_RATE_CRITICAL = 0.5
+SHED_MIN_SESSIONS = 3  # total shed sessions before judging (burst noise floor)
+DEADLINE_MISS_WARNING = 0.05  # window missed/(missed+served) fraction
+DEADLINE_MISS_CRITICAL = 0.25
+DEADLINE_MIN_MISSES = 3
+RELOAD_STALL_WINDOWS = 2  # windows with available > serving version in a row
+# experience-plane (dataflow block) detectors — buffer.backend=service runs
+WEIGHT_STALENESS_LAG = 3  # versions behind the publisher that flag an actor
+WEIGHT_STALENESS_WINDOWS = 2  # sustained lagging windows before flagging
+ROW_AGE_MIN_WINDOWS = 4
+ROW_AGE_DRIFT_RATIO = 3.0  # late-half median p50 age vs early-half
+ROW_AGE_MIN_SECONDS = 10.0  # ignore drift while everything is seconds-fresh
+INGEST_BLOCK_WARNING = 0.25  # actor wall share spent blocked on flow control
+INGEST_BLOCK_CRITICAL = 0.50
+INGEST_QUEUE_DEPTH = 4.0  # learner-side sustained backlog (messages)
+# training-health (learning block) detectors — utils/learn_stats.py producers
+LEARN_MIN_WINDOWS = 4  # windows with learning stats before judging trends
+GRAD_EXPLOSION_RATIO = 10.0  # window grad norm vs run median that flags
+GRAD_EXPLOSION_CRITICAL = 100.0  # ...and that escalates to critical
+ENTROPY_COLLAPSE_DROP = 0.5  # late-half entropy drop vs max(|early median|, 1)
+VALUE_OVER_SCALE = 5.0  # late value mean vs max(|ep-return median|, 1)
+VALUE_OVER_GROWTH = 3.0  # ...and vs the early-half value mean
+VALUE_OVER_CRITICAL = 20.0  # value/return ratio that escalates to critical
+UPDATE_RATIO_ANOMALY = 10.0  # window update/param ratio vs run median
+KL_BALANCE_DRIFT = 0.25  # |late - early| posterior/prior balance shift
+KL_COLLAPSE_RATIO = 0.1  # late-half KL vs early-half (posterior collapse)
+KL_EXPLOSION_RATIO = 10.0  # late-half KL vs early-half (dynamics divergence)
+REWARD_PLATEAU_MIN_WINDOWS = 8  # windows with episode stats before judging
+REWARD_PLATEAU_EPS = 0.05  # late improvement below this fraction of the climb
+REWARD_PLATEAU_MIN_CLIMB = 0.2  # climb must exceed this fraction of max(|peak|, 1)
+# execution-profile (profile_analysis events — obs/xprof.py) detectors
+PROFILE_MIN_DEVICE_SECONDS = 1e-4  # ignore empty/degenerate captures
+PROFILE_COMM_WARNING = 0.25  # comm share of the capture's device time
+PROFILE_COMM_CRITICAL = 0.50
+PROFILE_COPY_WARNING = 0.30  # copy/layout share of device time
+PROFILE_COPY_CRITICAL = 0.60
+PROFILE_HOST_GAP_WARNING = 0.40  # idle + host-transfer share of device time
+PROFILE_HOST_GAP_CRITICAL = 0.70
+
+
+def _ref(event: Dict[str, Any]) -> Dict[str, Any]:
+    """Compact evidence pointer back into the merged stream."""
+    ref = {"seq": event.get("seq"), "step": event.get("step")}
+    if event.get("stream") is not None:
+        ref["stream"] = event["stream"]
+    if event.get("attempt"):
+        ref["attempt"] = event["attempt"]
+    return ref
+
+
+def _finding(
+    detector: str,
+    severity: str,
+    summary: str,
+    evidence: Events,
+    suggestion: str,
+    **metrics: Any,
+) -> Finding:
+    return {
+        "detector": detector,
+        "severity": severity,
+        "summary": summary,
+        "evidence": [_ref(e) for e in list(evidence)[:8]],
+        "suggestion": suggestion,
+        "metrics": metrics,
+    }
+
+
+def _windows(events: Events, steady: bool = True) -> List[Dict[str, Any]]:
+    return [
+        e
+        for e in events
+        if e.get("event") == "window" and not (steady and e.get("final"))
+    ]
+
+
+def _phase(window: Dict[str, Any], name: str) -> float:
+    phases = window.get("phases") or {}
+    try:
+        return float(phases.get(name) or 0.0)
+    except (TypeError, ValueError):
+        return 0.0
+
+
+# ---------------------------------------------------------------------------------
+# detectors
+# ---------------------------------------------------------------------------------
+def detect_recompile_storm(events: Events) -> List[Finding]:
+    windows = _windows(events, steady=False)
+    # warmup = everything up to and including the first window that trained (the
+    # act/train programs legitimately compile there), extended by the run's own
+    # compile_warmup_steps (the start event carries it) — auxiliary programs
+    # (imagination/test heads) legitimately trickle in behind the first round
+    first_trained = next(
+        (i for i, w in enumerate(windows) if (w.get("train_units") or 0) > 0), None
+    )
+    if first_trained is None:
+        return []
+    warmup_steps = max(
+        (
+            int(e.get("compile_warmup_steps") or 0)
+            for e in events
+            if e.get("event") == "start"
+        ),
+        default=0,
+    )
+    affected = [
+        w
+        for w in windows[first_trained + 1 :]
+        if ((w.get("compile") or {}).get("window_count") or 0) > 0
+        and (w.get("step") or 0) > warmup_steps
+        # the final (close-time) window absorbs the end-of-run test's
+        # first-time eval-program compiles — legitimate, not shape churn
+        and not w.get("final")
+    ]
+    if not affected:
+        return []
+    count = sum(int(w["compile"]["window_count"]) for w in affected)
+    seconds = sum(float(w["compile"].get("window_seconds") or 0.0) for w in affected)
+    severity = "critical" if len(affected) >= RECOMPILE_STORM_WINDOWS else "warning"
+    return [
+        _finding(
+            "recompile_storm",
+            severity,
+            f"{count} XLA recompile(s) ({seconds:.1f}s) across {len(affected)} "
+            "window(s) after warmup — the train/act programs should compile once",
+            affected,
+            "hunt for shape churn (varying per-round gradient-step counts, env batch "
+            "drift); pin shapes, or pre-warm with sheeprl-compile and keep the "
+            "persistent compile cache on (SHEEPRL_JAX_CACHE)",
+            recompiles=count,
+            compile_seconds=round(seconds, 3),
+            windows=len(affected),
+        )
+    ]
+
+
+def detect_prefetch_starvation(events: Events) -> List[Finding]:
+    windows = [
+        w
+        for w in _windows(events)
+        if (w.get("train_seconds") or 0) > 0 and (w.get("prefetch") or {}).get("wait_seconds") is not None
+    ]
+    if not windows:
+        return []
+    wait = sum(float(w["prefetch"]["wait_seconds"]) for w in windows)
+    train = sum(float(w["train_seconds"]) for w in windows)
+    if train <= 0:
+        return []
+    frac = wait / train
+    if frac < PREFETCH_WAIT_WARNING:
+        return []
+    severity = "critical" if frac >= PREFETCH_WAIT_CRITICAL else "warning"
+    worst = sorted(
+        windows,
+        key=lambda w: float(w["prefetch"]["wait_seconds"]) / max(float(w["train_seconds"]), 1e-9),
+        reverse=True,
+    )
+    is_async = bool((worst[0].get("prefetch") or {}).get("is_async", False))
+    empty_waits = sum(int((w.get("prefetch") or {}).get("empty_waits") or 0) for w in windows)
+    if is_async:
+        depth = (worst[0].get("prefetch") or {}).get("depth")
+        suggestion = (
+            "increase buffer.prefetch.depth"
+            + (f" (currently {depth})" if depth else "")
+            + ", check host sampling throughput (memmap IO, batch assembly), or "
+            "shrink the per-round gradient-step burst"
+        )
+    else:
+        # the sync sampler's "wait" IS the full inline gather — deepening a
+        # pipeline that does not exist cannot help
+        suggestion = "enable the async replay pipeline: buffer.prefetch.enabled=true"
+    return [
+        _finding(
+            "prefetch_starvation",
+            severity,
+            f"the train loop spent {frac:.0%} of its train time waiting on replay "
+            "sampling — the device is starved by the host pipeline"
+            + (f" ({empty_waits} sample call(s) found nothing staged)" if is_async and empty_waits else ""),
+            worst,
+            suggestion,
+            wait_fraction=round(frac, 4),
+            wait_seconds=round(wait, 3),
+            train_seconds=round(train, 3),
+            is_async=is_async,
+            empty_waits=empty_waits,
+        )
+    ]
+
+
+def detect_mfu_collapse(events: Events) -> List[Finding]:
+    windows = [w for w in _windows(events) if w.get("mfu") is not None]
+    if len(windows) < MFU_MIN_WINDOWS:
+        return []
+    values = sorted(float(w["mfu"]) for w in windows)
+    median = values[len(values) // 2]
+    if median <= 0:
+        return []
+    affected = [w for w in windows if float(w["mfu"]) < MFU_COLLAPSE_RATIO * median]
+    if not affected:
+        return []
+    worst = min(float(w["mfu"]) for w in affected)
+    severity = "critical" if float(windows[-1]["mfu"]) < MFU_COLLAPSE_RATIO * median else "warning"
+    return [
+        _finding(
+            "mfu_collapse",
+            severity,
+            f"{len(affected)} window(s) ran at MFU {worst:.3f} vs a run median of "
+            f"{median:.3f} — the device went quiet mid-run",
+            affected,
+            "capture a bounded trace around the slow stretch "
+            "(metric.profiler.mode=window metric.profiler.start_step=<step>) and "
+            "check the same windows for recompiles / prefetch waits / checkpoint time",
+            median_mfu=round(median, 4),
+            worst_mfu=round(worst, 4),
+            windows=len(affected),
+        )
+    ]
+
+
+def detect_hbm_creep(events: Events) -> List[Finding]:
+    windows = [
+        w for w in _windows(events, steady=False) if (w.get("hbm") or {}).get("bytes_in_use")
+    ]
+    if not windows:
+        return []
+    last = windows[-1]
+    in_use = float(last["hbm"]["bytes_in_use"])
+    limit = float(last["hbm"].get("bytes_limit") or 0.0)
+    if limit > 0 and in_use / limit >= HBM_NEAR_LIMIT:
+        return [
+            _finding(
+                "hbm_creep",
+                "critical",
+                f"device memory is at {in_use / limit:.0%} of HBM capacity "
+                f"({in_use / 2**30:.2f} GiB of {limit / 2**30:.2f} GiB) — the next "
+                "allocation spike can OOM the run",
+                [last],
+                "shrink per-rank batch/sequence sizes, verify train-state donation is "
+                "active (howto/performance.md), or shard over more devices",
+                bytes_in_use=int(in_use),
+                bytes_limit=int(limit),
+                fraction=round(in_use / limit, 4),
+            )
+        ]
+    if len(windows) < HBM_MIN_WINDOWS:
+        return []
+    series = [float(w["hbm"]["bytes_in_use"]) for w in windows]
+    first = series[0]
+    growing = all(b >= a for a, b in zip(series, series[1:])) and series[-1] > series[0]
+    if first > 0 and growing and (series[-1] - first) / first >= HBM_CREEP_GROWTH:
+        return [
+            _finding(
+                "hbm_creep",
+                "warning",
+                f"device memory grew monotonically {first / 2**30:.2f} → "
+                f"{series[-1] / 2**30:.2f} GiB across {len(windows)} windows — "
+                "something is accumulating on-device",
+                windows[-3:],
+                "look for device arrays retained across iterations (host-side lists "
+                "of jax arrays, un-donated train state, growing replay staging)",
+                first_bytes=int(first),
+                last_bytes=int(series[-1]),
+                growth=round((series[-1] - first) / first, 4),
+            )
+        ]
+    return []
+
+
+def detect_checkpoint_heavy(events: Events) -> List[Finding]:
+    windows = [w for w in _windows(events) if w.get("phases")]
+    wall = sum(float(w.get("wall_seconds") or 0.0) for w in windows)
+    if wall <= 0:
+        return []
+    ckpt = sum(_phase(w, "checkpoint") for w in windows)
+    frac = ckpt / wall
+    if frac < CHECKPOINT_WARNING:
+        return []
+    severity = "critical" if frac >= CHECKPOINT_CRITICAL else "warning"
+    affected = sorted(windows, key=lambda w: _phase(w, "checkpoint"), reverse=True)
+    return [
+        _finding(
+            "checkpoint_heavy",
+            severity,
+            f"checkpoint writes took {frac:.0%} of steady wall time "
+            f"({ckpt:.1f}s of {wall:.1f}s)",
+            affected,
+            "enable async checkpointing (checkpoint.async_save=true with the orbax "
+            "backend), raise checkpoint.every, or drop the replay buffer from the "
+            "checkpoint (buffer.checkpoint=false) if resume-refill is acceptable",
+            checkpoint_seconds=round(ckpt, 3),
+            wall_seconds=round(wall, 3),
+            fraction=round(frac, 4),
+        )
+    ]
+
+
+def detect_env_instability(events: Events) -> List[Finding]:
+    findings: List[Finding] = []
+    restarts = [
+        e for e in events if e.get("event") == "health" and e.get("status") == "env_restart"
+    ]
+    if restarts:
+        total = max(int(e.get("total") or 1) for e in restarts)
+        clustered = False
+        times = [float(e.get("time") or 0.0) for e in restarts]
+        for i in range(len(times)):
+            j = i + ENV_RESTART_CLUSTER - 1
+            if j < len(times) and times[j] - times[i] <= ENV_RESTART_CLUSTER_SECONDS:
+                clustered = True
+                break
+        findings.append(
+            _finding(
+                "env_instability",
+                "critical" if clustered else "warning",
+                f"{total} env crash-restart(s)"
+                + (
+                    f" including {ENV_RESTART_CLUSTER}+ within "
+                    f"{ENV_RESTART_CLUSTER_SECONDS:.0f}s — the env is flapping"
+                    if clustered
+                    else " absorbed by RestartOnException"
+                ),
+                restarts,
+                "inspect the env worker logs; a deterministic crash at the same step "
+                "usually means a bad transition/asset, a flapping env usually means "
+                "resource exhaustion in the env process",
+                restarts=total,
+                clustered=clustered,
+            )
+        )
+    stalls = [
+        e for e in events if e.get("event") == "health" and e.get("status") == "stalled"
+    ]
+    if stalls:
+        worst = max(float(e.get("stall_seconds") or 0.0) for e in stalls)
+        findings.append(
+            _finding(
+                "env_instability",
+                "critical",
+                f"the progress watchdog tripped {len(stalls)} time(s) (worst stall "
+                f"{worst:.0f}s) — the loop stopped making progress without dying",
+                stalls,
+                "read the stack dump in the stall event; common culprits are a "
+                "deadlocked env subprocess and a wedged device transfer "
+                "(resilience.watchdog.abort=true turns stalls into supervised restarts)",
+                stalls=len(stalls),
+                worst_stall_seconds=round(worst, 1),
+            )
+        )
+    return findings
+
+
+def detect_interruptions(events: Events) -> List[Finding]:
+    findings: List[Finding] = []
+    preempts = [e for e in events if e.get("event") == "preempt"]
+    crash_restarts = [
+        e for e in events if e.get("event") == "restart" and e.get("reason") == "crash"
+    ]
+    preempt_restarts = [
+        e for e in events if e.get("event") == "restart" and e.get("reason") == "preempt"
+    ]
+    giveups = [e for e in events if e.get("event") == "giveup"]
+    # distributed runs: heartbeat failure detection names the rank that died
+    # (health status=rank_dead, resilience/distributed.py), and the gang
+    # supervisor's restart events carry the non-zero exit codes per rank — so a
+    # gang teardown is attributed to its dead rank, not "an unexplained crash"
+    rank_deaths = [
+        e for e in events if e.get("event") == "health" and e.get("status") == "rank_dead"
+    ]
+    dead_rank_ids = sorted(
+        {int(e["rank"]) for e in rank_deaths if e.get("rank") is not None}
+        | {
+            int(r)
+            for e in events
+            if e.get("event") == "giveup" or (e.get("event") == "restart" and e.get("reason") == "crash")
+            for r in (e.get("dead_ranks") or {})
+        }
+    )
+    if rank_deaths:
+        observers = sorted(
+            {int(e["observed_by"]) for e in rank_deaths if e.get("observed_by") is not None}
+        )
+        named = sorted({int(e["rank"]) for e in rank_deaths if e.get("rank") is not None})
+        findings.append(
+            _finding(
+                "interruptions",
+                "warning",
+                f"rank{'s' if len(named) != 1 else ''} "
+                f"{', '.join(map(str, named)) or '?'} of the gang "
+                f"{'were' if len(named) != 1 else 'was'} declared dead "
+                f"({rank_deaths[-1].get('reason') or 'heartbeat timeout'}"
+                + (f", observed by rank {observers[0]}" if observers else "")
+                + ") — peers tore down instead of hanging",
+                rank_deaths,
+                "read the dead rank's own log/stream for its last events; recurring "
+                "single-rank deaths at the same step are that rank's bug (OOM, env "
+                "crash), not infrastructure flakiness",
+                dead_ranks=named,
+            )
+        )
+    if preempts:
+        findings.append(
+            _finding(
+                "interruptions",
+                "info",
+                f"{len(preempts)} cooperative preemption(s) (SIGTERM reclaim) — "
+                "emergency checkpoints were written"
+                + (f"; {len(preempt_restarts)} supervised resume(s)" if preempt_restarts else ""),
+                preempts + preempt_restarts,
+                "expected on preemptible capacity; tighten checkpoint.every if the "
+                "re-done work between checkpoint and preempt is material",
+                preempts=len(preempts),
+                resumed=len(preempt_restarts),
+            )
+        )
+    if crash_restarts:
+        last_error = next(
+            (e.get("error") for e in reversed(crash_restarts) if e.get("error")), None
+        )
+        findings.append(
+            _finding(
+                "interruptions",
+                "warning",
+                f"the run crashed and was auto-restarted {len(crash_restarts)} time(s)"
+                + (
+                    f" (dead rank{'s' if len(dead_rank_ids) != 1 else ''}: "
+                    f"{', '.join(map(str, dead_rank_ids))})"
+                    if dead_rank_ids
+                    else ""
+                )
+                + (f" (last error: {str(last_error)[:120]})" if last_error else ""),
+                crash_restarts,
+                "read the restart events' error fields; recurring crashes at the same "
+                "step are a code/data bug, not flakiness — the supervisor is masking it",
+                restarts=len(crash_restarts),
+                **({"dead_ranks": dead_rank_ids} if dead_rank_ids else {}),
+            )
+        )
+    if giveups:
+        findings.append(
+            _finding(
+                "interruptions",
+                "critical",
+                "the supervisor exhausted its restart budget and gave up",
+                giveups,
+                "fix the underlying crash (see the giveup event's error) or raise "
+                "resilience.supervisor.max_restarts if the failures are environmental",
+                giveups=len(giveups),
+                **({"dead_ranks": dead_rank_ids} if dead_rank_ids else {}),
+            )
+        )
+    return findings
+
+
+def detect_nonfinite_loss(events: Events) -> List[Finding]:
+    bad = [
+        e for e in events if e.get("event") == "health" and e.get("status") == "nonfinite"
+    ]
+    if not bad:
+        return []
+    names = sorted({str(n) for e in bad for n in (e.get("nonfinite") or [])})
+    return [
+        _finding(
+            "nonfinite_loss",
+            "critical",
+            f"training losses went non-finite ({', '.join(names) or 'unnamed'}) in "
+            f"{len(bad)} health check(s)",
+            bad,
+            "lower the learning rate / loosen gradient clipping, and consider "
+            "metric.telemetry.abort_on_nonfinite=true so a diverged run fails fast",
+            checks=len(bad),
+            losses=names,
+        )
+    ]
+
+
+def detect_unattributed_time(events: Events) -> List[Finding]:
+    att = attribution(events)
+    if att is None or att["wall_seconds"] < UNATTRIBUTED_MIN_WALL_SECONDS:
+        return []
+    unattributed = 1.0 - att["named_fraction"]
+    if unattributed <= UNATTRIBUTED_FRACTION:
+        return []
+    windows = [w for w in _windows(events) if w.get("phases")]
+    worst = sorted(
+        windows,
+        key=lambda w: _phase(w, "other") / max(float(w.get("wall_seconds") or 0.0), 1e-9),
+        reverse=True,
+    )
+    return [
+        _finding(
+            "unattributed_time",
+            "warning",
+            f"{unattributed:.0%} of steady wall time is not attributed to any named "
+            "phase — the attribution invariant is leaking",
+            worst,
+            "a loop phase is missing its Time/* span (env interaction, fused "
+            "rollout, checkpoint, logging); see howto/observability.md §phase "
+            "attribution",
+            named_fraction=round(att["named_fraction"], 4),
+            wall_seconds=round(att["wall_seconds"], 3),
+        )
+    ]
+
+
+def _serve_windows(events: Events) -> List[Dict[str, Any]]:
+    """Steady windows carrying a ``serve`` block (serving runs only — training
+    streams contribute none, so the serving detectors are free no-ops there)."""
+    return [w for w in _windows(events) if isinstance(w.get("serve"), dict)]
+
+
+def _median(values: List[float]) -> float:
+    values = sorted(values)
+    n = len(values)
+    if n == 0:
+        return 0.0
+    mid = n // 2
+    return values[mid] if n % 2 else 0.5 * (values[mid - 1] + values[mid])
+
+
+def detect_occupancy_collapse(events: Events) -> List[Finding]:
+    """Batch occupancy fell away while sessions were still attached: the server
+    is ticking mostly-empty batches — throughput is latency-bound, not
+    compute-bound (coalescing window too short, or client think-time dominates)."""
+    windows = _serve_windows(events)
+    if len(windows) < SERVE_MIN_WINDOWS:
+        return []
+    occ = [_f(w["serve"].get("occupancy")) for w in windows]
+    half = len(occ) // 2
+    early, late = _median(occ[:half]), _median(occ[half:])
+    late_windows = windows[half:]
+    active = _median(
+        [_f((w["serve"].get("sessions") or {}).get("active")) for w in late_windows]
+    )
+    if early <= 0 or active < 1 or late >= OCCUPANCY_COLLAPSE_RATIO * early:
+        return []
+    severity = "critical" if late < OCCUPANCY_COLLAPSE_CRITICAL * early else "warning"
+    return [
+        _finding(
+            "occupancy_collapse",
+            severity,
+            f"batch occupancy collapsed {early:.2f} → {late:.2f} with ~{active:.0f} "
+            "session(s) still attached — the step program is ticking mostly-empty batches",
+            late_windows,
+            "raise serve.max_batch_wait_ms so slow clients coalesce into one tick, "
+            "or shrink serve.slots to match the real concurrency",
+            early_occupancy=round(early, 4),
+            late_occupancy=round(late, 4),
+            active_sessions=active,
+        )
+    ]
+
+
+def detect_latency_regression(events: Events) -> List[Finding]:
+    """Per-step p99 latency of later windows far above the run's own median:
+    the server got slower while serving (queue pressure, host contention, a
+    recompile) — the SLO signal, independent of any absolute target. In a
+    co-located live gang (a learner stream merged next to the serve stream —
+    ``sheeprl.py live``) the learner's gradient bursts contend with the tick
+    loop by design, so only spikes past :data:`LIVE_LATENCY_FLOOR_MS` count."""
+    windows = _serve_windows(events)
+    if len(windows) < SERVE_MIN_WINDOWS:
+        return []
+    p99s = [
+        (_w, _f((_w["serve"].get("latency_ms") or {}).get("p99"))) for _w in windows
+    ]
+    p99s = [(w, v) for w, v in p99s if v > 0]
+    if len(p99s) < SERVE_MIN_WINDOWS:
+        return []
+    live_gang = bool(_dataflow_windows(events, "learner"))
+    floor = LIVE_LATENCY_FLOOR_MS if live_gang else 0.0
+    baseline = _median([v for _, v in p99s])
+    # window 0 absorbs the cold compiles — a spike there is startup, not drift
+    affected = [
+        (w, v)
+        for w, v in p99s[1:]
+        if v > max(LATENCY_REGRESSION_RATIO * baseline, floor)
+    ]
+    if not affected:
+        return []
+    worst = max(v for _, v in affected)
+    severity = (
+        "critical"
+        if worst > LATENCY_REGRESSION_CRITICAL * baseline and len(affected) >= 2
+        else "warning"
+    )
+    return [
+        _finding(
+            "latency_regression",
+            severity,
+            f"step-latency p99 regressed to {worst:.1f}ms in {len(affected)} window(s) "
+            f"vs the run median {baseline:.1f}ms",
+            [w for w, _ in affected],
+            "check for host contention and recompiles (compile.window_count in the "
+            "affected windows); if occupancy also rose, the table is saturated — "
+            "raise serve.slots",
+            baseline_p99_ms=round(baseline, 3),
+            worst_p99_ms=round(worst, 3),
+            windows=len(affected),
+        )
+    ]
+
+
+def detect_slot_starvation(events: Events) -> List[Finding]:
+    """Sessions queued for a slot while the table ran full: admission is
+    throttled by capacity, not by traffic — sessions/sec is capped below demand."""
+    windows = _serve_windows(events)
+    if len(windows) < 2:
+        return []
+    starved = [
+        w
+        for w in windows
+        if _f(w["serve"].get("queue_depth")) >= 1.0
+        and _f(w["serve"].get("occupancy")) >= SLOT_STARVATION_OCCUPANCY
+    ]
+    if len(starved) < max(2, int(SLOT_STARVATION_FRACTION * len(windows))):
+        return []
+    depth = _median([_f(w["serve"].get("queue_depth")) for w in starved])
+    slots = max(
+        (
+            int((e.get("serve") or {}).get("slots") or 0)
+            for e in events
+            if e.get("event") == "start"
+        ),
+        default=0,
+    )
+    return [
+        _finding(
+            "slot_starvation",
+            "warning",
+            f"sessions queued for a slot (median queue depth {depth:.1f}) while the "
+            f"table ran full in {len(starved)}/{len(windows)} window(s)",
+            starved,
+            f"raise serve.slots (currently {slots or 'unknown'}) — the step program "
+            "recompiles once for the new shape, then admission is O(1) again",
+            queue_depth=round(depth, 2),
+            starved_windows=len(starved),
+            slots=slots or None,
+        )
+    ]
+
+
+def detect_shed_rate(events: Events) -> List[Finding]:
+    """Overload protection rejected admissions: demand exceeded `serve.slots` +
+    `serve.max_queue` capacity. Working as designed — but an operator must see
+    that traffic is being turned away (and how much) to size the server."""
+    windows = _serve_windows(events)
+    shed_windows = [
+        w for w in windows if _f((w["serve"].get("sessions") or {}).get("shed")) > 0
+    ]
+    if not shed_windows:
+        return []
+    total_shed = int(sum(_f((w["serve"].get("sessions") or {}).get("shed")) for w in shed_windows))
+    if total_shed < SHED_MIN_SESSIONS:
+        return []
+    worst = max(_f(w["serve"].get("shed_rate")) for w in shed_windows)
+    if worst < SHED_RATE_WARNING:
+        return []
+    severity = "critical" if worst >= SHED_RATE_CRITICAL else "warning"
+    return [
+        _finding(
+            "shed_rate",
+            severity,
+            f"{total_shed} session(s) shed by overload protection across "
+            f"{len(shed_windows)} window(s) (worst window shed rate {worst:.0%})",
+            shed_windows,
+            "capacity is below demand: raise serve.slots (one recompile, then O(1) "
+            "again), raise serve.max_queue if the bursts are short, or add servers",
+            sessions_shed=total_shed,
+            worst_shed_rate=round(worst, 4),
+            windows=len(shed_windows),
+        )
+    ]
+
+
+def detect_deadline_misses(events: Events) -> List[Finding]:
+    """Requests dropped before the tick because their `serve.deadline_ms`
+    expired: the server cannot turn batches around inside the latency budget
+    (slow ticks, saturation, or a too-tight deadline)."""
+    windows = _serve_windows(events)
+    missed_windows = [
+        w for w in windows if _f(w["serve"].get("deadline_missed")) > 0
+    ]
+    if not missed_windows:
+        return []
+    total_missed = int(sum(_f(w["serve"].get("deadline_missed")) for w in missed_windows))
+    if total_missed < DEADLINE_MIN_MISSES:
+        return []
+    fractions = [
+        _f(w["serve"].get("deadline_missed"))
+        / max(_f(w["serve"].get("deadline_missed")) + _f(w.get("steps")), 1.0)
+        for w in missed_windows
+    ]
+    worst = max(fractions)
+    if worst < DEADLINE_MISS_WARNING:
+        return []
+    severity = "critical" if worst >= DEADLINE_MISS_CRITICAL else "warning"
+    return [
+        _finding(
+            "deadline_misses",
+            severity,
+            f"{total_missed} request(s) exceeded serve.deadline_ms before their tick "
+            f"across {len(missed_windows)} window(s) (worst window {worst:.0%} of requests)",
+            missed_windows,
+            "check the same windows' latency p99 and compile counts (a slow/stalling "
+            "tick starves deadlines); widen serve.deadline_ms or shrink "
+            "serve.max_batch_wait_ms if the budget is real",
+            deadline_missed=total_missed,
+            worst_miss_fraction=round(worst, 4),
+            windows=len(missed_windows),
+        )
+    ]
+
+
+def detect_reload_stall(events: Events) -> List[Finding]:
+    """The hot-reload path is not keeping the server current: candidates are
+    being rejected (torn/invalid — the old params keep serving, by design, but
+    someone is producing bad checkpoints), or newer versions keep appearing
+    without ever being applied (a wedged reload thread / unreadable source)."""
+    # the weights block is CUMULATIVE state, conclusive from the last window
+    # alone — so the final window is evidence here, not startup noise
+    windows = [
+        w for w in _windows(events, steady=False) if isinstance(w.get("serve"), dict)
+    ]
+    weighted = [w for w in windows if isinstance(w["serve"].get("weights"), dict)]
+    if not weighted:
+        return []
+    findings: List[Finding] = []
+    last = weighted[-1]["serve"]["weights"]
+    failures = int(_f(last.get("failures")))
+    if failures > 0:
+        failed_windows = [
+            w for w in weighted if _f(w["serve"]["weights"].get("failures")) > 0
+        ]
+        findings.append(
+            _finding(
+                "reload_stall",
+                "warning",
+                f"hot reload rejected {failures} candidate(s) (torn/invalid) — the old "
+                f"version (v{int(_f(last.get('version')))}) kept serving",
+                failed_windows[-4:],
+                "inspect the producing run's checkpoints (sha256 sidecar mismatch = "
+                "torn write); the server is safe but will not pick up new weights "
+                "until a valid candidate lands",
+                failures=failures,
+                serving_version=int(_f(last.get("version"))),
+            )
+        )
+    stalled = [
+        w
+        for w in weighted
+        if _f(w["serve"]["weights"].get("available")) > _f(w["serve"]["weights"].get("version"))
+    ]
+    # judge only a stall that PERSISTS to the end of the run — a version that
+    # was behind mid-run and applied later is the normal reload cadence
+    tail = weighted[-RELOAD_STALL_WINDOWS:]
+    if (
+        len(tail) >= RELOAD_STALL_WINDOWS
+        and all(w in stalled for w in tail)
+        and failures == 0
+    ):
+        behind = int(
+            _f(last.get("available")) - _f(last.get("version"))
+        )
+        findings.append(
+            _finding(
+                "reload_stall",
+                "warning",
+                f"a newer weight version has been available for {len(tail)}+ window(s) "
+                f"without being applied (serving v{int(_f(last.get('version')))}, "
+                f"available v{int(_f(last.get('available')))})",
+                tail,
+                "the reload thread is stalled or the source is unreadable: check "
+                "serve.reload.poll_s and the reload events in the stream",
+                versions_behind=behind,
+                serving_version=int(_f(last.get("version"))),
+                available_version=int(_f(last.get("available"))),
+            )
+        )
+    return findings
+
+
+def _dataflow_windows(events: Events, role: str) -> List[Dict[str, Any]]:
+    """Steady windows carrying a ``dataflow`` block of the given role
+    (``buffer.backend=service`` runs only — everything else contributes none,
+    so the experience-plane detectors are free no-ops there)."""
+    return [
+        w
+        for w in _windows(events)
+        if isinstance(w.get("dataflow"), dict) and w["dataflow"].get("role") == role
+    ]
+
+
+def _by_stream(windows: List[Dict[str, Any]]) -> List[Tuple[Any, List[Dict[str, Any]]]]:
+    """Group windows by their writer (stream label, falling back to rank) so a
+    merged multi-actor dir is judged per actor, in stable order."""
+    groups: Dict[Any, List[Dict[str, Any]]] = {}
+    for w in windows:
+        groups.setdefault(w.get("stream") or f"rank{w.get('rank', 0)}", []).append(w)
+    return sorted(groups.items(), key=lambda kv: str(kv[0]))
+
+
+def detect_weight_staleness(events: Events) -> List[Finding]:
+    """Actors acting with weights materially behind the learner's published
+    version: every env step they take trains the learner on off-policy-er data
+    than the topology intends (the Podracer actor/learner-lag failure mode).
+    An actor that NEVER refreshed (held version 0 while the plane advanced) is
+    critical — its refresh path is broken, not slow."""
+    findings: List[Finding] = []
+    for stream, ws in _by_stream(_dataflow_windows(events, "actor")):
+        lagging = [w for w in ws if _f(w["dataflow"].get("weight_lag")) >= WEIGHT_STALENESS_LAG]
+        last = ws[-1]["dataflow"]
+        # "never refreshed" is conclusive from the FINAL window alone: the held
+        # version is cumulative, so 0-while-the-plane-advanced is a broken
+        # refresh path, not a transient blip — no sustain requirement (the
+        # actors may outrun the learner's first publish and still end stale)
+        never = (
+            int(_f(last.get("weight_version"))) == 0
+            and _f(last.get("weight_latest")) >= WEIGHT_STALENESS_LAG
+        )
+        if len(lagging) < WEIGHT_STALENESS_WINDOWS and not never:
+            continue
+        worst = max(_f(w["dataflow"].get("weight_lag")) for w in (lagging or ws))
+        if not lagging:
+            lagging = [ws[-1]]
+        findings.append(
+            _finding(
+                "weight_staleness",
+                "critical" if never else "warning",
+                (
+                    f"actor stream {stream} never refreshed its weights "
+                    f"(still at version 0 with {int(_f(last.get('weight_latest')))} published)"
+                    if never
+                    else f"actor stream {stream} acted {int(worst)} weight version(s) behind "
+                    f"the learner across {len(lagging)} window(s)"
+                ),
+                lagging,
+                "check the actor's weight-refresh path (buffer.service.poll_weights, "
+                "the subscriber poll in its loop) and the learner's "
+                "buffer.service.publish_every cadence",
+                stream=str(stream),
+                worst_lag=int(worst),
+                windows=len(lagging),
+                never_refreshed=never,
+            )
+        )
+    if findings:
+        return findings
+    # learner-side fallback (a learner stream diagnosed alone, e.g. the in-loop
+    # catalog): the ingest messages' held versions tell the same story
+    for stream, ws in _by_stream(_dataflow_windows(events, "learner")):
+        lagging = [
+            w
+            for w in ws
+            if isinstance(w["dataflow"].get("weight_lag"), dict)
+            and _f(w["dataflow"]["weight_lag"].get("max")) >= WEIGHT_STALENESS_LAG
+        ]
+        if not lagging:
+            continue
+        # held version = publisher current − lag: an actor whose lag equals the
+        # whole published history never refreshed — conclusive, same rationale
+        # as the actor-side check. Judged from the FINAL window only: mid-run a
+        # drained backlog of early version-0 messages looks identical while the
+        # actor has long since caught up.
+        final_block = ws[-1]["dataflow"]
+        final_lag = final_block.get("weight_lag") if isinstance(final_block.get("weight_lag"), dict) else {}
+        current = _f(final_block.get("weight_version"))
+        never_actors = sorted(
+            r
+            for r, v in (final_lag.get("per_actor") or {}).items()
+            if _f(v) >= WEIGHT_STALENESS_LAG and current > 0 and _f(v) >= current
+        )
+        if len(lagging) < WEIGHT_STALENESS_WINDOWS and not never_actors:
+            continue
+        last = lagging[-1]["dataflow"]["weight_lag"]
+        stale_actors = sorted(
+            r for r, v in (last.get("per_actor") or {}).items() if _f(v) >= WEIGHT_STALENESS_LAG
+        )
+        worst = max(_f(w["dataflow"]["weight_lag"].get("max")) for w in lagging)
+        findings.append(
+            _finding(
+                "weight_staleness",
+                # same severity rule as the actor-side view of the identical
+                # condition: a broken refresh path is critical from either side
+                "critical" if never_actors else "warning",
+                (
+                    f"actor(s) {', '.join(never_actors)} never refreshed their weights "
+                    f"(lag spans the whole published history, {int(worst)} version(s)) — "
+                    "seen from the learner's ingest lineage"
+                    if never_actors
+                    else f"actor(s) {', '.join(stale_actors) or '?'} acted {int(worst)} weight "
+                    f"version(s) behind the learner across {len(lagging)} window(s) "
+                    "(seen from the learner's ingest lineage)"
+                ),
+                lagging,
+                "check those actors' weight-refresh paths (buffer.service.poll_weights, "
+                "subscriber polls) and buffer.service.publish_every",
+                stream=str(stream),
+                worst_lag=int(worst),
+                actors=stale_actors,
+                never_refreshed=bool(never_actors),
+                windows=len(lagging),
+            )
+        )
+    return findings
+
+
+def detect_row_age_drift(events: Events) -> List[Finding]:
+    """The learner's sampled-row age marching upward: training data is getting
+    older in wall-clock terms — ingestion is outpacing consumption into a deep
+    buffer, or the learner slowed down mid-run. Judged against the run's own
+    early windows, not an absolute bar."""
+    findings: List[Finding] = []
+    for stream, ws in _by_stream(_dataflow_windows(events, "learner")):
+        aged = [
+            w
+            for w in ws
+            if isinstance((w["dataflow"].get("row_age") or {}).get("seconds"), dict)
+        ]
+        if len(aged) < ROW_AGE_MIN_WINDOWS:
+            continue
+        p50s = [_f(w["dataflow"]["row_age"]["seconds"].get("p50")) for w in aged]
+        half = len(p50s) // 2
+        early, late = _median(p50s[:half]), _median(p50s[half:])
+        if late < ROW_AGE_MIN_SECONDS or (early > 0 and late < ROW_AGE_DRIFT_RATIO * early):
+            continue
+        severity = (
+            "critical" if early > 0 and late >= 2 * ROW_AGE_DRIFT_RATIO * early else "warning"
+        )
+        last_age = aged[-1]["dataflow"]["row_age"]
+        findings.append(
+            _finding(
+                "row_age_drift",
+                severity,
+                f"the learner's sampled-row age drifted {early:.1f}s → {late:.1f}s (p50) "
+                f"over {len(aged)} window(s) — it is training on increasingly old data",
+                aged[half:],
+                "raise the learner's consumption (algo.replay_ratio, faster train "
+                "rounds) or shrink buffer.size so the retained span stays fresh; "
+                "check the same windows for ingest backpressure",
+                stream=str(stream),
+                early_p50_s=round(early, 3),
+                late_p50_s=round(late, 3),
+                late_p99_s=_f((last_age.get("seconds") or {}).get("p99")),
+                late_p50_rounds=_f((last_age.get("rounds") or {}).get("p50")),
+            )
+        )
+    return findings
+
+
+def detect_ingest_backpressure(events: Events) -> List[Finding]:
+    """Actors blocked on the flow-control watermark (the learner's drain cannot
+    keep up) or a sustained learner-side ingest backlog: acting throughput is
+    being throttled by the data plane, not by the envs."""
+    findings: List[Finding] = []
+    for stream, ws in _by_stream(_dataflow_windows(events, "actor")):
+        if len(ws) < 2:
+            continue
+        # flow_block_seconds is cumulative: per-window deltas against wall time
+        blocked: List[Tuple[Dict[str, Any], float]] = []
+        prev = _f(ws[0]["dataflow"].get("flow_block_seconds"))
+        for w in ws[1:]:
+            cur = _f(w["dataflow"].get("flow_block_seconds"))
+            wall = _f(w.get("wall_seconds"))
+            frac = (cur - prev) / wall if wall > 0 else 0.0
+            prev = cur
+            if frac >= INGEST_BLOCK_WARNING:
+                blocked.append((w, frac))
+        if len(blocked) < 2:
+            continue
+        worst = max(frac for _, frac in blocked)
+        findings.append(
+            _finding(
+                "ingest_backpressure",
+                "critical" if worst >= INGEST_BLOCK_CRITICAL else "warning",
+                f"actor stream {stream} spent up to {worst:.0%} of window wall time "
+                f"blocked on ingest flow control across {len(blocked)} window(s) — "
+                "the learner's drain cannot keep up",
+                [w for w, _ in blocked],
+                "raise buffer.service.max_inflight (more credit absorbs learner "
+                "hiccups), speed up the learner's drain, or batch ingestion with "
+                "buffer.service.flush_every",
+                stream=str(stream),
+                worst_block_fraction=round(worst, 4),
+                windows=len(blocked),
+            )
+        )
+    if findings:
+        return findings
+    # learner-side signal: a standing message backlog without actor streams in
+    # view (the mean is cumulative — sustained means the backlog never drained)
+    for stream, ws in _by_stream(_dataflow_windows(events, "learner")):
+        deep = [w for w in ws if _f(w["dataflow"].get("queue_depth")) >= INGEST_QUEUE_DEPTH]
+        if len(deep) < max(2, len(ws) // 2):
+            continue
+        worst = max(_f(w["dataflow"].get("queue_depth")) for w in deep)
+        findings.append(
+            _finding(
+                "ingest_backpressure",
+                "warning",
+                f"the learner's ingest backlog held {worst:.1f} message(s) across "
+                f"{len(deep)}/{len(ws)} window(s) — drain is behind publication",
+                deep,
+                "speed up the ingest drain (it contends with the sampler lock) or "
+                "slow the actors (buffer.service.max_inflight bounds the damage)",
+                stream=str(stream),
+                worst_queue_depth=round(worst, 2),
+                windows=len(deep),
+            )
+        )
+    return findings
+
+
+def _learning_windows(events: Events) -> List[Dict[str, Any]]:
+    """Steady windows carrying a ``learning`` block (training runs with the
+    learning plane on — everything else contributes none, so the training-
+    health detectors are free no-ops on serving/old streams).
+
+    Decoupled topologies MIRROR the learner's Learn block onto the player's
+    primary stream (the channel reply ships it host-side), so a merged run dir
+    would otherwise present every real window twice — doubling the affected
+    counts the escalation thresholds key on. Judge ONE stream: the primary when
+    it carries learning windows, else the stream with the most (the service
+    learner's, whose player never trains)."""
+    wins = [w for w in _windows(events) if isinstance(w.get("learning"), dict)]
+    if not wins:
+        return []
+    groups: Dict[Any, List[Dict[str, Any]]] = {}
+    for w in wins:
+        groups.setdefault(w.get("stream") or f"rank{w.get('rank', 0)}", []).append(w)
+    if len(groups) == 1:
+        return wins
+    from sheeprl_tpu_torch.obs.streams import is_primary_event
+
+    primary = [w for w in wins if is_primary_event(w)]
+    if primary:
+        return primary
+    return max(groups.values(), key=len)
+
+
+def _learn_stat(window: Dict[str, Any], key: str) -> Optional[float]:
+    stats = (window.get("learning") or {}).get("stats") or {}
+    value = stats.get(key)
+    if isinstance(value, (int, float)) and value == value:  # NaN-safe
+        return float(value)
+    return None
+
+
+def _learn_keys(windows: List[Dict[str, Any]], prefix: str) -> List[str]:
+    keys: set = set()
+    for w in windows:
+        for k in ((w.get("learning") or {}).get("stats") or {}):
+            if k.startswith(prefix):
+                keys.add(k)
+    return sorted(keys)
+
+
+def _ep_return_series(events: Events) -> List[Tuple[Dict[str, Any], float]]:
+    out: List[Tuple[Dict[str, Any], float]] = []
+    for w in _learning_windows(events):
+        ep = (w.get("learning") or {}).get("episodes") or {}
+        ret = ep.get("return_p50", ep.get("return_mean"))
+        if isinstance(ret, (int, float)):
+            out.append((w, float(ret)))
+    return out
+
+
+def detect_grad_explosion(events: Events) -> List[Finding]:
+    """Gradient norms far above the run's own median (or non-finite): the
+    first casualty of a mis-scaled update, a bad batch, or an lr spike. Judged
+    per module group on the window-max series (a one-step spike inside a fused
+    multi-step round is exactly what must not be averaged away)."""
+    windows = _learning_windows(events)
+    findings: List[Finding] = []
+    # non-finite gradient stats are conclusive from a single window
+    bad = [
+        (w, k)
+        for w in windows
+        for k in (w["learning"].get("nonfinite") or [])
+        if k.startswith("grad_norm")
+    ]
+    if bad:
+        names = sorted({k for _, k in bad})
+        findings.append(
+            _finding(
+                "grad_explosion",
+                "critical",
+                f"non-finite gradient norm(s) ({', '.join(names)}) in "
+                f"{len({id(w) for w, _ in bad})} window(s) — training is diverging",
+                [w for w, _ in bad],
+                "lower the learning rate / tighten gradient clipping; "
+                "metric.telemetry.abort_on_nonfinite=true fails the run fast",
+                stats=names,
+            )
+        )
+    for key in _learn_keys(windows, "grad_norm_max/"):
+        series = [(w, v) for w in windows if (v := _learn_stat(w, key)) is not None]
+        if len(series) < LEARN_MIN_WINDOWS:
+            continue
+        median = _median([v for _, v in series])
+        if median <= 0:
+            continue
+        affected = [(w, v) for w, v in series if v >= GRAD_EXPLOSION_RATIO * median]
+        if not affected:
+            continue
+        group = key.split("/", 1)[1]
+        worst = max(v for _, v in affected)
+        severity = (
+            "critical"
+            if worst >= GRAD_EXPLOSION_CRITICAL * median or len(affected) >= 3
+            else "warning"
+        )
+        findings.append(
+            _finding(
+                "grad_explosion",
+                severity,
+                f"the {group} gradient norm spiked to {worst:.3g} — "
+                f"{worst / median:.0f}x the run median ({median:.3g}) across "
+                f"{len(affected)} window(s)",
+                [w for w, _ in affected],
+                "look for an lr spike / bad batch at those steps (the window "
+                "events' step field); tighten the group's clip_gradients, or "
+                "lower its learning rate",
+                group=group,
+                worst=round(worst, 4),
+                median=round(median, 4),
+                windows=len(affected),
+            )
+        )
+    return findings
+
+
+def detect_entropy_collapse(events: Events) -> List[Finding]:
+    """Policy entropy fell off a cliff relative to early training: the policy
+    went (near-)deterministic long before the return justified it — exploration
+    is dead and learning will plateau. Judged on DELTAS (continuous policies
+    report differential entropy, which is legitimately negative)."""
+    windows = _learning_windows(events)
+    series = [(w, v) for w in windows if (v := _learn_stat(w, "entropy")) is not None]
+    if len(series) < LEARN_MIN_WINDOWS:
+        return []
+    half = len(series) // 2
+    early = _median([v for _, v in series[:half]])
+    late = _median([v for _, v in series[half:]])
+    drop = early - late
+    scale = max(abs(early), 1.0)
+    if drop < ENTROPY_COLLAPSE_DROP * scale:
+        return []
+    last = series[-1][1]
+    severity = "critical" if drop >= 2 * ENTROPY_COLLAPSE_DROP * scale else "warning"
+    return [
+        _finding(
+            "entropy_collapse",
+            severity,
+            f"policy entropy collapsed {early:.3g} → {late:.3g} (late-half median; "
+            f"last window {last:.3g}) — the policy went near-deterministic",
+            [w for w, _ in series[half:]],
+            "raise the entropy coefficient (algo.ent_coef / actor.ent_coef), "
+            "check the reward scale, and compare the episode-return curve — a "
+            "collapse without a matching return rise is premature convergence",
+            early=round(early, 4),
+            late=round(late, 4),
+            drop=round(drop, 4),
+        )
+    ]
+
+
+def detect_value_overestimation(events: Events) -> List[Finding]:
+    """Value/Q estimates growing far past the scale of anything the agent has
+    actually collected: optimistic bootstrapping feeding on itself (the classic
+    off-policy overestimation spiral). Needs both value stats and episode
+    returns — without a return scale, big values might be legitimate."""
+    windows = _learning_windows(events)
+    key = next((k for k in ("q_mean", "value_mean") if any(_learn_stat(w, k) is not None for w in windows)), None)
+    if key is None:
+        return []
+    series = [(w, v) for w in windows if (v := _learn_stat(w, key)) is not None]
+    returns = _ep_return_series(events)
+    if len(series) < LEARN_MIN_WINDOWS or not returns:
+        return []
+    half = len(series) // 2
+    early = _median([v for _, v in series[:half]])
+    late = _median([v for _, v in series[half:]])
+    ret_scale = max(abs(_median([r for _, r in returns])), 1.0)
+    if late < VALUE_OVER_SCALE * ret_scale or late < VALUE_OVER_GROWTH * max(abs(early), 1e-9):
+        return []
+    severity = "critical" if late >= VALUE_OVER_CRITICAL * ret_scale else "warning"
+    return [
+        _finding(
+            "value_overestimation",
+            severity,
+            f"the {key.split('_')[0]} estimate grew {early:.3g} → {late:.3g} while episode "
+            f"returns sit around {ret_scale:.3g} — bootstrapped optimism is "
+            "feeding on itself",
+            [w for w, _ in series[half:]],
+            "check the TD-error quantiles in the same windows (a fat positive "
+            "tail confirms it); lower gamma/learning rate, or strengthen the "
+            "pessimism mechanism (twin critics, target-network cadence)",
+            early=round(early, 4),
+            late=round(late, 4),
+            return_scale=round(ret_scale, 4),
+        )
+    ]
+
+
+def detect_update_ratio_anomaly(events: Events) -> List[Finding]:
+    """Update-to-param ratio of a module group spiking far above the run
+    median: the optimizer briefly rewrote a material fraction of the weights —
+    an lr-schedule bug, a moment-state corruption, or an unclipped spike that
+    got through."""
+    windows = _learning_windows(events)
+    findings: List[Finding] = []
+    for key in _learn_keys(windows, "update_ratio/"):
+        series = [(w, v) for w in windows if (v := _learn_stat(w, key)) is not None]
+        if len(series) < LEARN_MIN_WINDOWS:
+            continue
+        median = _median([v for _, v in series])
+        if median <= 0:
+            continue
+        affected = [(w, v) for w, v in series if v >= UPDATE_RATIO_ANOMALY * median]
+        if not affected:
+            continue
+        group = key.split("/", 1)[1]
+        worst = max(v for _, v in affected)
+        findings.append(
+            _finding(
+                "update_ratio_anomaly",
+                "critical" if len(affected) >= 3 else "warning",
+                f"the {group} update-to-param ratio spiked to {worst:.3g} — "
+                f"{worst / median:.0f}x the run median across {len(affected)} window(s)",
+                [w for w, _ in affected],
+                "inspect the lr schedule around those steps and the matching "
+                "grad_norm windows (an unclipped gradient spike shows in both)",
+                group=group,
+                worst=round(worst, 6),
+                median=round(median, 6),
+                windows=len(affected),
+            )
+        )
+    return findings
+
+
+def detect_kl_balance_drift(events: Events) -> List[Finding]:
+    """Dreamer-family latent-dynamics health: the posterior/prior KL collapsing
+    toward zero (posterior collapse — the representation stops carrying
+    information) or exploding (the prior never catches the dynamics), or the
+    posterior/prior entropy balance drifting materially."""
+    windows = _learning_windows(events)
+    series = [(w, v) for w in windows if (v := _learn_stat(w, "kl")) is not None]
+    if len(series) < LEARN_MIN_WINDOWS:
+        return []
+    findings: List[Finding] = []
+    half = len(series) // 2
+    early = _median([v for _, v in series[:half]])
+    late = _median([v for _, v in series[half:]])
+    if early > 0 and late <= KL_COLLAPSE_RATIO * early:
+        findings.append(
+            _finding(
+                "kl_balance_drift",
+                "warning",
+                f"the posterior/prior KL collapsed {early:.3g} → {late:.3g} — the "
+                "posterior is converging onto the prior (representation collapse)",
+                [w for w, _ in series[half:]],
+                "lower kl_regularizer / raise kl_free_nats, and check the "
+                "reconstruction losses — a collapsed KL with flat recon means "
+                "the world model stopped learning",
+                early=round(early, 4),
+                late=round(late, 4),
+                mode="collapse",
+            )
+        )
+    elif early > 0 and late >= KL_EXPLOSION_RATIO * early:
+        findings.append(
+            _finding(
+                "kl_balance_drift",
+                "warning",
+                f"the posterior/prior KL exploded {early:.3g} → {late:.3g} — the "
+                "prior is not tracking the dynamics",
+                [w for w, _ in series[half:]],
+                "check kl_dynamic/kl_representation weighting and the world "
+                "model's learning rate; a grad_explosion finding in the same "
+                "windows points at the same root cause",
+                early=round(early, 4),
+                late=round(late, 4),
+                mode="explosion",
+            )
+        )
+    balance = [(w, v) for w in windows if (v := _learn_stat(w, "kl_balance")) is not None]
+    if len(balance) >= LEARN_MIN_WINDOWS:
+        bhalf = len(balance) // 2
+        b_early = _median([v for _, v in balance[:bhalf]])
+        b_late = _median([v for _, v in balance[bhalf:]])
+        if abs(b_late - b_early) >= KL_BALANCE_DRIFT:
+            findings.append(
+                _finding(
+                    "kl_balance_drift",
+                    "warning",
+                    f"the posterior/prior entropy balance drifted {b_early:.2f} → "
+                    f"{b_late:.2f} — toward "
+                    + ("posterior collapse" if b_late < b_early else "an uninformative prior"),
+                    [w for w, _ in balance[bhalf:]],
+                    "rebalance kl_dynamic vs kl_representation (dv3) or "
+                    "kl_balancing_alpha (dv2); watch post/prior entropies in the "
+                    "learning block",
+                    early=round(b_early, 4),
+                    late=round(b_late, 4),
+                    mode="balance",
+                )
+            )
+    return findings
+
+
+def detect_reward_plateau(events: Events) -> List[Finding]:
+    """Episode returns climbed, then flattened for the rest of the run: the
+    sample-efficiency signal. Advisory (info): a plateau can be the task
+    ceiling — the finding points at the step where improvement stopped so the
+    learning-curve comparison (`compare`) can judge against another run."""
+    returns = _ep_return_series(events)
+    if len(returns) < REWARD_PLATEAU_MIN_WINDOWS:
+        return []
+    values = [r for _, r in returns]
+    third = max(len(values) // 3, 1)
+    early = _median(values[:third])
+    peak = max(values)
+    peak_idx = values.index(peak)
+    mid = _median(values[-2 * third : -third])
+    late = _median(values[-third:])
+    climb = peak - early
+    # the peak is a sample MAX against an early MEDIAN, so pure noise always
+    # shows a small positive "climb" — require a material one (relative to the
+    # curve's own scale) before claiming the run ever improved
+    if climb < REWARD_PLATEAU_MIN_CLIMB * max(abs(peak), 1.0):
+        return []
+    # plateau = the curve climbed, then the final third stopped improving over
+    # the third before it (a still-climbing run has late >> mid and never fires)
+    if (late - mid) > REWARD_PLATEAU_EPS * climb:
+        return []
+    plateau_step = returns[peak_idx][0].get("step")
+    return [
+        _finding(
+            "reward_plateau",
+            "info",
+            f"episode returns climbed {early:.3g} → {peak:.3g} (around step "
+            f"{plateau_step}) then flattened at {late:.3g} for the rest of the run",
+            [w for w, _ in returns[-third:]],
+            "if this is below the task's known ceiling: check entropy_collapse "
+            "(dead exploration) and the replay ratio; `sheeprl.py compare` "
+            "against a healthy run gates the sample-efficiency regression",
+            early=round(early, 4),
+            peak=round(peak, 4),
+            late=round(late, 4),
+            peak_step=plateau_step,
+        )
+    ]
+
+
+def _profile_events(events: Events) -> List[Dict[str, Any]]:
+    """``profile_analysis`` events carrying a usable fractions dict (emitted
+    in-loop when a window capture completes, or synthesized by the ``profile``
+    verb from on-disk captures). Runs that never captured carry none — the
+    three profile detectors below are structural no-ops there."""
+    return [
+        e
+        for e in events
+        if e.get("event") == "profile_analysis"
+        and isinstance(e.get("categories"), dict)
+        and _f(e.get("device_seconds")) >= PROFILE_MIN_DEVICE_SECONDS
+    ]
+
+
+def _worst_profile(events: Events, fraction_of: Callable[[Dict[str, Any]], float]):
+    profiles = _profile_events(events)
+    if not profiles:
+        return None, 0.0
+    worst = max(profiles, key=fraction_of)
+    return worst, fraction_of(worst)
+
+
+def _top_comm_program(profile: Dict[str, Any]) -> str:
+    programs = profile.get("programs") or {}
+    ranked = sorted(
+        ((name, _f(p.get("comm_fraction"))) for name, p in programs.items()),
+        key=lambda kv: -kv[1],
+    )
+    if ranked and ranked[0][1] > 0:
+        return f" (worst program: {ranked[0][0]} at {ranked[0][1]:.0%} comm)"
+    return ""
+
+
+def detect_comm_bound(events: Events) -> List[Finding]:
+    """Collectives dominate a window capture's device time: the program is
+    scaling-bound, not chip-bound — more chips would make it *worse*."""
+    worst, frac = _worst_profile(events, lambda e: _f(e["categories"].get("comm")))
+    if worst is None or frac < PROFILE_COMM_WARNING:
+        return []
+    severity = "critical" if frac >= PROFILE_COMM_CRITICAL else "warning"
+    return [
+        _finding(
+            "comm_bound",
+            severity,
+            f"collective communication is {frac:.0%} of the capture's device time"
+            + _top_comm_program(worst),
+            [worst],
+            "shrink the synced surface (donate + keep state device-resident), "
+            "overlap collectives with compute, or rebalance the mesh axes; "
+            "`sheeprl.py profile` lists the per-program comm shares",
+            comm_fraction=round(frac, 4),
+            capture=worst.get("capture"),
+        )
+    ]
+
+
+def detect_copy_bound(events: Events) -> List[Finding]:
+    """Copy/layout ops dominate the capture: the program moves data instead of
+    computing — usually a layout mismatch or host-visible staging."""
+    worst, frac = _worst_profile(events, lambda e: _f(e["categories"].get("copy")))
+    if worst is None or frac < PROFILE_COPY_WARNING:
+        return []
+    severity = "critical" if frac >= PROFILE_COPY_CRITICAL else "warning"
+    return [
+        _finding(
+            "copy_bound",
+            severity,
+            f"copy/layout ops are {frac:.0%} of the capture's device time",
+            [worst],
+            "look for layout changes at program boundaries (transposes feeding "
+            "donated carries), host-staged batches, or gather/scatter-heavy "
+            "indexing that a reshape of the storage would remove",
+            copy_fraction=round(frac, 4),
+            capture=worst.get("capture"),
+        )
+    ]
+
+
+def detect_host_gap(events: Events) -> List[Finding]:
+    """The device sat idle (or fed by infeed/outfeed) for a large share of the
+    capture: the fused calls are gapped by host work between dispatches."""
+    worst, frac = _worst_profile(
+        events,
+        lambda e: _f(e["categories"].get("idle")) + _f(e["categories"].get("host")),
+    )
+    if worst is None or frac < PROFILE_HOST_GAP_WARNING:
+        return []
+    severity = "critical" if frac >= PROFILE_HOST_GAP_CRITICAL else "warning"
+    return [
+        _finding(
+            "host_gap",
+            severity,
+            f"the device was idle or host-fed for {frac:.0%} of the capture",
+            [worst],
+            "move the loop's host round trips onto the device (fused rollout, "
+            "buffer.backend=device), raise the per-dispatch work "
+            "(algo.rollout_steps / scan length), or prefetch the host inputs",
+            gap_fraction=round(frac, 4),
+            capture=worst.get("capture"),
+        )
+    ]
+
+
+VERSION_REGRESSION_MIN_STEPS = 20  # per-version ticks before the split is judged
+
+
+def detect_version_regression(events: Events) -> List[Finding]:
+    """A hot-reloaded weight version serves WORSE than its predecessor: either
+    the in-loop promotion judge (serve/telemetry.py) already recorded a
+    ``regressed`` verdict, or the cumulative per-version split shows the newest
+    version's latency p50 beyond both versions' own p50→p90 spread."""
+    regressed = [
+        e
+        for e in events
+        if e.get("event") == "promotion" and e.get("verdict") == "regressed"
+    ]
+    if regressed:
+        last = regressed[-1]
+        return [
+            _finding(
+                "version_regression",
+                "warning",
+                f"the in-loop promotion judge marked weight v{last.get('version')} "
+                f"REGRESSED vs v{last.get('baseline')}"
+                + (f": {last.get('reason')}" if last.get("reason") else ""),
+                regressed,
+                "hot-reload the previous checkpoint back (howto/serving.md §hot "
+                "reload) and `sheeprl.py compare` the learner run that published "
+                "it against the last good one",
+                version=last.get("version"),
+                baseline=last.get("baseline"),
+                reason=last.get("reason"),
+            )
+        ]
+    carrier = None
+    for e in reversed(events):
+        if e.get("event") not in ("summary", "window"):
+            continue
+        serve = e.get("serve")
+        versions = serve.get("versions") if isinstance(serve, dict) else None
+        if isinstance(versions, dict) and len(versions) >= 2:
+            carrier = e
+            break
+    if carrier is None:
+        return []
+    versions = carrier["serve"]["versions"]
+    try:
+        order = sorted(versions, key=lambda k: int(k))
+    except (TypeError, ValueError):
+        return []
+    new_key, base_key = order[-1], order[-2]
+    new, base = versions.get(new_key) or {}, versions.get(base_key) or {}
+    if min(_f(new.get("steps")), _f(base.get("steps"))) < VERSION_REGRESSION_MIN_STEPS:
+        return []
+    nl, bl = new.get("latency_ms") or {}, base.get("latency_ms") or {}
+    new_p50, base_p50 = _f(nl.get("p50")), _f(bl.get("p50"))
+    spread = max(_f(nl.get("p90")) - new_p50, 0.0) + max(_f(bl.get("p90")) - base_p50, 0.0)
+    if new_p50 <= 0 or base_p50 <= 0 or new_p50 <= base_p50 + spread:
+        return []
+    return [
+        _finding(
+            "version_regression",
+            "warning",
+            f"weight v{int(new_key)} serves slower than v{int(base_key)}: latency "
+            f"p50 {new_p50:.1f}ms vs {base_p50:.1f}ms — beyond both versions' own "
+            "p50→p90 spread",
+            [carrier],
+            "hot-reload the previous checkpoint back (howto/serving.md §hot "
+            "reload); `sheeprl.py compare` the publishing learner run against "
+            "the last good one for why the new policy got heavier",
+            version=int(new_key),
+            baseline=int(base_key),
+            latency_p50_ms=round(new_p50, 3),
+            baseline_latency_p50_ms=round(base_p50, 3),
+        )
+    ]
+
+
+def detect_slo_alert(events: Events) -> List[Finding]:
+    """SLO alerts still FIRING when the stream ended (obs/alerts.py): the
+    stateful in-loop engine's verdict surfaces as a diagnosis finding, at the
+    objective's own severity, so ``diagnose --fail-on`` gates on burned error
+    budgets like any other defect."""
+    last: Dict[str, Dict[str, Any]] = {}
+    for e in events:
+        if e.get("event") == "alert" and (e.get("name") or e.get("objective")):
+            last[str(e.get("name") or e.get("objective"))] = e
+    findings: List[Finding] = []
+    for name in sorted(last):
+        e = last[name]
+        if e.get("status") != "firing":
+            continue
+        severity = e.get("severity") if e.get("severity") in _SEVERITY_RANK else "warning"
+        value, target = e.get("value"), e.get("target")
+        detail = (
+            f" (value {value:g} vs target {target:g})"
+            if isinstance(value, (int, float)) and isinstance(target, (int, float))
+            else ""
+        )
+        findings.append(
+            _finding(
+                "slo_alert",
+                str(severity),
+                f"the `{name}` SLO alert was still firing when the stream ended"
+                + detail,
+                [e],
+                "`sheeprl.py slo` prints the burn-rate report; the objective's "
+                "signal names the subsystem the other detectors here diagnose",
+                objective=name,
+                value=value,
+                target=target,
+                budget_remaining=e.get("budget_remaining"),
+            )
+        )
+    return findings
+
+
+DETECTORS: Dict[str, Callable[[Events], List[Finding]]] = {
+    "recompile_storm": detect_recompile_storm,
+    "prefetch_starvation": detect_prefetch_starvation,
+    "mfu_collapse": detect_mfu_collapse,
+    "hbm_creep": detect_hbm_creep,
+    "checkpoint_heavy": detect_checkpoint_heavy,
+    "env_instability": detect_env_instability,
+    "interruptions": detect_interruptions,
+    "nonfinite_loss": detect_nonfinite_loss,
+    "unattributed_time": detect_unattributed_time,
+    "occupancy_collapse": detect_occupancy_collapse,
+    "latency_regression": detect_latency_regression,
+    "slot_starvation": detect_slot_starvation,
+    "shed_rate": detect_shed_rate,
+    "deadline_misses": detect_deadline_misses,
+    "reload_stall": detect_reload_stall,
+    "version_regression": detect_version_regression,
+    "slo_alert": detect_slo_alert,
+    "weight_staleness": detect_weight_staleness,
+    "row_age_drift": detect_row_age_drift,
+    "ingest_backpressure": detect_ingest_backpressure,
+    "grad_explosion": detect_grad_explosion,
+    "entropy_collapse": detect_entropy_collapse,
+    "value_overestimation": detect_value_overestimation,
+    "update_ratio_anomaly": detect_update_ratio_anomaly,
+    "kl_balance_drift": detect_kl_balance_drift,
+    "reward_plateau": detect_reward_plateau,
+    "comm_bound": detect_comm_bound,
+    "copy_bound": detect_copy_bound,
+    "host_gap": detect_host_gap,
+}
+
+
+# ---------------------------------------------------------------------------------
+# engine
+# ---------------------------------------------------------------------------------
+def _f(value: Any) -> float:
+    try:
+        return float(value or 0.0)
+    except (TypeError, ValueError):
+        return 0.0
+
+
+def attribution(events: Events) -> Optional[Dict[str, Any]]:
+    """Share of steady-window wall time attributed to named phases. None when no
+    steady window carries a phases breakdown (pre-attribution recordings)."""
+    windows = [w for w in _windows(events) if isinstance(w.get("phases"), dict)]
+    wall = sum(_f(w.get("wall_seconds")) for w in windows)
+    if not windows or wall <= 0:
+        return None
+    named = sum(
+        sum(_f(v) for k, v in w["phases"].items() if k != "other") for w in windows
+    )
+    return {
+        "windows": len(windows),
+        "wall_seconds": round(wall, 3),
+        "named_seconds": round(named, 3),
+        "named_fraction": round(min(named / wall, 1.0), 4),
+    }
+
+
+def run_detectors(
+    events: Events, detectors: Optional[Sequence[str]] = None
+) -> List[Finding]:
+    """Run (a subset of) the catalog over an ordered event stream; findings come
+    back most-severe first. Detectors never raise on malformed/old events —
+    anything they cannot read simply contributes no finding."""
+    findings: List[Finding] = []
+    for name in detectors or DETECTORS:
+        fn = DETECTORS[name]
+        try:
+            findings.extend(fn(events))
+        except Exception:  # a broken detector must not take diagnosis down
+            continue
+    findings.sort(key=lambda f: _SEVERITY_RANK.get(f["severity"], 3))
+    return findings
+
+
+def diagnose_events(events: Events) -> Dict[str, Any]:
+    """The full diagnosis of one ordered event stream (merged or single-file)."""
+    windows = _windows(events, steady=False)
+    summaries = [e for e in events if e.get("event") == "summary"]
+    return {
+        "findings": run_detectors(events),
+        "attribution": attribution(events),
+        "counts": {
+            "events": len(events),
+            "windows": len(windows),
+            "attempts": 1 + max((int(e.get("attempt") or 0) for e in events), default=0),
+            "streams": len({e.get("stream") for e in events if e.get("stream")}),
+            "clean_exit": bool(summaries[-1].get("clean_exit", True)) if summaries else None,
+        },
+    }
+
+
+def diagnose_run(run_dir: str, json_path: Optional[str] = None) -> Dict[str, Any]:
+    """Merge every telemetry stream under ``run_dir`` (obs/streams.py), diagnose,
+    and write ``diagnosis.json`` (to ``json_path``, or into ``run_dir``)."""
+    from sheeprl_tpu_torch.obs.streams import discover_streams, load_stream, merge_streams
+
+    streams = discover_streams(run_dir)
+    if not streams:
+        raise FileNotFoundError(f"no telemetry*.jsonl stream found under {run_dir!r}")
+    base = run_dir if os.path.isdir(run_dir) else os.path.dirname(run_dir)
+    events = merge_streams([load_stream(p, base_dir=base) for p in streams])
+    result = diagnose_events(events)
+    result["run_dir"] = str(run_dir)
+    result["streams"] = [os.path.relpath(p, base) for p in streams]
+    out = json_path or os.path.join(base, "diagnosis.json")
+    with open(out, "w") as fh:
+        json.dump(result, fh, indent=2, sort_keys=False)
+        fh.write("\n")
+    result["json_path"] = out
+    return result
+
+
+def diagnose_fleet(
+    fleet_dir: str, members: Dict[str, str], json_path: Optional[str] = None
+) -> Dict[str, Any]:
+    """Diagnose every member run of a fleet dir as ONE unit: per-member
+    ``diagnose_run`` (each member keeps its own ``diagnosis.json``), plus an
+    aggregate ``diagnosis.json`` at the fleet root whose ``findings`` are the
+    union (member-tagged) — so ``--fail-on`` gates the whole sweep."""
+    member_results: Dict[str, Any] = {}
+    findings: List[Finding] = []
+    for name, member_dir in members.items():
+        try:
+            result = diagnose_run(member_dir)
+        except FileNotFoundError:
+            member_results[name] = {"error": "no telemetry stream"}
+            continue
+        member_results[name] = {
+            k: result.get(k) for k in ("findings", "attribution", "counts", "json_path")
+        }
+        for finding in result.get("findings") or []:
+            findings.append({**finding, "member": name})
+    if all("error" in r for r in member_results.values()):
+        raise FileNotFoundError(
+            f"no telemetry*.jsonl stream found under any member of fleet {fleet_dir!r}"
+        )
+    findings.sort(key=lambda f: _SEVERITY_RANK.get(f["severity"], 3))
+    aggregate = {
+        "fleet": str(fleet_dir),
+        "members": member_results,
+        "findings": findings,
+        "counts": {
+            "members": len(members),
+            "diagnosed": sum(1 for r in member_results.values() if "error" not in r),
+        },
+    }
+    out = json_path or os.path.join(str(fleet_dir), "diagnosis.json")
+    with open(out, "w") as fh:
+        json.dump(aggregate, fh, indent=2, sort_keys=False)
+        fh.write("\n")
+    aggregate["json_path"] = out
+    return aggregate
+
+
+def format_fleet_report(result: Dict[str, Any]) -> str:
+    """Human report for a fleet diagnosis: one block per member."""
+    lines = [f"Fleet telemetry diagnosis — {result.get('fleet')}"]
+    counts = result.get("counts") or {}
+    lines.append(f"  members : {counts.get('diagnosed', 0)}/{counts.get('members', 0)} diagnosed")
+    for name, member in (result.get("members") or {}).items():
+        if "error" in member:
+            lines.append(f"  [{name}] {member['error']}")
+            continue
+        member_findings = member.get("findings") or []
+        att = member.get("attribution") or {}
+        lines.append(
+            f"  [{name}] {len(member_findings)} finding(s)"
+            + (
+                f", {att['named_fraction']:.0%} attributed over {att['windows']} window(s)"
+                if att
+                else ""
+            )
+        )
+        for f in member_findings:
+            lines.append(f"    [{f['severity'].upper()}] {f['detector']}: {f['summary']}")
+    return "\n".join(lines)
+
+
+def format_report(result: Dict[str, Any]) -> str:
+    """Human bottleneck report for one diagnosis result."""
+    lines: List[str] = []
+    counts = result.get("counts") or {}
+    lines.append(f"Telemetry diagnosis — {result.get('run_dir', '<events>')}")
+    streams = result.get("streams")
+    if streams:
+        lines.append(f"  streams : {len(streams)} ({', '.join(streams)})")
+    lines.append(
+        "  events  : "
+        f"{counts.get('events', 0)} across {counts.get('attempts', 1)} attempt(s), "
+        f"{counts.get('windows', 0)} telemetry window(s)"
+    )
+    att = result.get("attribution")
+    if att:
+        lines.append(
+            f"  phases  : {att['named_fraction']:.1%} of {att['wall_seconds']:.1f}s "
+            f"steady wall time attributed to named phases over {att['windows']} window(s)"
+        )
+    findings = result.get("findings") or []
+    if not findings:
+        lines.append("  verdict : no findings — the run looks healthy")
+        return "\n".join(lines)
+    lines.append(f"  verdict : {len(findings)} finding(s)")
+    for f in findings:
+        lines.append("")
+        lines.append(f"[{f['severity'].upper()}] {f['detector']}")
+        lines.append(f"  {f['summary']}")
+        if f.get("evidence"):
+            refs = ", ".join(
+                "#{seq}{step}".format(
+                    seq=r.get("seq"),
+                    step=f" (step {r['step']})" if r.get("step") is not None else "",
+                )
+                for r in f["evidence"][:4]
+            )
+            lines.append(f"  evidence: events {refs}")
+        lines.append(f"  try: {f['suggestion']}")
+    return "\n".join(lines)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    """``python sheeprl.py diagnose <run_dir>`` entry: print the report, write
+    ``diagnosis.json``, exit 0 (or 1 with ``--fail-on`` when findings reach the
+    given severity — the CI/bench gating mode)."""
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        prog="sheeprl.py diagnose",
+        description="Diagnose a run's telemetry.jsonl stream(s): phase attribution, "
+        "bottleneck findings, suggested knobs.",
+    )
+    parser.add_argument("run_dir", help="run directory (searched recursively) or a telemetry*.jsonl file")
+    parser.add_argument("--json", dest="json_path", default=None, help="where to write diagnosis.json")
+    parser.add_argument("--quiet", action="store_true", help="suppress the human report")
+    parser.add_argument(
+        "--fail-on",
+        choices=("warning", "critical"),
+        default=None,
+        help="exit 1 when any finding is at least this severe",
+    )
+    args = parser.parse_args(list(argv) if argv is not None else sys.argv[1:])
+    from sheeprl_tpu_torch.obs.streams import fleet_members
+
+    members = fleet_members(args.run_dir)
+    try:
+        if members:
+            # a fleet dir diagnoses as ONE unit: per-member reports + an
+            # aggregate whose member-tagged findings drive --fail-on
+            result = diagnose_fleet(args.run_dir, members, json_path=args.json_path)
+        else:
+            result = diagnose_run(args.run_dir, json_path=args.json_path)
+    except FileNotFoundError as exc:
+        print(f"diagnose: {exc}", file=sys.stderr)
+        return 2
+    if not args.quiet:
+        print(format_fleet_report(result) if members else format_report(result))
+        print(f"\nwrote {result['json_path']}")
+    if args.fail_on:
+        gate = _SEVERITY_RANK[args.fail_on]
+        if any(_SEVERITY_RANK.get(f["severity"], 3) <= gate for f in result["findings"]):
+            return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,191 @@
+"""Structured JSONL event sink: one JSON object per line, flushed per event.
+
+Copy of ``sheeprl_tpu/obs/jsonl.py`` kept by the port (which imports
+nothing of the JAX package); its events keep the JAX package's names and
+``SCHEMA_VERSION``, so either package's offline verbs read the other's streams.
+
+``telemetry.jsonl`` is the machine-readable face of the run telemetry: window
+events (sps / mfu / hbm / compile / prefetch gauges), health events from the
+loss-finiteness guard, one program event per introspected compiled program, and
+a final summary event. ``bench.py`` reads the summary back into
+``conditions.telemetry`` without re-measuring, and offline tooling can tail the
+file on a live run.
+
+Stream identity: every event carries ``rank`` (the writing process's position in
+the launch topology), ``attempt`` (supervisor restart counter, 0 for the first
+launch) and a monotonic ``seq``. ``seq`` counters are shared per *path* within a
+process, so the several writers that can append to one file (the run telemetry,
+the resilience monitor's lazy sink, the supervisor across attempts) produce one
+monotonic sequence — the ordering key ``obs/streams.py`` merges on. Old streams
+without these fields still parse; readers default them (see
+:func:`sheeprl_tpu_torch.obs.streams.load_stream`).
+
+Durability contract (what live followers may rely on):
+
+- every event is serialized to ONE line and handed to the OS in ONE
+  ``write()`` call, immediately followed by ``flush()`` — the sink is opened
+  line-buffered and never holds an event in a userspace buffer between
+  ``emit()`` calls. A same-host reader polling the file (``tail -F``,
+  ``obs/streams.py`` follow mode, ``watch``) therefore sees every event as soon
+  as ``emit()`` returns; it can never starve behind an OS-buffered writer.
+- a reader may still observe a *torn tail*: the prefix of the final line of a
+  write that is in flight (or that died mid-``write()``). Torn tails are always
+  a strict prefix of one event — never interleaved fragments of two events,
+  because appends of up-to-PIPE_BUF-sized single ``write()`` calls do not
+  interleave on POSIX filesystems. Readers must treat an unparseable final
+  line as "retry later", not as corruption (:func:`read_events` and the stream
+  follower do).
+- ``fsync`` is deliberately NOT issued per event: the contract covers readers
+  on the same host (the watch/diagnose/bench consumers), not crash-consistency
+  of the last event across a machine power loss.
+- if a writer died mid-line and a LATER writer (a supervisor restart attempt)
+  appended to the same file, the torn fragment and the next event share one
+  line; :func:`parse_stream_line` recovers the trailing complete event instead
+  of dropping both.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from typing import Any, Dict, List, Optional
+
+# per-path monotonic sequence counters, shared by every sink of this process that
+# appends to the same file (keyed by absolute path; distinct processes write
+# distinct per-role files, so cross-process sharing is not needed)
+_SEQ_LOCK = threading.Lock()
+_SEQ: Dict[str, int] = {}
+
+
+def _next_seq(path: str) -> int:
+    with _SEQ_LOCK:
+        n = _SEQ.get(path, 0)
+        _SEQ[path] = n + 1
+        return n
+
+
+def _jsonable(value: Any) -> Any:
+    """Best-effort conversion: numpy scalars/arrays and other non-JSON leaves
+    become plain Python values (or ``repr`` as a last resort)."""
+    if value is None or isinstance(value, (bool, int, float, str)):
+        return value
+    if isinstance(value, dict):
+        return {str(k): _jsonable(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [_jsonable(v) for v in value]
+    item = getattr(value, "item", None)
+    if callable(item):
+        try:
+            return _jsonable(item())
+        except Exception:
+            pass
+    tolist = getattr(value, "tolist", None)
+    if callable(tolist):
+        try:
+            return _jsonable(tolist())
+        except Exception:
+            pass
+    return repr(value)
+
+
+class JsonlEventSink:
+    """Append-mode JSONL writer. Every event gets ``event`` (type), ``step``, a
+    wall-clock ``time`` stamp and the stream identity triple
+    (``rank``/``attempt``/``seq``); the rest of the payload is passed through
+    :func:`_jsonable`. Lines are flushed as written so a crashed or abandoned run
+    still leaves a readable stream."""
+
+    def __init__(self, path: str, *, rank: int = 0, attempt: int = 0) -> None:
+        self.path = str(path)
+        self.rank = int(rank)
+        self.attempt = int(attempt)
+        self._seq_key = os.path.abspath(self.path)
+        parent = os.path.dirname(self.path)
+        if parent:
+            os.makedirs(parent, exist_ok=True)
+        self._fh = open(self.path, "a", buffering=1)
+
+    def emit(self, event: str, step: Optional[int] = None, **fields: Any) -> None:
+        if self._fh is None:
+            return
+        payload: Dict[str, Any] = {
+            "event": str(event),
+            "time": round(time.time(), 3),
+            "rank": self.rank,
+            "attempt": self.attempt,
+            "seq": _next_seq(self._seq_key),
+        }
+        if step is not None:
+            payload["step"] = int(step)
+        # explicit fields override the identity defaults (the supervisor stamps
+        # the per-attempt counter on its own restart/giveup events this way)
+        for k, v in fields.items():
+            payload[k] = _jsonable(v)
+        self._fh.write(json.dumps(payload) + "\n")
+        self._fh.flush()
+
+    def close(self) -> None:
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None
+
+
+def parse_stream_line(line: str) -> List[Dict[str, Any]]:
+    """Parse one stream line into its event dict(s), tolerating torn writes.
+
+    The crash-window shape this recovers: a writer died mid-line and a later
+    writer of the same file — a supervisor restart attempt — appended its next
+    event, so one physical line now reads ``{"event": "wind{"event":
+    "restart", ...}`` (torn fragment + event) or ``{"event": "summary",
+    ...}{"event": "restart", ...}`` (the fragment was a COMPLETE event whose
+    only missing byte was the newline — the dying attempt's summary, exactly
+    the event ``watch``'s exit protocol needs). A plain ``json.loads`` drops
+    everything; here every complete event on the line is recovered with
+    ``raw_decode`` from each ``{"`` boundary. Recovered objects must carry an
+    ``event`` key — that is what tells a real event apart from a *nested*
+    object inside a torn fragment (``"compile": {"count": 3}``), which is
+    skipped while the scan continues behind it. A line with no complete event
+    (a plain torn tail) yields ``[]`` — the follow-mode reader keeps such a
+    tail buffered and retries on the next poll.
+    """
+    line = line.strip()
+    if not line:
+        return []
+    try:
+        obj = json.loads(line)
+        return [obj] if isinstance(obj, dict) else []
+    except json.JSONDecodeError:
+        pass
+    decoder = json.JSONDecoder()
+    events: List[Dict[str, Any]] = []
+    pos = 0
+    while True:
+        start = line.find('{"', pos)
+        if start < 0:
+            return events
+        try:
+            obj, end = decoder.raw_decode(line, start)
+        except json.JSONDecodeError:
+            pos = start + 1
+            continue
+        if isinstance(obj, dict) and "event" in obj:
+            events.append(obj)
+            pos = end
+        else:
+            # a nested object inside a torn fragment: scan on INSIDE it — the
+            # real appended event may start anywhere behind this false match
+            pos = start + 1
+
+
+def read_events(path: str) -> List[Dict[str, Any]]:
+    """Parse a telemetry JSONL file back into a list of event dicts. Torn lines
+    never poison the read: a trailing in-flight line is skipped (the follow-mode
+    reader retries it instead), and an event appended after a crashed writer's
+    torn fragment is recovered (see :func:`parse_stream_line`)."""
+    events: List[Dict[str, Any]] = []
+    with open(path) as fh:
+        for line in fh:
+            events.extend(parse_stream_line(line))
+    return events

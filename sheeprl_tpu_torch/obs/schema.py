@@ -1,0 +1,362 @@
+"""Versioned schema for the ``telemetry.jsonl`` event stream.
+
+Copy of ``sheeprl_tpu/obs/schema.py`` kept by the port (which imports
+nothing of the JAX package); its events keep the JAX package's names and
+``SCHEMA_VERSION``, so either package's offline verbs read the other's streams.
+
+The stream has many producers (``RunTelemetry``, ``ServingTelemetry``, the
+resilience monitor/supervisors, the experience-service roles, the fleet
+runner) and many consumers (``diagnose``, ``watch``, ``compare``, ``trace``,
+``bench.py``) — and the consumers deliberately parse with defaults, so a
+producer-side field rename would not crash anything; it would silently turn a
+detector into a no-op. This module makes that drift FAIL LOUDLY instead: every
+event type has a declared field table, CI validates the recorded fixtures
+(``tests/data/recorded_run*``) and the live-smoke outputs against it, and a
+producer adding/renaming a field must update the table (and, for a breaking
+change, bump :data:`SCHEMA_VERSION`) in the same commit.
+
+Validation policy, by event family:
+
+- **core telemetry events** (``start`` / ``window`` / ``summary`` /
+  ``profiler``) are validated STRICTLY: every field must be declared with a
+  matching type, unknown fields are errors. These are the events the consumer
+  stack keys on.
+- **open events** (``program`` / ``health`` / ``service`` and the resilience /
+  fleet lifecycle events) validate their declared fields' types but tolerate
+  extras — their payloads are deliberately extensible (a fault event carries
+  whatever its fault kind needs).
+- **identity fields** (``rank`` / ``attempt`` / ``seq`` / ``time``) are
+  optional everywhere: pre-identity recordings (the oldest fixtures) must keep
+  validating, exactly as the stream readers keep parsing them.
+
+``start`` events stamp ``schema`` = :data:`SCHEMA_VERSION`; a stream stamped
+NEWER than this reader fails validation (the reader is too old to judge it).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+
+__all__ = [
+    "SCHEMA_VERSION",
+    "validate_event",
+    "validate_events",
+    "validate_stream",
+]
+
+# bump on a BREAKING change to a core event's shape (a rename, a type change, a
+# removed field); adding an optional field is compatible — declare it below.
+SCHEMA_VERSION = 1
+
+_NUM = (int, float)
+_STR = (str,)
+_BOOL = (bool,)
+_INT = (int,)
+_DICT = (dict,)
+_LIST = (list,)
+
+# field tables: name -> (allowed python types, required). ``None`` is accepted
+# for every non-required field (producers emit explicit nulls: mfu on CPU,
+# fingerprint when hashing failed, prefetch before attach_sampler).
+_IDENTITY: Dict[str, Tuple[tuple, bool]] = {
+    "event": (_STR, True),
+    "time": (_NUM, False),
+    "rank": (_INT, False),
+    "attempt": (_INT, False),
+    "seq": (_INT, False),
+    "stream": (_STR, False),  # reader-side annotation (obs/streams.py)
+}
+
+_START: Dict[str, Tuple[tuple, bool]] = {
+    "schema": (_INT, False),
+    "platform": (_STR, False),
+    "device_kind": (_STR, False),
+    "world_size": (_INT, False),
+    "peak_flops": (_NUM, False),
+    "every": (_INT, False),
+    "compile_warmup_steps": (_INT, False),
+    "profiler": (_DICT, False),
+    "fingerprint": (_DICT, False),
+    "serve": (_DICT, False),  # serving runs (sheeprl_tpu/serve/telemetry.py)
+}
+
+_WINDOW: Dict[str, Tuple[tuple, bool]] = {
+    "step": (_INT, True),
+    "window": (_INT, True),
+    "final": (_BOOL, False),
+    "steps": (_INT, False),
+    "wall_seconds": (_NUM, True),
+    "sps": (_NUM, False),
+    "train_units": (_INT, False),
+    "train_seconds": (_NUM, False),
+    "env_seconds": (_NUM, False),
+    "phases": (_DICT, False),
+    "mfu": (_NUM, False),
+    "hbm": (_DICT, False),
+    "rss_bytes": (_INT, False),
+    "rss_peak_bytes": (_INT, False),
+    "compile": (_DICT, False),
+    "prefetch": (_DICT, False),
+    "dataflow": (_DICT, False),  # experience-plane lineage (data/service.py)
+    "serve": (_DICT, False),
+    # training-health block (utils/learn_stats.py → RunTelemetry.observe_learn):
+    # {rounds, stats: {grad_norm/<g>, entropy, td_error_p50, ...},
+    #  episodes: {count, return_mean, return_p10/p50/p90, len_mean}, nonfinite}
+    "learning": (_DICT, False),
+    # SLO error-budget block (obs/slo.py): {worst: {objective, budget_remaining},
+    # objectives: {<name>: {value, target, budget_remaining, burn_fast/slow}}}
+    "slo": (_DICT, False),
+}
+
+_SUMMARY: Dict[str, Tuple[tuple, bool]] = {
+    "step": (_INT, False),
+    "clean_exit": (_BOOL, True),
+    "windows": (_INT, False),
+    "total_steps": (_INT, False),
+    "wall_seconds": (_NUM, False),
+    "sps": (_NUM, False),
+    "train_units": (_INT, False),
+    "train_seconds": (_NUM, False),
+    "phases": (_DICT, False),
+    "attributed_fraction": (_NUM, False),
+    "mfu": (_NUM, False),
+    "compile": (_DICT, False),
+    "hbm_peak_bytes": (_INT, False),
+    "rss_peak_bytes": (_INT, False),
+    "prefetch": (_DICT, False),
+    "env_restarts": (_INT, False),
+    "health": (_STR, False),
+    "dataflow": (_DICT, False),
+    "learning": (_DICT, False),  # run-level learning rollup (+ last window)
+    "programs": (_DICT, False),
+    "serve": (_DICT, False),
+    "slo": (_DICT, False),  # final error-budget accounting (obs/slo.py)
+}
+
+_PROFILER: Dict[str, Tuple[tuple, bool]] = {
+    "step": (_INT, False),
+    "action": (_STR, True),
+    "dir": (_STR, False),
+    "covered_steps": (_INT, False),
+    "truncated": (_BOOL, False),
+}
+
+# open events: declared fields are type-checked, extras tolerated
+_HEALTH: Dict[str, Tuple[tuple, bool]] = {
+    "step": (_INT, False),
+    "status": (_STR, True),
+    "findings": (_LIST, False),
+    "nonfinite": (_LIST, False),
+    "restarts": (_INT, False),
+    "total": (_INT, False),
+}
+
+_PROGRAM: Dict[str, Tuple[tuple, bool]] = {
+    "name": (_STR, True),
+    "units": (_INT, False),
+    "error": (_STR, False),
+    "flops": (_NUM, False),
+    "flops_per_unit": (_NUM, False),
+}
+
+_SERVICE: Dict[str, Tuple[tuple, bool]] = {
+    "step": (_INT, False),
+    "role": (_STR, True),
+    "rows": (_INT, False),
+    "rows_per_actor": (_DICT, False),
+    "messages": (_INT, False),
+    "bytes": (_INT, False),
+    "gradient_steps": (_INT, False),
+    "weight_version": (_INT, False),
+    "queue_depth_mean": (_NUM, False),
+    "queue_depth_max": (_INT, False),
+    "eos": (_LIST, False),
+}
+
+# resilience / fleet lifecycle events: payloads are fault/topology specific by
+# design; only their discriminators are pinned
+# op-level attribution of one completed profiler window capture (obs/xprof.py):
+# category fractions (comm/mxu/elementwise/copy/loop/host/idle, tiling to 1.0)
+# plus per-registered-program roofline verdicts
+_PROFILE_ANALYSIS: Dict[str, Tuple[tuple, bool]] = {
+    "step": (_INT, False),
+    "capture": (_STR, False),
+    "device_seconds": (_NUM, True),
+    "busy_seconds": (_NUM, False),
+    "categories": (_DICT, True),
+    "programs": (_DICT, False),
+}
+
+_OPEN_EVENTS: Dict[str, Dict[str, Tuple[tuple, bool]]] = {
+    "health": _HEALTH,
+    "program": _PROGRAM,
+    "profile_analysis": _PROFILE_ANALYSIS,
+    "service": _SERVICE,
+    "preempt": {},
+    "preempt_exit": {},
+    "fault": {"kind": (_STR, False)},
+    # serving robustness plane (sheeprl_tpu/serve): hot-reload lifecycle
+    # (applied/rejected with the version bookkeeping) and graceful-drain
+    # lifecycle (begin/end with shed/aborted accounting)
+    "reload": {
+        "status": (_STR, True),
+        "version": (_INT, False),
+        "available": (_INT, False),
+        "reloads": (_INT, False),
+        "reason": (_STR, False),
+        "source": (_STR, False),
+    },
+    "drain": {
+        "status": (_STR, True),
+        "shed": (_INT, False),
+        "aborted": (_INT, False),
+        "grace_s": (_NUM, False),
+    },
+    # the live flywheel (sheeprl_tpu/live): gang lifecycle on the supervisor
+    # stream (start/shutdown with the role topology and ingest totals) and the
+    # serve roles' trajectory-ingest accounting (captured/ingested/dropped —
+    # dropped is the bounded queue's explicit shed-don't-stall overflow policy)
+    "live": {
+        "status": (_STR, True),
+        "servers": (_INT, False),
+        "sessions": (_INT, False),
+        "reloads": (_INT, False),
+        "error": (_STR, False),
+    },
+    "ingest": {
+        "role": (_STR, False),
+        "rank": (_INT, False),
+        "trajectories_captured": (_INT, False),
+        "trajectories_ingested": (_INT, False),
+        "trajectories_dropped": (_INT, False),
+        "trajectory_rows": (_INT, False),
+        "queue_depth": (_INT, False),
+        "rows": (_INT, False),
+        "messages": (_INT, False),
+        "weight_version": (_INT, False),
+    },
+    # SLO/alerting plane (obs/slo.py + obs/alerts.py): the stateful alert
+    # lifecycle (pending/firing/resolved with burn-rate evidence) and the
+    # per-weight-version promotion verdict the canary router gates on — emitted
+    # once a hot-reloaded version accumulates enough post-swap samples to judge
+    # against its predecessor (sheeprl_tpu/serve/telemetry.py)
+    "alert": {
+        "status": (_STR, True),
+        "name": (_STR, False),
+        "objective": (_STR, False),
+        "severity": (_STR, False),
+        "value": (_NUM, False),
+        "target": (_NUM, False),
+        "budget_remaining": (_NUM, False),
+        "burn_fast": (_NUM, False),
+        "burn_slow": (_NUM, False),
+        "for_windows": (_INT, False),
+    },
+    "promotion": {
+        "status": (_STR, True),
+        "verdict": (_STR, False),
+        "version": (_INT, False),
+        "baseline": (_INT, False),
+        "samples": (_INT, False),
+        "latency_p50_ms": (_NUM, False),
+        "baseline_latency_p50_ms": (_NUM, False),
+        "latency_spread_ms": (_NUM, False),
+        "return_mean": (_NUM, False),
+        "baseline_return_mean": (_NUM, False),
+        "return_spread": (_NUM, False),
+        "reason": (_STR, False),
+    },
+    "checkpoint": {},
+    "restart": {"reason": (_STR, False)},
+    "resume": {},
+    "giveup": {},
+    "supervisor": {},
+    "gang": {"status": (_STR, False)},
+    "member": {"status": (_STR, False)},
+    "fleet": {"status": (_STR, False)},
+    "resilience": {},
+}
+
+_STRICT_EVENTS: Dict[str, Dict[str, Tuple[tuple, bool]]] = {
+    "start": _START,
+    "window": _WINDOW,
+    "summary": _SUMMARY,
+    "profiler": _PROFILER,
+}
+
+
+def _check_fields(
+    event: Mapping[str, Any],
+    table: Mapping[str, Tuple[tuple, bool]],
+    *,
+    strict: bool,
+    where: str,
+) -> List[str]:
+    errors: List[str] = []
+    known = {**_IDENTITY, **table}
+    for name, (types, required) in known.items():
+        if name not in event:
+            if required:
+                errors.append(f"{where}: missing required field {name!r}")
+            continue
+        value = event[name]
+        if value is None:
+            if required:
+                errors.append(f"{where}: required field {name!r} is null")
+            continue
+        # bool is an int subclass: only accept it where bools are declared
+        if isinstance(value, bool) and _BOOL != types:
+            errors.append(f"{where}: field {name!r} is bool, expected {types}")
+        elif not isinstance(value, types):
+            errors.append(
+                f"{where}: field {name!r} is {type(value).__name__}, "
+                f"expected {'/'.join(t.__name__ for t in types)}"
+            )
+    if strict:
+        for name in event:
+            if name not in known:
+                errors.append(
+                    f"{where}: undeclared field {name!r} on a strict event type — "
+                    "declare it in obs/schema.py (and bump SCHEMA_VERSION if breaking)"
+                )
+    return errors
+
+
+def validate_event(event: Mapping[str, Any]) -> List[str]:
+    """Errors for one parsed event (empty list = valid)."""
+    kind = event.get("event")
+    if not isinstance(kind, str):
+        return [f"event without a string 'event' discriminator: {str(event)[:120]}"]
+    where = f"{kind}#{event.get('seq', '?')}"
+    stamped = event.get("schema")
+    if isinstance(stamped, int) and stamped > SCHEMA_VERSION:
+        return [
+            f"{where}: stream schema v{stamped} is newer than this reader's "
+            f"v{SCHEMA_VERSION} — upgrade before judging it"
+        ]
+    if kind in _STRICT_EVENTS:
+        return _check_fields(event, _STRICT_EVENTS[kind], strict=True, where=where)
+    if kind in _OPEN_EVENTS:
+        return _check_fields(event, _OPEN_EVENTS[kind], strict=False, where=where)
+    return [
+        f"{where}: unknown event type {kind!r} — a new producer must register its "
+        "event in obs/schema.py so consumers cannot silently ignore it"
+    ]
+
+
+def validate_events(events: Sequence[Mapping[str, Any]]) -> List[str]:
+    errors: List[str] = []
+    for event in events:
+        errors.extend(validate_event(event))
+    return errors
+
+
+def validate_stream(path: str, base_dir: Optional[str] = None) -> List[str]:
+    """Validate one ``telemetry*.jsonl`` file (torn-line tolerant, like every
+    other reader); returns the error list, prefixed with the stream label."""
+    import os
+
+    from sheeprl_tpu_torch.obs.jsonl import read_events
+
+    label = os.path.relpath(path, base_dir) if base_dir else path
+    return [f"{label}: {err}" for err in validate_events(read_events(path))]

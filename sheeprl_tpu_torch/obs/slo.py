@@ -1,0 +1,665 @@
+"""SLO spec + error-budget accounting over telemetry windows.
+
+Copy of ``sheeprl_tpu/obs/slo.py`` kept by the port (which imports
+nothing of the JAX package); its events keep the JAX package's names and
+``SCHEMA_VERSION``, so either package's offline verbs read the other's streams.
+
+Every observability tier so far is retrospective — ``diagnose`` explains a run
+after the fact, ``compare`` judges it against a baseline. This module is the
+*prospective* layer: operators DECLARE objectives over the stats the telemetry
+windows already carry, and a burn-rate evaluator turns each window into budget
+accounting the moment it is emitted — the same math in-loop (``ServingTelemetry``
+/ ``RunTelemetry`` feed their own windows at window cadence) and offline
+(``python sheeprl.py slo <run_dir>`` replays the recorded/merged stream), so CI
+verdicts and live alerts cannot drift.
+
+The spec
+--------
+An *objective* names a signal extracted from each window, a target with a
+direction (``le``: value must stay at or below target — latency, staleness;
+``ge``: value must stay at or above — availability, step rate), a compliance
+``window`` measured in telemetry windows, and an error ``budget``: the fraction
+of windows inside the compliance window allowed to breach the target. The
+built-in catalog (:data:`OBJECTIVE_CATALOG`) covers the planes the windows
+carry:
+
+==================  =============================================  ====
+serving_latency_p99 ``serve.latency_ms.p99`` ≤ target ms            le
+availability        ``1 - serve.shed_rate`` ≥ target                ge
+weight_staleness    actor ``dataflow.weight_lag`` (fallback:        le
+                    ``serve.weights.available - version``) ≤ N
+deadline_miss       ``serve.deadline_missed / steps`` ≤ fraction    le
+step_rate           window ``sps`` ≥ floor                          ge
+mfu                 window ``mfu`` ≥ floor                          ge
+episode_return      ``learning.episodes.return_mean`` (fallback:    ge
+                    ``serve.returns.mean``) ≥ floor
+==================  =============================================  ====
+
+Serving objectives carry usable defaults; training floors (step_rate / mfu /
+episode_return) default to ``target: null`` = disabled, because a universal
+floor for those is meaningless — declare them per experiment via the
+``metric.telemetry.slo.objectives`` config group or a per-run ``slo.yaml``
+dropped into the run dir (the highest-precedence override, read at load time).
+
+Burn rates
+----------
+Budget consumed is the breach fraction over the compliance window divided by
+the budget; 1.0 = the budget is exactly spent. Two burn rates are derived the
+multi-window way (fast window = ``max(window // 6, 1)`` most recent telemetry
+windows, slow = the full compliance window): an alert condition requires BOTH
+to burn ≥ 1 — the fast window catches an active breach quickly, the slow
+window keeps a brief blip from paging (it ages out before the slow rate
+reaches 1). Windows that do not carry an objective's signal (a training stream
+has no ``serve`` block) contribute nothing — every objective is a structural
+no-op on streams without its plane.
+
+The stateful pending → firing → resolved lifecycle on top of these snapshots
+lives in ``obs/alerts.py``; this module stays pure accounting.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import sys
+from collections import deque
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
+
+__all__ = [
+    "OBJECTIVE_CATALOG",
+    "Objective",
+    "SloEvaluator",
+    "evaluate_events",
+    "load_objectives",
+    "main",
+    "slo_events",
+    "slo_run",
+]
+
+_SEVERITY_RANK = {"critical": 0, "warning": 1, "info": 2}
+
+# fast burn window = compliance window // FAST_DIVISOR (min 1 telemetry window)
+FAST_DIVISOR = 6
+
+
+def _f(value: Any) -> Optional[float]:
+    try:
+        if value is None:
+            return None
+        out = float(value)
+    except (TypeError, ValueError):
+        return None
+    return out if math.isfinite(out) else None
+
+
+# ---------------------------------------------------------------------------------
+# signal extractors: window event -> Optional[float]
+# ---------------------------------------------------------------------------------
+def _sig_latency_p99(window: Mapping[str, Any]) -> Optional[float]:
+    serve = window.get("serve")
+    if not isinstance(serve, dict):
+        return None
+    return _f((serve.get("latency_ms") or {}).get("p99"))
+
+
+def _sig_availability(window: Mapping[str, Any]) -> Optional[float]:
+    serve = window.get("serve")
+    if not isinstance(serve, dict):
+        return None
+    shed = _f(serve.get("shed_rate"))
+    return None if shed is None else 1.0 - shed
+
+
+def _sig_weight_staleness(window: Mapping[str, Any]) -> Optional[float]:
+    # the actor-side dataflow lag is the honest signal (peek_latest keeps it
+    # fresh even when the reloader is absent); a bare serve stream without a
+    # dataflow provider still exposes available - serving version
+    dataflow = window.get("dataflow")
+    if isinstance(dataflow, dict):
+        lag = dataflow.get("weight_lag")
+        if isinstance(lag, dict):  # learner view: per-actor lags
+            return _f(lag.get("max"))
+        value = _f(lag)
+        if value is not None:
+            return value
+    serve = window.get("serve")
+    if isinstance(serve, dict):
+        weights = serve.get("weights") or {}
+        version = _f(weights.get("version"))
+        available = _f(weights.get("available"))
+        if version is not None and available is not None:
+            return max(available - version, 0.0)
+    return None
+
+
+def _sig_deadline_miss(window: Mapping[str, Any]) -> Optional[float]:
+    serve = window.get("serve")
+    if not isinstance(serve, dict):
+        return None
+    missed = _f(serve.get("deadline_missed"))
+    steps = _f(window.get("steps"))
+    if missed is None or steps is None:
+        return None
+    return missed / max(steps + missed, 1.0)
+
+
+def _sig_step_rate(window: Mapping[str, Any]) -> Optional[float]:
+    return _f(window.get("sps"))
+
+
+def _sig_mfu(window: Mapping[str, Any]) -> Optional[float]:
+    return _f(window.get("mfu"))
+
+
+def _sig_episode_return(window: Mapping[str, Any]) -> Optional[float]:
+    learning = window.get("learning")
+    if isinstance(learning, dict):
+        value = _f((learning.get("episodes") or {}).get("return_mean"))
+        if value is not None:
+            return value
+    serve = window.get("serve")
+    if isinstance(serve, dict):
+        return _f((serve.get("returns") or {}).get("mean"))
+    return None
+
+
+# name -> (extractor, kind, unit, defaults). ``target: None`` = disabled until
+# configured; serving objectives ship enabled because their planes carry
+# universal meaning (a latency SLO needs a number, but 250 ms is a sane one for
+# a continuous-batching policy server; override per deployment).
+OBJECTIVE_CATALOG: Dict[str, Dict[str, Any]] = {
+    "serving_latency_p99": {
+        "signal": _sig_latency_p99,
+        "kind": "le",
+        "unit": "ms",
+        "defaults": {"target": 250.0, "budget": 0.05, "window": 24, "for": 2, "severity": "warning"},
+    },
+    "availability": {
+        "signal": _sig_availability,
+        "kind": "ge",
+        "unit": "fraction",
+        "defaults": {"target": 0.99, "budget": 0.05, "window": 24, "for": 2, "severity": "critical"},
+    },
+    "weight_staleness": {
+        "signal": _sig_weight_staleness,
+        "kind": "le",
+        "unit": "versions",
+        "defaults": {"target": 2.0, "budget": 0.25, "window": 12, "for": 2, "severity": "warning"},
+    },
+    "deadline_miss": {
+        "signal": _sig_deadline_miss,
+        "kind": "le",
+        "unit": "fraction",
+        "defaults": {"target": 0.01, "budget": 0.1, "window": 24, "for": 2, "severity": "warning"},
+    },
+    "step_rate": {
+        "signal": _sig_step_rate,
+        "kind": "ge",
+        "unit": "steps/s",
+        "defaults": {"target": None, "budget": 0.1, "window": 24, "for": 3, "severity": "warning"},
+    },
+    "mfu": {
+        "signal": _sig_mfu,
+        "kind": "ge",
+        "unit": "fraction",
+        "defaults": {"target": None, "budget": 0.1, "window": 24, "for": 3, "severity": "warning"},
+    },
+    "episode_return": {
+        "signal": _sig_episode_return,
+        "kind": "ge",
+        "unit": "return",
+        "defaults": {"target": None, "budget": 0.25, "window": 24, "for": 3, "severity": "warning"},
+    },
+}
+
+
+class Objective:
+    """One declared objective: a signal, a target with a direction, an error
+    budget over a compliance window, and the alert hysteresis/severity the
+    engine in ``obs/alerts.py`` consumes."""
+
+    def __init__(
+        self,
+        name: str,
+        *,
+        signal: Callable[[Mapping[str, Any]], Optional[float]],
+        kind: str,
+        target: float,
+        budget: float,
+        window: int,
+        for_windows: int = 2,
+        severity: str = "warning",
+        unit: str = "",
+    ) -> None:
+        if kind not in ("le", "ge"):
+            raise ValueError(f"objective {name!r}: kind must be 'le' or 'ge', got {kind!r}")
+        self.name = str(name)
+        self.signal = signal
+        self.kind = kind
+        self.target = float(target)
+        self.budget = min(max(float(budget), 1e-6), 1.0)
+        self.window = max(int(window), 1)
+        self.for_windows = max(int(for_windows), 1)
+        self.severity = severity if severity in _SEVERITY_RANK else "warning"
+        self.unit = str(unit)
+
+    def breached(self, value: float) -> bool:
+        return value > self.target if self.kind == "le" else value < self.target
+
+
+def load_objectives(
+    slo_cfg: Optional[Mapping[str, Any]] = None,
+    run_dir: Optional[str] = None,
+) -> List[Objective]:
+    """Resolve the active objective set: catalog defaults, overlaid by the
+    ``metric.telemetry.slo.objectives`` config group, overlaid by a per-run
+    ``slo.yaml`` dropped into ``run_dir`` (the operator's highest-precedence
+    override — edit the file, rerun ``sheeprl.py slo``, no retrain). Objectives
+    whose resolved ``target`` is None are disabled; unknown names are ignored
+    (a forward-compat spec must not take the evaluator down)."""
+    cfg = dict(slo_cfg or {})
+    if not bool(cfg.get("enabled", True)):
+        return []
+    overrides: Dict[str, Any] = {}
+    raw = cfg.get("objectives")
+    if isinstance(raw, Mapping):
+        for name, spec in raw.items():
+            if isinstance(spec, Mapping):
+                overrides[str(name)] = dict(spec)
+    override_path = cfg.get("path")
+    candidates = []
+    if run_dir and os.path.isdir(str(run_dir)):
+        candidates.append(os.path.join(str(run_dir), "slo.yaml"))
+    if override_path:
+        candidates.insert(0, str(override_path))
+    for path in candidates:
+        if not os.path.isfile(path):
+            continue
+        try:
+            import yaml
+
+            with open(path) as fh:
+                loaded = yaml.safe_load(fh) or {}
+        except Exception:
+            continue
+        spec = loaded.get("objectives") if isinstance(loaded, Mapping) else None
+        if isinstance(spec, Mapping):
+            for name, entry in spec.items():
+                if isinstance(entry, Mapping):
+                    overrides.setdefault(str(name), {}).update(dict(entry))
+        break  # first readable override wins (explicit path beats run-dir file)
+    objectives: List[Objective] = []
+    for name, meta in OBJECTIVE_CATALOG.items():
+        spec = {**meta["defaults"], **overrides.get(name, {})}
+        target = _f(spec.get("target"))
+        if target is None:
+            continue
+        objectives.append(
+            Objective(
+                name,
+                signal=meta["signal"],
+                kind=meta["kind"],
+                unit=meta["unit"],
+                target=target,
+                budget=_f(spec.get("budget")) or meta["defaults"]["budget"],
+                window=int(spec.get("window") or meta["defaults"]["window"]),
+                for_windows=int(spec.get("for") or meta["defaults"]["for"]),
+                severity=str(spec.get("severity") or meta["defaults"]["severity"]),
+            )
+        )
+    return objectives
+
+
+class SloEvaluator:
+    """Feed window events in stream order; read budget accounting back out.
+
+    Per objective a bounded deque of (breached, value) pairs — one entry per
+    window that carried the signal — yields the slow (full compliance window)
+    and fast (``window // 6``) breach fractions, each divided by the budget to
+    a burn rate. Pure and deterministic: replaying a recorded stream offline
+    reproduces exactly the accounting the in-loop evaluator computed live.
+    """
+
+    def __init__(self, objectives: Sequence[Objective]) -> None:
+        self.objectives = list(objectives)
+        self._samples: Dict[str, deque] = {
+            o.name: deque(maxlen=o.window) for o in self.objectives
+        }
+
+    def __bool__(self) -> bool:
+        return bool(self.objectives)
+
+    def observe_window(self, window: Mapping[str, Any]) -> None:
+        for objective in self.objectives:
+            value = objective.signal(window)
+            if value is None:
+                continue
+            self._samples[objective.name].append((objective.breached(value), value))
+
+    def snapshot(self) -> Dict[str, Dict[str, Any]]:
+        """Per-objective accounting over the samples seen so far; objectives
+        whose signal never appeared report ``samples: 0`` and burn 0."""
+        out: Dict[str, Dict[str, Any]] = {}
+        for objective in self.objectives:
+            samples = self._samples[objective.name]
+            n = len(samples)
+            bad = sum(1 for breached, _ in samples if breached)
+            slow = (bad / n) / objective.budget if n else 0.0
+            fast_n = max(objective.window // FAST_DIVISOR, 1)
+            recent = list(samples)[-fast_n:]
+            fast = (
+                (sum(1 for breached, _ in recent if breached) / len(recent))
+                / objective.budget
+                if recent
+                else 0.0
+            )
+            out[objective.name] = {
+                "value": round(samples[-1][1], 4) if n else None,
+                "target": objective.target,
+                "kind": objective.kind,
+                "unit": objective.unit,
+                "window": objective.window,
+                "samples": n,
+                "breaches": bad,
+                "budget": objective.budget,
+                "burn_fast": round(fast, 4),
+                "burn_slow": round(slow, 4),
+                "budget_remaining": round(1.0 - slow, 4),
+                "severity": objective.severity,
+                "for": objective.for_windows,
+            }
+        return out
+
+    def slo_block(self) -> Optional[Dict[str, Any]]:
+        """The compact per-window block windows/summaries carry: every
+        objective's budget remaining + burn rates, and the worst objective by
+        remaining budget (the number ``watch`` renders). None when no objective
+        has seen its signal yet — windows before the plane materializes stay
+        clean."""
+        snap = self.snapshot()
+        seen = {name: s for name, s in snap.items() if s["samples"]}
+        if not seen:
+            return None
+        worst = min(seen.items(), key=lambda kv: kv[1]["budget_remaining"])
+        return {
+            "worst": {"objective": worst[0], "budget_remaining": worst[1]["budget_remaining"]},
+            "objectives": {
+                name: {
+                    "value": s["value"],
+                    "target": s["target"],
+                    "budget_remaining": s["budget_remaining"],
+                    "burn_fast": s["burn_fast"],
+                    "burn_slow": s["burn_slow"],
+                    "samples": s["samples"],
+                }
+                for name, s in seen.items()
+            },
+        }
+
+
+# ---------------------------------------------------------------------------------
+# offline replay: `python sheeprl.py slo <run_dir|fleet_dir|live_dir>`
+# ---------------------------------------------------------------------------------
+def evaluate_events(
+    events: Sequence[Mapping[str, Any]],
+    objectives: Optional[Sequence[Objective]] = None,
+) -> Dict[str, Any]:
+    """Replay an ordered event stream through the evaluator + alert engine —
+    the exact in-loop machinery — and report final budgets, the computed alert
+    states, and the alert events the run recorded in-loop (so drift between
+    the two would be visible, not silent)."""
+    from sheeprl_tpu_torch.obs.alerts import AlertEngine
+
+    objs = list(objectives) if objectives is not None else load_objectives()
+    evaluator = SloEvaluator(objs)
+    engine = AlertEngine(objs)
+    transitions: List[Dict[str, Any]] = []
+    for event in events:
+        if event.get("event") != "window":
+            continue
+        evaluator.observe_window(event)
+        transitions.extend(engine.evaluate(evaluator.snapshot()))
+    recorded = [dict(e) for e in events if e.get("event") == "alert"]
+    recorded_firing = sorted(
+        {
+            str(e.get("name"))
+            for e in _last_state_by_name(recorded).values()
+            if e.get("status") == "firing"
+        }
+    )
+    firing = engine.firing()
+    # the gate judges the union of computed and recorded firing alerts: a
+    # truncated stream (crash before resolution) must not slip past --fail-on
+    # just because the replay saw one window fewer than the in-loop engine
+    worst_severity = None
+    gate_severities = [alert.get("severity", "warning") for alert in firing.values()]
+    gate_severities.extend(
+        str(e.get("severity") or "warning")
+        for e in _last_state_by_name(recorded).values()
+        if e.get("status") == "firing"
+    )
+    for sev in gate_severities:
+        if worst_severity is None or _SEVERITY_RANK.get(sev, 3) < _SEVERITY_RANK.get(
+            worst_severity, 3
+        ):
+            worst_severity = sev
+    return {
+        "objectives": evaluator.snapshot(),
+        "slo": evaluator.slo_block(),
+        "alerts": {
+            "firing": sorted(firing),
+            "states": {name: dict(state) for name, state in engine.states().items()},
+            "transitions": transitions,
+            "recorded_events": len(recorded),
+            "recorded_firing": recorded_firing,
+        },
+        "worst_firing_severity": worst_severity,
+        "windows": sum(1 for e in events if e.get("event") == "window"),
+    }
+
+
+def _last_state_by_name(alert_events: Sequence[Mapping[str, Any]]) -> Dict[str, Mapping[str, Any]]:
+    last: Dict[str, Mapping[str, Any]] = {}
+    for event in alert_events:
+        name = str(event.get("name") or event.get("objective") or "?")
+        last[name] = event
+    return last
+
+
+def slo_events(
+    events: Sequence[Mapping[str, Any]],
+    slo_cfg: Optional[Mapping[str, Any]] = None,
+    run_dir: Optional[str] = None,
+) -> Dict[str, Any]:
+    """Evaluate one ordered stream against the objectives resolved for this
+    run (config group defaults + per-run ``slo.yaml``)."""
+    objectives = load_objectives(slo_cfg, run_dir=run_dir)
+    result = evaluate_events(events, objectives)
+    result["declared"] = [o.name for o in objectives]
+    return result
+
+
+def slo_run(run_dir: str, json_path: Optional[str] = None) -> Dict[str, Any]:
+    """Merge every telemetry stream under ``run_dir``, evaluate, and write
+    ``slo.json`` next to the stream (or to ``json_path``)."""
+    from sheeprl_tpu_torch.obs.streams import discover_streams, load_stream, merge_streams
+
+    streams = discover_streams(run_dir)
+    if not streams:
+        raise FileNotFoundError(f"no telemetry*.jsonl stream found under {run_dir!r}")
+    base = run_dir if os.path.isdir(run_dir) else os.path.dirname(run_dir)
+    events = merge_streams([load_stream(p, base_dir=base) for p in streams])
+    result = slo_events(events, run_dir=base)
+    result["run_dir"] = str(run_dir)
+    result["streams"] = [os.path.relpath(p, base) for p in streams]
+    out = json_path or os.path.join(base, "slo.json")
+    with open(out, "w") as fh:
+        json.dump(result, fh, indent=2, sort_keys=False)
+        fh.write("\n")
+    result["json_path"] = out
+    return result
+
+
+def slo_fleet(
+    fleet_dir: str, members: Dict[str, str], json_path: Optional[str] = None
+) -> Dict[str, Any]:
+    """Evaluate every member run of a fleet dir as ONE unit (mirrors
+    ``diagnose_fleet``): per-member ``slo.json`` + an aggregate at the fleet
+    root whose firing set is the member-tagged union."""
+    member_results: Dict[str, Any] = {}
+    firing: List[str] = []
+    worst_severity = None
+    for name, member_dir in members.items():
+        try:
+            result = slo_run(member_dir)
+        except FileNotFoundError:
+            member_results[name] = {"error": "no telemetry stream"}
+            continue
+        member_results[name] = {
+            k: result.get(k)
+            for k in ("objectives", "slo", "alerts", "worst_firing_severity", "json_path")
+        }
+        for alert in (result.get("alerts") or {}).get("firing") or []:
+            firing.append(f"{name}:{alert}")
+        sev = result.get("worst_firing_severity")
+        if sev and (
+            worst_severity is None
+            or _SEVERITY_RANK.get(sev, 3) < _SEVERITY_RANK.get(worst_severity, 3)
+        ):
+            worst_severity = sev
+    if all("error" in r for r in member_results.values()):
+        raise FileNotFoundError(
+            f"no telemetry*.jsonl stream found under any member of fleet {fleet_dir!r}"
+        )
+    aggregate = {
+        "fleet": str(fleet_dir),
+        "members": member_results,
+        "alerts": {"firing": sorted(firing)},
+        "worst_firing_severity": worst_severity,
+        "counts": {
+            "members": len(members),
+            "evaluated": sum(1 for r in member_results.values() if "error" not in r),
+        },
+    }
+    out = json_path or os.path.join(str(fleet_dir), "slo.json")
+    with open(out, "w") as fh:
+        json.dump(aggregate, fh, indent=2, sort_keys=False)
+        fh.write("\n")
+    aggregate["json_path"] = out
+    return aggregate
+
+
+def format_report(result: Dict[str, Any]) -> str:
+    """Human compliance report for one run's SLO evaluation."""
+    lines = [f"SLO compliance — {result.get('run_dir', '<events>')}"]
+    declared = result.get("declared")
+    lines.append(
+        f"  objectives : {len(declared or result.get('objectives') or {})} declared, "
+        f"{result.get('windows', 0)} window(s) evaluated"
+    )
+    objectives = result.get("objectives") or {}
+    seen = {n: s for n, s in objectives.items() if s.get("samples")}
+    if not seen:
+        lines.append("  verdict    : no objective saw its signal — nothing to judge")
+        return "\n".join(lines)
+    for name, s in sorted(seen.items(), key=lambda kv: kv[1]["budget_remaining"]):
+        cmp = "≤" if s.get("kind") == "le" else "≥"
+        unit = f" {s['unit']}" if s.get("unit") else ""
+        lines.append(
+            f"  {name:<20s} value {s['value']}{unit} {cmp} {s['target']}{unit}"
+            f" | budget remaining {s['budget_remaining']:+.2f}"
+            f" (burn fast {s['burn_fast']:.2f} / slow {s['burn_slow']:.2f},"
+            f" {s['breaches']}/{s['samples']} breached)"
+        )
+    alerts = result.get("alerts") or {}
+    firing = alerts.get("firing") or []
+    if firing:
+        lines.append(f"  alerts     : FIRING {', '.join(firing)}")
+    else:
+        lines.append("  alerts     : none firing")
+    recorded = alerts.get("recorded_firing") or []
+    if sorted(recorded) != sorted(firing):
+        lines.append(
+            f"  in-loop    : recorded stream ended with firing={recorded or 'none'}"
+            " (offline replay disagrees — check for a truncated stream)"
+        )
+    elif alerts.get("recorded_events"):
+        lines.append(
+            f"  in-loop    : {alerts['recorded_events']} alert event(s) recorded — "
+            "in agreement with this replay"
+        )
+    return "\n".join(lines)
+
+
+def format_fleet_report(result: Dict[str, Any]) -> str:
+    lines = [f"Fleet SLO compliance — {result.get('fleet')}"]
+    counts = result.get("counts") or {}
+    lines.append(
+        f"  members : {counts.get('evaluated', 0)}/{counts.get('members', 0)} evaluated"
+    )
+    for name, member in (result.get("members") or {}).items():
+        if "error" in member:
+            lines.append(f"  [{name}] {member['error']}")
+            continue
+        slo = member.get("slo") or {}
+        worst = slo.get("worst") or {}
+        firing = (member.get("alerts") or {}).get("firing") or []
+        bits = []
+        if worst:
+            bits.append(
+                f"worst {worst.get('objective')} budget {worst.get('budget_remaining'):+.2f}"
+            )
+        bits.append(f"firing: {', '.join(firing) if firing else 'none'}")
+        lines.append(f"  [{name}] " + " | ".join(bits))
+    return "\n".join(lines)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    """``python sheeprl.py slo <run_dir>`` entry: print the compliance report,
+    write ``slo.json``, exit 0 (or 1 with ``--fail-on`` when a computed OR
+    recorded alert fires at that severity; 2 when no stream exists) — the same
+    exit taxonomy ``diagnose`` uses, so CI recipes compose."""
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        prog="sheeprl.py slo",
+        description="SLO compliance over a run's telemetry stream(s): error budgets, "
+        "burn rates, and alert verdicts (in-loop events cross-checked by replay).",
+    )
+    parser.add_argument(
+        "run_dir", help="run directory (searched recursively) or a telemetry*.jsonl file"
+    )
+    parser.add_argument("--json", dest="json_path", default=None, help="where to write slo.json")
+    parser.add_argument("--quiet", action="store_true", help="suppress the human report")
+    parser.add_argument(
+        "--fail-on",
+        choices=("warning", "critical"),
+        default=None,
+        help="exit 1 when any alert at least this severe is firing",
+    )
+    args = parser.parse_args(list(argv) if argv is not None else sys.argv[1:])
+    from sheeprl_tpu_torch.obs.streams import fleet_members
+
+    members = fleet_members(args.run_dir)
+    try:
+        if members:
+            result = slo_fleet(args.run_dir, members, json_path=args.json_path)
+        else:
+            result = slo_run(args.run_dir, json_path=args.json_path)
+    except FileNotFoundError as exc:
+        print(f"slo: {exc}", file=sys.stderr)
+        return 2
+    if not args.quiet:
+        print(format_fleet_report(result) if members else format_report(result))
+        print(f"\nwrote {result['json_path']}")
+    if args.fail_on:
+        gate = _SEVERITY_RANK[args.fail_on]
+        sev = result.get("worst_firing_severity")
+        if sev is not None and _SEVERITY_RANK.get(sev, 3) <= gate:
+            return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,6 +6,10 @@ with ``nvcc`` into a shared library the first time a wrapper needs it, into
 and loaded with ``ctypes``. The library's name carries a digest of its source,
 so an edited source is rebuilt and a built one is reused. Nothing here runs at
 import time: the CPU tests import every module of the package.
+
+:func:`build_snapshot` counts this process's ``nvcc`` builds and library loads
+and their seconds: the port's counterpart of the JAX package's XLA compile
+count (``obs/compile_monitor.py``), which the serving telemetry reports.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, List, Sequence
@@ -30,6 +35,9 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+# nvcc builds and library loads of this process, and their seconds
+_lock_events = threading.Lock()
+_events = {"builds": 0, "loads": 0, "seconds": 0.0}
 
 
 @dataclass
@@ -86,6 +94,7 @@ def build(specs: Sequence[KernelSpec]) -> Dict[str, Path]:
     started together. Returns name -> library path. Raises with the compiler's
     output when a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     paths = {spec.name: library_path(spec) for spec in specs}
     running = []
     for spec in specs:
@@ -106,6 +115,10 @@ def build(specs: Sequence[KernelSpec]) -> Dict[str, Path]:
         os.replace(tmp, out)  # atomic: a concurrent loader never sees a torn file
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    if running:
+        with _lock_events:
+            _events["builds"] += len(running)
+            _events["seconds"] += time.perf_counter() - t0
     return paths
 
 
@@ -115,6 +128,17 @@ def load(spec: KernelSpec) -> ctypes.CDLL:
         lib = _loaded.get(spec.name)
         if lib is None:
             path = build([spec])[spec.name]
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(str(path))
             _loaded[spec.name] = lib
+            with _lock_events:
+                _events["loads"] += 1
+                _events["seconds"] += time.perf_counter() - t0
         return lib
+
+
+def build_snapshot() -> Dict[str, float]:
+    """``{count, seconds, builds, loads}``: the kernel libraries this process
+    built with ``nvcc`` or loaded, and the seconds they took."""
+    with _lock_events:
+        return {"count": _events["builds"] + _events["loads"], **_events}

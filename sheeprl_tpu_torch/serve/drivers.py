@@ -1,7 +1,14 @@
 """Serving-run driver: real env sessions (port of
 ``sheeprl_tpu/serve/drivers.py::run_env_sessions``). Each session is a plain
 client thread of :class:`~sheeprl_tpu_torch.serve.server.PolicyServer` playing
-one environment episode with served actions."""
+one environment episode with served actions.
+
+A session ends with an error on the server's refusals (closed, draining,
+overloaded, a deadline missed past its retries, a timeout) and on the
+``env_step`` fault (``resilience/faults.py``), which raises from its env's
+``step``. The JAX ``run_env_sessions`` lets that fault's exception end the client thread
+unrecorded, so the run counts the session as completed; here it is recorded
+as the session's error, and the run exits 1 unless a supervisor restarts it."""
 
 from __future__ import annotations
 
@@ -11,6 +18,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from sheeprl_tpu_torch.resilience.faults import InjectedFaultError
 from sheeprl_tpu_torch.serve.server import (
     DeadlineExceeded,
     PolicyServer,
@@ -78,7 +86,7 @@ def run_env_sessions(
                 record["steps"] += 1
                 if bool(terminated) or bool(truncated):
                     break
-        except (ServerClosed, ServerOverloaded, DeadlineExceeded, TimeoutError) as exc:
+        except (ServerClosed, ServerOverloaded, DeadlineExceeded, TimeoutError, InjectedFaultError) as exc:
             record["error"] = repr(exc)
         finally:
             if session is not None:

@@ -10,7 +10,9 @@ over slots out:
 - ``step_slots(carry, obs, noise) -> (actions, carry')`` advances every slot by
   one step. ``obs`` holds ``[S, ...]`` tensors in the dtypes the env emits (any
   normalization happens inside the step), ``noise`` one ``[S, size]`` tensor per
-  entry of ``noise_spec``. The returned actions are env-facing.
+  entry of ``noise_spec``. The returned actions are env-facing;
+- ``params_tree`` and ``load_params`` map the serving module to and from the
+  checkpoint's ``agent`` tree, which hot reload (``serve/reload.py``) needs.
 
 The noise is the session's own: the slot table draws each slot's rows from the
 ``torch.Generator`` it seeded from the session seed when the session attached,
@@ -66,6 +68,11 @@ class ServePolicy:
     action_dtype: Any = np.float32
     module: Optional[torch.nn.Module] = None
     meta: Dict[str, Any] = field(default_factory=dict)
+    # hot reload (serve/reload.py): the family's checkpoint layout, read from a
+    # module (``params_tree(module) -> tree``), and its loader
+    # (``load_params(module, tree)``, copying a checkpoint's tree in place)
+    params_tree: Optional[Callable[[torch.nn.Module], Any]] = None
+    load_params: Optional[Callable[[torch.nn.Module, Any], None]] = None
 
 
 def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:

@@ -18,12 +18,24 @@ table (``serve/slots.py``) and fans the actions back out:
 - **degraded mode**: under sustained saturation the coalescing window widens by
   ``degraded_wait_factor`` and narrows again when saturation clears;
 - **graceful drain**: :meth:`PolicyServer.begin_drain` stops admissions, in-flight
-  sessions finish within a grace window, then the server closes.
+  sessions finish within a grace window, then the server closes;
+- **hot weight reload**: :meth:`PolicyServer.update_params` hands over candidate
+  weights already staged on the device (``serve/reload.py``); the tick loop
+  copies them into the serving module's parameters in place, between ticks and
+  under the lock, so the step, the carries, the generators and the slot map
+  stay as they were. Every tick is counted under the weight version it served;
+- **exploration slots**: the lowest ``round(explore_fraction * slots)`` slots
+  add Gaussian noise to their delivered actions on the host, drawn from a
+  ``numpy`` generator seeded with the session's seed, as the JAX server does;
+  the step itself, and so every other slot's action, is unchanged;
+- **fault injection**: the armed ``resilience.fault`` plan fires at its served
+  step from the tick loop (``resilience/faults.py``).
 
-The serving telemetry stream, hot weight reload, exploration slots, trajectory
-capture and fault injection of the JAX server are not ported yet. The server
-keeps plain counters instead (:attr:`PolicyServer.stats`): ticks, served steps
-and each tick's device-step time.
+The serving telemetry (``serve/telemetry.py``) observes every tick, reload,
+drain and degraded-mode transition when one is attached. The server also keeps
+plain counters (:attr:`PolicyServer.stats`): ticks by weight version, served
+steps and each tick's step time. Trajectory capture (the JAX server's
+``trajectories=``) is refused with ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from sheeprl_tpu_torch.resilience import faults
 from sheeprl_tpu_torch.serve.policy import ServePolicy
 from sheeprl_tpu_torch.serve.slots import SlotTable
 
@@ -73,11 +86,13 @@ class ServeStats:
         self.ticks = 0
         self.steps = 0
         self.step_ms: deque = deque(maxlen=self.WINDOW)  # device-step time per tick
+        self.ticks_by_version: Dict[int, int] = {}
 
-    def observe(self, batch: int, step_ms: float) -> None:
+    def observe(self, batch: int, step_ms: float, version: int = 0) -> None:
         self.ticks += 1
         self.steps += batch
         self.step_ms.append(step_ms)
+        self.ticks_by_version[version] = self.ticks_by_version.get(version, 0) + 1
 
     def as_dict(self) -> Dict[str, Any]:
         ms = np.asarray(self.step_ms, dtype=np.float64)
@@ -88,6 +103,7 @@ class ServeStats:
             "tick_ms_p99": float(np.percentile(ms, 99)) if ms.size else None,
             "tick_ms_max": float(ms.max()) if ms.size else None,
             "mean_batch": self.steps / self.ticks if self.ticks else None,
+            "ticks_by_version": {str(v): n for v, n in sorted(self.ticks_by_version.items())},
         }
 
 
@@ -107,6 +123,9 @@ class ServeSession:
         self._deadline_missed = False
         self._event = threading.Event()
         self._closed = False
+        # explore-slot noise: seeded from the SESSION seed at attach, advanced
+        # once per delivered action (None on a greedy slot)
+        self._noise_rng: Optional[np.random.Generator] = None
 
     def step(self, obs: Dict[str, np.ndarray], timeout: Optional[float] = None) -> np.ndarray:
         """Submit one observation; block until the batched step returns this
@@ -149,7 +168,17 @@ class PolicyServer:
         max_queue: Optional[int] = None,
         deadline_ms: Optional[float] = None,
         degraded_wait_factor: float = DEFAULT_DEGRADED_WAIT_FACTOR,
+        telemetry: Any = None,
+        fault_plan: Any = None,
+        trajectories: Any = None,
+        explore_fraction: float = 0.0,
+        explore_noise: float = 0.3,
     ) -> None:
+        if trajectories is not None:
+            raise NotImplementedError(
+                "trajectory capture (PolicyServer(trajectories=...)) is not yet ported to sheeprl_tpu_torch: "
+                "it rides the fleet experience plane"
+            )
         self.policy = policy
         self.table = SlotTable(policy, slots, base_seed=base_seed)
         self.max_batch_wait_ms = float(max_batch_wait_ms)
@@ -157,21 +186,33 @@ class PolicyServer:
         self.max_queue = None if max_queue is None else max(int(max_queue), 0)
         self.deadline_ms = None if deadline_ms is None else float(deadline_ms)
         self.degraded_wait_factor = max(float(degraded_wait_factor), 1.0)
+        self.telemetry = telemetry
+        self.fault_plan = fault_plan
+        self.explore_slots = int(round(max(min(float(explore_fraction), 1.0), 0.0) * int(slots)))
+        self.explore_noise = float(explore_noise)
         self.stats = ServeStats()
 
         self._cond = threading.Condition()
         self._admission: deque = deque()
         self._sessions: Dict[int, ServeSession] = {}
+        # session lifecycle deltas since the last tick (for the telemetry)
+        self._started_delta = 0
+        self._finished_delta = 0
+        self._shed_delta = 0
+        self._deadline_delta = 0
         self._closing = False
         self._closed = False
         self._draining = False
         self._error: Optional[BaseException] = None
         self._thread: Optional[threading.Thread] = None
+        # hot reload: staged weights wait here until the tick loop swaps them in
+        self._pending_params: Optional[tuple] = None
+        self.weight_version = 0
+        self.reloads = 0
+        self.last_swap: Optional[Dict[str, float]] = None
         self.degraded = False
         self._saturated_ticks = 0
         self._healthy_ticks = 0
-        self.shed = 0
-        self.deadline_missed = 0
         self._finish_times: deque = deque(maxlen=64)
         self._obs_buf = {k: spec.zeros(self.table.num_slots) for k, spec in policy.obs_spec.items()}
 
@@ -183,8 +224,10 @@ class PolicyServer:
             self._thread.start()
         return self
 
-    def close(self) -> None:
+    def close(self, clean_exit: bool = True) -> None:
         with self._cond:
+            # a crashed tick loop has set _closing already: the close tail
+            # (join, client wake-up, telemetry summary) still runs once
             if self._closed:
                 return
             self._closed = True
@@ -194,6 +237,17 @@ class PolicyServer:
             self._thread.join(timeout=30.0)
         for session in list(self._sessions.values()) + list(self._admission):
             session._event.set()
+        if self.telemetry is not None:
+            # fold lifecycle deltas no tick observed, then finish the stream
+            with self._cond:
+                started, finished = self._started_delta, self._finished_delta
+                shed, deadline_missed = self._shed_delta, self._deadline_delta
+                self._started_delta = self._finished_delta = self._shed_delta = self._deadline_delta = 0
+            if started or finished or shed or deadline_missed:
+                self.telemetry.observe_sessions(
+                    started=started, finished=finished, shed=shed, deadline_missed=deadline_missed
+                )
+            self.telemetry.close(clean_exit=clean_exit and self._error is None)
 
     def begin_drain(self) -> None:
         """Stop admissions: new sessions are rejected, queued ones shed, attached
@@ -207,8 +261,10 @@ class PolicyServer:
             for session in queued:
                 session._event.set()
             self._cond.notify_all()
+        if self.telemetry is not None:
+            self.telemetry.observe_drain(phase="begin", shed=len(queued))
 
-    def drain(self, grace_s: float = 10.0) -> Dict[str, int]:
+    def drain(self, grace_s: float = 10.0, clean_exit: bool = True) -> Dict[str, int]:
         """:meth:`begin_drain`, wait up to ``grace_s`` for in-flight sessions,
         then :meth:`close`. Returns ``{aborted}``."""
         self.begin_drain()
@@ -220,7 +276,9 @@ class PolicyServer:
             time.sleep(0.02)
         with self._cond:
             aborted = len(self._sessions)
-        self.close()
+        if self.telemetry is not None:
+            self.telemetry.observe_drain(phase="end", aborted=aborted, grace_s=float(grace_s))
+        self.close(clean_exit=clean_exit)
         return {"aborted": aborted}
 
     @property
@@ -231,7 +289,39 @@ class PolicyServer:
         return self.start()
 
     def __exit__(self, exc_type, exc, tb) -> None:
-        self.close()
+        self.close(clean_exit=exc_type is None)
+
+    # -- hot weight reload ---------------------------------------------------------
+
+    def update_params(self, staged: Any, version: int) -> None:
+        """Hand over weights staged on the serving device (a
+        :class:`~sheeprl_tpu_torch.serve.reload.StagedWeights` the reloader has
+        validated against the serving module's layout); the tick loop swaps
+        them in between ticks."""
+        with self._cond:
+            if self._closing:
+                raise ServerClosed("server is shutting down")
+            self._pending_params = (staged, int(version))
+            self._cond.notify_all()
+
+    def _apply_pending_params_locked(self) -> Optional[int]:
+        """Swap staged weights in (tick loop only, under the lock, between
+        ticks): an in-place copy into the serving module's parameters on the
+        tick's stream, which first waits for the staging copies. The previous
+        tick ended in a host copy of its actions, so no launch still reads the
+        old weights; the next tick's launches follow the copy in stream order,
+        so none reads a half-copied tensor. Returns the new version."""
+        if self._pending_params is None:
+            return None
+        staged, version = self._pending_params
+        self._pending_params = None
+        t0 = time.perf_counter()
+        staged.apply(self.policy.module)
+        self.last_swap = {"stage_ms": staged.stage_ms, "apply_ms": (time.perf_counter() - t0) * 1000.0}
+        self.weight_version = version
+        self.reloads += 1
+        self._cond.notify_all()  # callers may wait on the condition for a version
+        return version
 
     # -- client API ----------------------------------------------------------------
 
@@ -250,7 +340,7 @@ class PolicyServer:
                 self.max_queue is not None
                 and len(self._admission) >= self.max_queue + self.table.free_slots
             ):
-                self.shed += 1
+                self._shed_delta += 1
                 retry = self._retry_after_locked()
                 raise ServerOverloaded(
                     f"admission queue is full ({len(self._admission)} waiting >= "
@@ -259,6 +349,7 @@ class PolicyServer:
                 )
             session = ServeSession(self, seed if seed is not None else len(self._sessions))
             self._admission.append(session)
+            self._started_delta += 1
             self._cond.notify_all()
             return session
 
@@ -302,9 +393,11 @@ class PolicyServer:
                 self._sessions.pop(session.slot, None)
                 self.table.evict(session.slot)
                 session.slot = None
+                self._finished_delta += 1
                 self._finish_times.append(time.monotonic())
             elif session in self._admission:
                 self._admission.remove(session)
+                self._finished_delta += 1
             session._event.set()
             self._cond.notify_all()
 
@@ -321,6 +414,9 @@ class PolicyServer:
             session._attached_time = time.perf_counter()
             self._sessions[slot] = session
             attached[slot] = session.seed
+            # the explore split is a property of the SLOT, the noise stream
+            # one of the SESSION: invisible to every co-batched greedy session
+            session._noise_rng = np.random.default_rng(session.seed) if slot < self.explore_slots else None
         return attached
 
     def _pending_locked(self) -> List[ServeSession]:
@@ -334,19 +430,23 @@ class PolicyServer:
                 session._obs = None
                 session._deadline_missed = True
                 session._event.set()
-                self.deadline_missed += 1
+                self._deadline_delta += 1
 
-    def _update_degraded_locked(self, saturated: bool) -> None:
+    def _update_degraded_locked(self, saturated: bool) -> Optional[bool]:
+        """Degraded-mode hysteresis; returns the new mode on a transition."""
         if saturated:
             self._saturated_ticks += 1
             self._healthy_ticks = 0
             if not self.degraded and self._saturated_ticks >= DEGRADED_ENTER_TICKS:
                 self.degraded = True
+                return True
         else:
             self._healthy_ticks += 1
             self._saturated_ticks = 0
             if self.degraded and self._healthy_ticks >= DEGRADED_EXIT_TICKS:
                 self.degraded = False
+                return False
+        return None
 
     def _run(self) -> None:
         try:
@@ -359,14 +459,49 @@ class PolicyServer:
                     session._event.set()
                 self._cond.notify_all()
 
+    def _emit_fault_event(self, *args: Any, **fields: Any) -> None:
+        if self.telemetry is not None:
+            self.telemetry.emit_event(*args, **fields)
+
+    def _maybe_fire_fault(self, steps: int) -> None:
+        """The armed fault plan fires once at its served step."""
+        if self.fault_plan is None:
+            return
+        self.fault_plan.maybe_fire(steps, self._emit_fault_event)
+        flood = faults.consume_session_flood()
+        if flood:
+            self._spawn_flood(flood)
+
+    def _spawn_flood(self, count: int) -> None:
+        """``session_flood``: ``count`` synthetic clients storm admission at
+        once; shed ones count in the telemetry, admitted ones run a few
+        zero-observation steps and leave."""
+
+        def _client(i: int) -> None:
+            try:
+                session = self.open_session(seed=100_000 + i)
+                obs = {k: spec.zeros(1)[0] for k, spec in self.policy.obs_spec.items()}
+                for _ in range(4):
+                    session.step(obs)
+                session.close()
+            except (ServerClosed, ServerOverloaded, DeadlineExceeded, TimeoutError):
+                pass
+
+        for i in range(count):
+            threading.Thread(target=_client, args=(i,), name=f"sheeprl-flood-{i}", daemon=True).start()
+
     def _loop(self) -> None:
         base_wait_budget = self.max_batch_wait_ms / 1000.0
-        shed_seen = 0
+        total_steps = 0
         while True:
+            wait_started = time.perf_counter()
             with self._cond:
                 if self._closing:
                     return
+                swapped = self._apply_pending_params_locked()
                 attached = self._admit_locked()
+            if swapped is not None and self.telemetry is not None:
+                self.telemetry.observe_reload(version=swapped, timings=self.last_swap)
             if attached:
                 self.table.attach(attached)
             wait_budget = base_wait_budget * (self.degraded_wait_factor if self.degraded else 1.0)
@@ -388,6 +523,8 @@ class PolicyServer:
                             remaining = min(remaining, max(min(deadlines), 0.0))
                     if self._admission and self.table.free_slots:
                         break  # admit first, then come back for the batch
+                    if self._pending_params is not None:
+                        break  # an idle server swaps now, not at the next request
                     self._cond.wait(remaining if pending else 0.05)
                 if self._closing:
                     return
@@ -396,9 +533,22 @@ class PolicyServer:
                 if not pending:
                     continue
                 batch = [(s.slot, s) for s in pending]
-                shed_now, shed_seen = self.shed - shed_seen, self.shed
-                saturated = shed_now > 0 or (len(self._admission) > 0 and not self.table.free_slots)
-                self._update_degraded_locked(saturated)
+                active = len(self._sessions)
+                queue_depth = len(self._admission)
+                started, finished = self._started_delta, self._finished_delta
+                shed, deadline_missed = self._shed_delta, self._deadline_delta
+                self._started_delta = self._finished_delta = self._shed_delta = self._deadline_delta = 0
+                saturated = shed > 0 or (queue_depth > 0 and not self.table.free_slots)
+                transition = self._update_degraded_locked(saturated)
+            wait_seconds = time.perf_counter() - wait_started
+            if transition is not None and self.telemetry is not None:
+                self.telemetry.observe_degraded(transition)
+
+            total_steps += len(batch)
+            self._maybe_fire_fault(total_steps)
+            slow = faults.slow_tick_seconds()
+            if slow > 0:
+                time.sleep(slow)  # injected device degradation: every tick pays it
 
             mask = np.zeros((self.table.num_slots,), np.bool_)
             for slot, session in batch:
@@ -407,10 +557,39 @@ class PolicyServer:
                     buf[slot] = np.asarray(session._obs[k], dtype=buf.dtype).reshape(buf.shape[1:])
             t0 = time.perf_counter()
             actions = self.table.step(self._obs_buf, mask)
-            step_ms = (time.perf_counter() - t0) * 1000.0
-            self.stats.observe(len(batch), step_ms)
+            step_seconds = time.perf_counter() - t0
+            self.stats.observe(len(batch), step_seconds * 1000.0, self.weight_version)
 
+            now = time.perf_counter()
+            latencies = []
             for slot, session in batch:
                 session._obs = None
-                session._action = np.array(actions[slot])
+                action = np.array(actions[slot])
+                if session._noise_rng is not None:
+                    # host-side Gaussian exploration after the batched step,
+                    # unclipped (the env adapter owns the action bounds)
+                    action = (action + session._noise_rng.normal(0.0, self.explore_noise, action.shape)).astype(
+                        action.dtype
+                    )
+                session._action = action
+                # a queued session's first request starts its clock at attach
+                latencies.append((now - max(session._submit_time, session._attached_time)) * 1000.0)
                 session._event.set()
+
+            if self.telemetry is not None:
+                self.telemetry.observe_tick(
+                    batch=len(batch),
+                    slots=self.table.num_slots,
+                    active=active,
+                    queue_depth=queue_depth,
+                    step_seconds=step_seconds,
+                    wait_seconds=wait_seconds,
+                    latencies_ms=latencies,
+                    started=started,
+                    finished=finished,
+                    shed=shed,
+                    deadline_missed=deadline_missed,
+                    state_bytes=self.table.state_bytes(),
+                    weight_version=self.weight_version,
+                    degraded=self.degraded,
+                )

@@ -25,6 +25,7 @@ from sheeprl_tpu_torch.envs.wrappers import (
     ActionRepeat,
     DictObservation,
     FrameStack,
+    InjectedEnvFault,
     MaskVelocityWrapper,
     RecordEpisodeStatistics,
     TimeLimit,
@@ -167,8 +168,10 @@ def make_env(
             raise _not_ported("env.actions_as_observation")
         if cfg.env.reward_as_observation:
             raise _not_ported("env.reward_as_observation")
-        if str(((cfg.get("resilience") or {}).get("fault") or {}).get("kind") or ""):
-            raise _not_ported("resilience.fault")
+        # the env_step fault raises from inside step(); the other kinds are
+        # driven elsewhere (the training verbs refuse every kind, cli.py)
+        if str(((cfg.get("resilience") or {}).get("fault") or {}).get("kind") or "").lower() == "env_step":
+            env = InjectedEnvFault(env)
 
         if cfg.env.max_episode_steps and cfg.env.max_episode_steps > 0:
             env = TimeLimit(env, max_episode_steps=cfg.env.max_episode_steps)

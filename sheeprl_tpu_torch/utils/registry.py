@@ -32,6 +32,8 @@ EVALUATIONS: Dict[str, Tuple[str, str]] = {
 # the family's ``get_serve_policy(fabric, cfg, state)`` extractor
 SERVE_POLICIES: Dict[str, Tuple[str, str]] = {
     **{name: (f"{_DV3}.serve", "get_serve_policy") for name in _DV3_NAMES},
+    # A2C checkpoints hold the PPO agent
+    **{name: ("sheeprl_tpu_torch.algos.ppo.serve", "get_serve_policy") for name in ("ppo", "a2c")},
     "sac": ("sheeprl_tpu_torch.algos.sac.serve", "get_serve_policy"),
     "droq": ("sheeprl_tpu_torch.algos.sac.serve", "get_serve_policy_droq"),
 }

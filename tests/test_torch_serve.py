@@ -11,7 +11,7 @@
   imported;
 - the entry point: ``python -m sheeprl_tpu_torch serve ... fabric.accelerator=cpu``
   exits 0 on the discrete and continuous dummy envs, ``accelerator=auto`` raises
-  without a card, and the unported knobs raise.
+  without a card, and the fault kinds serving does not drive raise.
 
 Float32 on both sides. The recurrent state passes through 8 steps of convs,
 matmuls and LayerNorms summed in different orders, so h agrees to 1e-4; the
@@ -317,22 +317,15 @@ def test_auto_accelerator_needs_a_card(tmp_path):
         serve_main([f"checkpoint_path={run}", "fabric.accelerator=auto", "serve.sessions=1"])
 
 
-@pytest.mark.parametrize(
-    "override",
-    [
-        "serve.telemetry.enabled=true",
-        "serve.reload.enabled=true",
-        "serve.supervisor.enabled=true",
-        "serve.prime=true",
-        "serve.explore.fraction=0.5",
-    ],
-)
-def test_unported_knobs_raise(tmp_path, override):
+@pytest.mark.parametrize("kind", ["ckpt_kill", "lr_spike", "kill_rank", "stale_heartbeat", "channel_drop"])
+def test_unported_knobs_raise(tmp_path, kind):
+    """The training-only and multi-rank fault kinds of the JAX package are
+    refused by name; the serve kinds run (tests/test_torch_serve_supervisor.py)."""
     from sheeprl_tpu_torch.serve.main import serve_main
 
     run = _write_run(tmp_path, "discrete", "torch")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        serve_main([f"checkpoint_path={run}", "fabric.accelerator=cpu", override])
+    with pytest.raises(NotImplementedError, match=f"resilience.fault.kind={kind}: not yet ported"):
+        serve_main([f"checkpoint_path={run}", "fabric.accelerator=cpu", f"resilience.fault.kind={kind}"])
 
 
 def test_serving_a_sac_checkpoint_at_bf16_is_not_yet_ported(tmp_path):
