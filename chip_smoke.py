@@ -59,6 +59,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
    of 512 steps, one bf16 launch a tick); the bf16 serve step card vs CPU
    from the same carries; two bf16 gradient steps card vs CPU beside the
    CPU's float32 steps (bars in ``train_step_parity``);
+5c. the rest of the Dreamer-V3 family at ``bf16-mixed``: Plan2Explore at the
+   DOA++ exps' widths (dense 768, 4 layers, recurrent 1024, CNN x48, 8
+   ensemble members, batch 4 x 64, 16 envs; ``env=dummy``) explores for 32
+   gradient steps through ``run``, resumes, evaluates, and finetunes from its
+   checkpoint: the exploration actor acts until learning starts, the task
+   actor after; Offline Dreamer at its S preset trains, resumes and evaluates.
+   Every LN-GRU launch of each run is accounted for, all bf16: 94 a P2E
+   gradient step (the scan and two imaginations) or 79 (finetuning, ODV3),
+   plus one a policy step of the loop and of its test episode. Then one P2E
+   and one ODV3 gradient step card vs CPU in float32 (TF32 off, T=16, B=4;
+   ``train_step_parity``'s float32 bars, the actors' metrics within 1e-2),
+   and the seconds per P2E gradient step at 4 x 64;
 6. PPO (``exp=ppo``, CartPole-v1 at the exp's settings: 4 envs x 128 steps,
    minibatches of 64, 10 epochs, width 64) through the entry points on the
    card: 65536 policy steps with the metric log and the test episode (its
@@ -84,8 +96,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    kernel name, with its kernel launches per call counted in a captured CUDA
    graph; serving ticks (device time by kernel, the LN-GRU kernel's launches
    by name, busy share); a training step in float32 and one in bf16 (the
-   same, and its kernel count); a PPO train phase
-   and a SAC train phase (busy share, device operations);
+   same, and its kernel count); a P2E step at the DOA++ widths in bf16; a PPO
+   train phase and a SAC train phase (busy share, device operations);
 9. print the ``kernels`` JSON line, the card line, and the final result line.
 
 The training phase launches with the config's defaults for video capture
@@ -95,7 +107,9 @@ files in the run's directory, carried by the checkpoints: the resumed run
 must read them and add rows).
 
 Phase 3 also covers the training shapes of the kernel: B = 16 (the posterior
-scan) and B = 1024 (imagination's 16 x 64 rows), forward and gradient.
+scan) and B = 1024 (imagination's 16 x 64 rows), forward and gradient, and
+the DOA++ cell (K = 1792, 3H = 3072) at B = 4 (P2E's scan), 16 (its player)
+and 256 (its imagination's 4 x 64 rows).
 """
 
 from __future__ import annotations
@@ -149,11 +163,17 @@ GRU_SHAPES = [
     ("S", 1024, 1024, 512),  # imagination: B*T = 16*64 rows
     ("L", 4, 2816, 2048),
     ("XL", 4, 5120, 4096),
+    # Plan2Explore at the DOA++ exps' widths (K = 768 + 1024): the posterior
+    # scan's batch, the player's 16 envs, imagination's 4 x 64 rows
+    ("DOA", 4, 1792, 1024),
+    ("DOA", 16, 1792, 1024),
+    ("DOA", 256, 1792, 1024),
 ]
 MAIN_SHAPE = ("S", 4, 1024, 512)  # serving: 4 slots at the S preset
 # training: the posterior scan's batch, then imagination's rows
 TRAIN_SHAPES = [("S", 16, 1024, 512), ("S", 1024, 1024, 512)]
-GRAD_SHAPES = [MAIN_SHAPE, *TRAIN_SHAPES]
+P2E_SHAPES = [("DOA", 4, 1792, 1024), ("DOA", 16, 1792, 1024), ("DOA", 256, 1792, 1024)]
+GRAD_SHAPES = [MAIN_SHAPE, *TRAIN_SHAPES, *P2E_SHAPES]
 
 SLOTS = 4
 SESSIONS = 4
@@ -654,6 +674,12 @@ def _s_trainers(devices, T: int, B: int, seed: int = 0, precision: str = "32-tru
         agent = build_agent(fabric, (2,), False, cfg, space, seed, weights)
         weights = weights or agent_to_flax(agent)
         trainers[accel] = DV3Trainer(agent, cfg, build_optimizers(cfg, agent))
+    return trainers, _random_batch(T, B, seed)
+
+
+def _random_batch(T: int, B: int, seed: int) -> dict:
+    """A [T, B] replay batch of the dummy env's rgb and state keys on the CPU,
+    a twentieth of the rows terminal."""
     rng = np.random.default_rng(seed)
     terminated = (rng.uniform(size=(T, B, 1)) < 0.05).astype(np.float32)
     batch = {
@@ -665,7 +691,7 @@ def _s_trainers(devices, T: int, B: int, seed: int = 0, precision: str = "32-tru
         "truncated": np.zeros((T, B, 1), np.float32),
         "is_first": np.concatenate([np.zeros((1, B, 1), np.float32), terminated[:-1]]),
     }
-    return trainers, {k: torch.from_numpy(v) for k, v in batch.items()}
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
 def _state_gap(card, cpu) -> dict:
@@ -898,6 +924,304 @@ def serve_path_bf16(ckpt: str, out_dir: str) -> dict:
     by_dtype = _bf16_launches("bf16 serving", summary["ticks"])
     tel = check_telemetry("bf16 serve", log_dir)
     return {"summary": summary, "launches": launches, "by_dtype": by_dtype, "hbm_peak_bytes": tel["hbm_peak_bytes"]}
+
+
+# -- Plan2Explore and Offline Dreamer (the rest of the Dreamer-V3 family) -----------
+# P2E at the DOA++ exps' model (p2e_dv3_expl_L_doapp_128px_gray_combo_discrete_
+# 15Mexpl_20Mstps.yaml:33-48): every width as the exp sets it, its batch
+# (4 x 64), envs (16), ensembles (8) and precision; the dummy env and the
+# steps are cut. K = 768 + 1024 = 1792 and 3H = 3072 at the recurrent cell.
+P2E_DOA = [
+    "algo.dense_units=768",
+    "algo.mlp_layers=4",
+    "algo.world_model.encoder.cnn_channels_multiplier=48",
+    "algo.world_model.recurrent_model.recurrent_state_size=1024",
+    "algo.world_model.transition_model.hidden_size=768",
+    "algo.world_model.representation_model.hidden_size=768",
+    "algo.ensembles.n=8",
+]
+P2E_ENVS = 16
+P2E_PRECISION = "bf16-mixed"
+# every env holds 65 rows before learning starts (a 64-step sequence fits);
+# then each iteration of 16 policy steps takes 16 gradient steps (replay
+# ratio 1): the first run trains in 2 iterations (32 steps); a resumed run
+# waits the 65 iterations again, its restored governor skips the first
+# training iteration and the next takes 16 steps; finetuning acts with the
+# exploration actor for 65 iterations, then with the task actor
+P2E_LEARNING_STARTS_ITERS = 65
+P2E_FIRST_ITERS = P2E_LEARNING_STARTS_ITERS + 1
+P2E_RESUME_ITERS = P2E_FIRST_ITERS + P2E_LEARNING_STARTS_ITERS + 2
+P2E_MIN_GRADIENT_STEPS = 20
+# the posterior scan over 64 steps, then two 15-step imaginations (the
+# exploration actor's and the task actor's)
+P2E_GRU_CALLS_PER_GRAD_STEP = 64 + 15 + 15
+P2E_TAGS = ("Loss/world_model_loss", "Loss/ensemble_loss", "Loss/policy_loss_exploration", "Loss/policy_loss_task",
+            "Rewards/intrinsic_intrinsic", "Time/sps_train")
+# Offline Dreamer at its walker exp's preset (offline_dreamer_S), bf16-mixed,
+# with the DV3 bf16 phase's steps: 80 iterations of 4 envs before learning
+# starts, then 4 training iterations of 4 gradient steps
+# one float32 step card vs CPU (family_step_parity): the actors' losses and
+# gradient norms take FAMILY_ACTOR_RTOL, every other metric TRAIN_STEP_RTOL.
+# P2E's task actor's gradient norm at the DOA++ widths is ~1.5e-3, a sum of
+# REINFORCE terms that largely cancel, and it moved 1.7e-3 relative between
+# runs of the same step on one NVIDIA H100 80GB HBM3 at 700 W (of 6 runs from
+# the same inputs: 3 at ~7e-5 from the CPU, 1 at 1.79e-3, both runs with
+# deterministic algorithms at 1.80e-3), so no bar under 2e-3 holds it against
+# the CPU; every other metric stayed within 2e-4
+FAMILY_ACTOR_RTOL = 1e-2
+FAMILY_ACTOR_METRICS = ("Loss/policy_loss", "Grads/actor")
+ODV3_ENVS = 4
+ODV3_LEARNING_STARTS_ITERS = 80
+ODV3_FIRST_ITERS = ODV3_LEARNING_STARTS_ITERS + 4
+ODV3_RESUME_ITERS = ODV3_FIRST_ITERS + ODV3_LEARNING_STARTS_ITERS + 4
+
+
+def p2e_overrides(run_dir: str = "", exp: str = "p2e_dv3_exploration") -> list:
+    return [
+        f"exp={exp}",
+        "env=dummy",
+        "algo.cnn_keys.encoder=[rgb]",
+        "algo.mlp_keys.encoder=[state]",
+        *P2E_DOA,
+        f"env.num_envs={P2E_ENVS}",
+        "algo.per_rank_batch_size=4",
+        "algo.per_rank_sequence_length=64",
+        f"algo.learning_starts={P2E_ENVS * P2E_LEARNING_STARTS_ITERS}",
+        f"fabric.precision={P2E_PRECISION}",
+        *([f"hydra.run.dir={run_dir}"] if run_dir else []),
+    ]
+
+
+def odv3_overrides(run_dir: str = "") -> list:
+    return [
+        "exp=offline_dreamer",
+        "env=dummy",
+        "algo.cnn_keys.encoder=[rgb]",
+        "algo.mlp_keys.encoder=[state]",
+        f"env.num_envs={ODV3_ENVS}",
+        f"algo.learning_starts={ODV3_ENVS * ODV3_LEARNING_STARTS_ITERS}",
+        f"fabric.precision={BF16_PRECISION}",
+        *([f"hydra.run.dir={run_dir}"] if run_dir else []),
+    ]
+
+
+def _check_family_run(name: str, summary: dict, calls_per_step: int) -> dict:
+    """Every LN-GRU launch of a run accounted for, all with bf16 operands:
+    ``calls_per_step`` a gradient step, one a batched policy step of the loop
+    and one a step of its test episode."""
+    need = calls_per_step * summary["gradient_steps"] + summary["player_calls"] + summary["test_player_calls"]
+    by_dtype = _bf16_launches(name, need)
+    print(f"[chip-smoke] {name}: {summary['gradient_steps']} gradient steps, {summary['player_calls']} player calls "
+          f"(+{summary['test_player_calls']} in the test episode), {summary['policy_steps']} policy steps in "
+          f"{summary['wall_seconds']:.2f}s (train {summary['train_seconds']:.2f}s); LN-GRU launches {LN_GRU.launches} "
+          f"(need == {need}: {calls_per_step} a gradient step + one a policy step); metrics "
+          f"{json.dumps(summary['metrics'])}", flush=True)
+    if summary["gradient_steps"] < 1 or LN_GRU.launches != need:
+        raise AssertionError(f"{name}: {summary['gradient_steps']} gradient steps, {LN_GRU.launches} LN-GRU "
+                             f"launches != {need}")
+    if not all(math.isfinite(v) for v in summary["metrics"].values()):
+        raise AssertionError(f"{name}: non-finite metrics {summary['metrics']}")
+    return {"summary": summary, "launches": _launches(), "by_dtype": by_dtype, "need": need}
+
+
+def _evaluate_family(name: str, ckpt: str) -> dict:
+    from sheeprl_tpu_torch.cli import evaluation
+
+    _zero_launches()
+    reward = evaluation([f"checkpoint_path={ckpt}"])
+    by_dtype = _bf16_launches(f"{name} evaluation", 1)
+    print(f"[chip-smoke] {name} evaluation: reward {reward}", flush=True)
+    if not math.isfinite(reward):
+        raise AssertionError(f"{name} evaluation: reward {reward}")
+    return {"reward": reward, "launches": _launches(), "by_dtype": by_dtype}
+
+
+def p2e_path(out_dir: str) -> dict:
+    """Plan2Explore through the entry points at the DOA++ widths and bf16:
+    exploration (>= 20 gradient steps), a resume from its checkpoint,
+    finetuning from it (the exploration actor acts until learning starts,
+    the task actor after), and an evaluation of each. The launch counts are
+    zeroed just before each run and read just after."""
+    from sheeprl_tpu_torch.cli import run
+
+    out = {}
+    expl = p2e_overrides(os.path.join(out_dir, "p2e"))
+    _zero_launches()
+    first = run(expl + [f"algo.total_steps={P2E_ENVS * P2E_FIRST_ITERS}"])
+    out["train"] = _check_family_run("P2E exploration", first, P2E_GRU_CALLS_PER_GRAD_STEP)
+    if first["gradient_steps"] < P2E_MIN_GRADIENT_STEPS:
+        raise AssertionError(f"P2E exploration took {first['gradient_steps']} gradient steps")
+    scalars = check_scalars("P2E exploration", first["log_dir"], P2E_TAGS)
+    out["train"]["scalars"] = {t: scalars[t][-1] for t in P2E_TAGS}
+    _zero_launches()
+    resumed = run(expl + [f"algo.total_steps={P2E_ENVS * P2E_RESUME_ITERS}",
+                          f"checkpoint.resume_from={first['checkpoint']}"])
+    out["resume"] = _check_family_run("P2E exploration resumed", resumed, P2E_GRU_CALLS_PER_GRAD_STEP)
+    if not resumed["log_dir"].endswith("version_1"):
+        raise AssertionError(f"the resumed P2E run wrote {resumed['log_dir']}, not the run's version_1")
+    out["evaluation"] = _evaluate_family("P2E exploration", resumed["checkpoint"])
+
+    _zero_launches()
+    ft = run(p2e_overrides(os.path.join(out_dir, "p2e_ft"), "p2e_dv3_finetuning") + [
+        f"algo.total_steps={P2E_ENVS * P2E_FIRST_ITERS}", f"checkpoint.exploration_ckpt_path={first['checkpoint']}"])
+    out["finetune"] = _check_family_run("P2E finetuning", ft, GRU_CALLS_PER_GRAD_STEP)
+    switch = ft["actor_switch"]
+    print(f"[chip-smoke] P2E finetuning: the player switched to the task actor at iteration {switch['iteration']} "
+          f"after {switch['player_calls_before']} calls with the exploration actor; {ft['player_calls']} calls in "
+          f"all", flush=True)
+    if switch != {"iteration": P2E_LEARNING_STARTS_ITERS, "player_calls_before": P2E_LEARNING_STARTS_ITERS} \
+            or ft["player_calls"] <= switch["player_calls_before"]:
+        raise AssertionError(f"P2E finetuning did not act with the exploration actor until learning started and "
+                             f"with the task actor after: {switch}, {ft['player_calls']} calls")
+    out["finetune_evaluation"] = _evaluate_family("P2E finetuning", ft["checkpoint"])
+    out["seconds_per_gradient_step"] = first["train_seconds"] / first["gradient_steps"]
+    out["finetune_seconds_per_gradient_step"] = ft["train_seconds"] / ft["gradient_steps"]
+    print(f"[chip-smoke] P2E: {out['seconds_per_gradient_step']:.4f} s per exploration gradient step in the loop, "
+          f"{out['finetune_seconds_per_gradient_step']:.4f} s per finetuning step", flush=True)
+    return out
+
+
+def odv3_path(out_dir: str) -> dict:
+    """Offline Dreamer at S and bf16 through the entry points: train, resume,
+    evaluate, every LN-GRU launch accounted for."""
+    from sheeprl_tpu_torch.cli import run
+
+    overrides = odv3_overrides(os.path.join(out_dir, "odv3"))
+    out = {}
+    _zero_launches()
+    first = run(overrides + [f"algo.total_steps={ODV3_ENVS * ODV3_FIRST_ITERS}"])
+    out["train"] = _check_family_run("ODV3", first, GRU_CALLS_PER_GRAD_STEP)
+    if "Loss/concept_loss" not in first["metrics"]:
+        raise AssertionError(f"ODV3 logged no concept loss: {first['metrics']}")
+    _zero_launches()
+    resumed = run(overrides + [f"algo.total_steps={ODV3_ENVS * ODV3_RESUME_ITERS}",
+                               f"checkpoint.resume_from={first['checkpoint']}"])
+    out["resume"] = _check_family_run("ODV3 resumed", resumed, GRU_CALLS_PER_GRAD_STEP)
+    if not resumed["log_dir"].endswith("version_1"):
+        raise AssertionError(f"the resumed ODV3 run wrote {resumed['log_dir']}, not the run's version_1")
+    out["evaluation"] = _evaluate_family("ODV3", resumed["checkpoint"])
+    out["seconds_per_gradient_step"] = first["train_seconds"] / first["gradient_steps"]
+    return out
+
+
+def _family_trainers(kind: str, devices, T: int, B: int, seed: int = 0, precision: str = "32-true"):
+    """P2E (DOA++ widths) or ODV3 (S) trainers with the same weights from a
+    seed on each device at ``precision``, TF32 off, and a random batch."""
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.interop.flax_to_torch import agent_to_flax, p2e_to_flax
+    from sheeprl_tpu_torch.parallel.fabric import Fabric
+    from sheeprl_tpu_torch.utils.env import make_env
+
+    if kind == "p2e":
+        from sheeprl_tpu_torch.algos.p2e_dv3.agent import build_agent
+        from sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration import make_trainer
+
+        cfg, to_flax = compose(p2e_overrides()), p2e_to_flax
+    else:
+        from sheeprl_tpu_torch.algos.offline_dreamer.agent import build_agent
+        from sheeprl_tpu_torch.algos.offline_dreamer.offline_dreamer import make_trainer
+
+        cfg, to_flax = compose(odv3_overrides()), agent_to_flax
+    space = make_env(cfg, 0, 0)().observation_space
+    trainers, weights = {}, None
+    for accel in devices:
+        fabric = Fabric(accelerator=accel, precision=precision, float32_matmul_precision="highest")
+        agent = build_agent(fabric, (2,), False, cfg, space, seed, weights)
+        weights = weights or to_flax(agent)
+        trainers[accel] = make_trainer(agent, cfg)
+    return trainers, _random_batch(T, B, seed)
+
+
+def _noise_to(noise, device, dtype):
+    if isinstance(noise, dict):
+        return {k: _noise_to(v, device, dtype) for k, v in noise.items()}
+    return noise.to(device, dtype)
+
+
+def _flat_moments(moments, prefix: str = "") -> dict:
+    if isinstance(moments, dict):
+        out = {}
+        for k, v in moments.items():
+            out.update(_flat_moments(v, f"{prefix}/{k}" if prefix else k))
+        return out
+    return {prefix: float(moments)}
+
+
+def family_step_parity(kind: str) -> dict:
+    """One gradient step of P2E (DOA++ widths, T=16, B=4) or ODV3 (S, T=16,
+    B=4) on the card vs on the CPU in float32 with TF32 off, from the same
+    weights, batch and noise, held to ``train_step_parity``'s float32 bars:
+    every metric within TRAIN_STEP_RTOL but the actors' losses and gradient
+    norms (FAMILY_ACTOR_METRICS, within FAMILY_ACTOR_RTOL: see there); every
+    parameter (each exploration critic's and target's, the ensembles', the
+    CEM's) within 2 lr and a share >= TRAIN_PARAM_SHARE within
+    TRAIN_PARAM_ATOL; every Moments within TRAIN_STEP_RTOL."""
+    T, B = 16, 4
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)  # the CLI runs left one
+    try:
+        trainers, batch = _family_trainers(kind, ("gpu", "cpu"), T, B)
+        lr = max(group["lr"] for opt in trainers["cpu"].optimizers.values() for group in opt.param_groups)
+        noise = trainers["cpu"].draw_noise(T, B, torch.Generator().manual_seed(1))
+        metrics = {}
+        for accel, trainer in trainers.items():
+            dev = trainer.device
+            out = trainer.train_step({k: v.to(dev) for k, v in batch.items()}, 0,
+                                     _noise_to(noise, dev, trainer.agent.dtype))
+            metrics[accel] = {k: float(v) for k, v in out.items()}
+    finally:
+        torch.set_num_threads(threads)
+    if not all(math.isfinite(v) for v in metrics["gpu"].values()):
+        raise AssertionError(f"{kind} train step on the card: non-finite metrics {metrics['gpu']}")
+    rel = {k: abs(metrics["gpu"][k] - v) / max(abs(v), 1e-3) for k, v in metrics["cpu"].items()}
+    actors = {k: v for k, v in rel.items() if k.startswith(FAMILY_ACTOR_METRICS)}
+    worst = max(v for k, v in rel.items() if k not in actors)
+    worst_actor = max(actors.values())
+    card, cpu = trainers["gpu"], trainers["cpu"]
+    ours = {k: v.detach().cpu() for k, v in card.agent.state_dict().items()}
+    flat = torch.cat([(ours[k] - v).abs().reshape(-1) for k, v in cpu.agent.state_dict().items()])
+    m_card, m_cpu = _flat_moments(card.moments), _flat_moments(cpu.moments)
+    state = {
+        "param_max_abs_gap": float(flat.max()),
+        "param_share_within_atol": float((flat <= TRAIN_PARAM_ATOL).float().mean()),
+        "moments_rel_gap": max(abs(m_card[k] - v) / max(abs(v), 1e-3) for k, v in m_cpu.items()),
+        "parameters": int(flat.numel()),
+    }
+    print(f"[chip-smoke] {kind} train step card vs CPU (float32, TF32 off, T={T}, B={B}): worst relative err of the "
+          f"metrics {worst} (bar {TRAIN_STEP_RTOL}), of the actors' {worst_actor} (bar {FAMILY_ACTOR_RTOL}); state "
+          f"{json.dumps(state)} (bars: every parameter within {2 * lr:.1e}, a share >= {TRAIN_PARAM_SHARE} within "
+          f"{TRAIN_PARAM_ATOL}); metrics {json.dumps(metrics)}", flush=True)
+    if worst > TRAIN_STEP_RTOL or worst_actor > FAMILY_ACTOR_RTOL:
+        raise AssertionError(f"the {kind} train step on the card disagrees with the CPU: {json.dumps(rel)}")
+    if not (state["param_max_abs_gap"] <= 2 * lr and state["param_share_within_atol"] >= TRAIN_PARAM_SHARE
+            and state["moments_rel_gap"] <= TRAIN_STEP_RTOL):
+        raise AssertionError(f"the {kind} update on the card disagrees with the CPU's: {state}")
+    return {"worst_rel_err": worst, "worst_actor_rel_err": worst_actor, "rel_err": rel, "state": state, "T": T,
+            "B": B, **metrics}
+
+
+def time_family_steps(kind: str = "p2e", steps: int = 3) -> tuple:
+    """Seconds per gradient step of P2E at the DOA++ widths and batch (4 x
+    64), bf16-mixed, eager; returns the warm trainer for the profile."""
+    from sheeprl_tpu_torch.parallel.fabric import apply_matmul_precision
+
+    T, B = 64, 4
+    trainers, batch = _family_trainers(kind, ("gpu",), T, B, seed=2, precision=P2E_PRECISION)
+    trainer = trainers["gpu"]
+    apply_matmul_precision("high")
+    batch = {k: v.to(trainer.device) for k, v in batch.items()}
+    generator = torch.Generator(trainer.device).manual_seed(3)
+    for cum in range(2):
+        trainer.train_step(batch, cum, trainer.draw_noise(T, B, generator))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for cum in range(2, 2 + steps):
+        trainer.train_step(batch, cum, trainer.draw_noise(T, B, generator))
+    torch.cuda.synchronize()
+    out = {"kind": kind, "precision": P2E_PRECISION, "T": T, "B": B, "steps": steps,
+           "seconds_per_gradient_step": (time.perf_counter() - t0) / steps}
+    print(f"[chip-smoke] {kind} train step timing: {json.dumps(out)}", flush=True)
+    return out, (trainer, batch, generator)
 
 
 # -- the serving planes (hot reload, faults, supervisor, telemetry, PPO) ------------
@@ -2004,6 +2328,13 @@ def main() -> int:
         bf16["serve"] = serve_path_bf16(bf16["ckpt"], tmp)
         bf16["serve_parity"] = serve_step_parity(bf16["ckpt"], BF16_PRECISION)
         bf16["train_parity"] = train_step_parity(precision=BF16_PRECISION)
+        # the rest of the Dreamer-V3 family: Plan2Explore at the DOA++ widths
+        # and Offline Dreamer at S, both bf16-mixed
+        p2e = p2e_path(tmp)
+        odv3 = odv3_path(tmp)
+        p2e["parity"] = family_step_parity("p2e")
+        odv3["parity"] = family_step_parity("odv3")
+        p2e["timing"], p2e_warm = time_family_steps("p2e")
         ppo = ppo_path(tmp)
         ppo["serve"] = ppo_serve_path(ppo["train"]["summary"]["checkpoint"], tmp)
         a2c = a2c_path(tmp)
@@ -2020,12 +2351,14 @@ def main() -> int:
         profile = profile_ticks(path["ckpt"])
         train_timing["profile"] = profile_train_steps(warm)
         bf16["timing"]["profile"] = profile_train_steps(warm_bf16)
+        p2e["timing"]["profile"] = profile_train_steps(p2e_warm, steps=2)
         ppo["timing"]["profile"] = profile_ppo_train_phase(ppo_warm)
         sac["timing"]["profile"] = profile_sac_train_phase(sac_warm)
-        del warm, warm_bf16, ppo_warm, sac_warm
+        del warm, warm_bf16, ppo_warm, sac_warm, p2e_warm
 
     main_row = next(r for r in gru["rows"] if (r["preset"], r["B"], r["K"], r["H"]) == MAIN_SHAPE)
     train_rows = [r for r in gru["rows"] if (r["preset"], r["B"], r["K"], r["H"]) in TRAIN_SHAPES]
+    p2e_rows = [r for r in gru["rows"] + gru_bf16["rows"] if (r["preset"], r["B"], r["K"], r["H"]) in P2E_SHAPES]
     keep = ("B", "K", "H", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err",
             "grad_max_abs_err", "launches_per_call", "call_ms")
     kernels = [
@@ -2055,10 +2388,22 @@ def main() -> int:
                 # torn candidate, and in both attempts of the supervised run
                 **{f"serve_{name}": planes[name]["launches"][LN_GRU.name]
                    for name in ("reload", "torn_reload", "supervisor")},
+                # Plan2Explore at the DOA++ widths and Offline Dreamer at S, bf16:
+                # 94 (P2E) or 79 launches a gradient step plus one a policy step
+                **{f"p2e_{name}": p2e[name]["launches"][LN_GRU.name]
+                   for name in ("train", "resume", "evaluation", "finetune", "finetune_evaluation")},
+                **{f"odv3_{name}": odv3[name]["launches"][LN_GRU.name] for name in ("train", "resume", "evaluation")},
+            },
+            "launches_needed_by_path": {
+                **{f"p2e_{name}": p2e[name]["need"] for name in ("train", "resume", "finetune")},
+                **{f"odv3_{name}": odv3[name]["need"] for name in ("train", "resume")},
             },
             "launches_by_dtype": {
-                name: bf16[name]["by_dtype"] for name in ("train", "resume", "evaluation", "serve")
+                **{name: bf16[name]["by_dtype"] for name in ("train", "resume", "evaluation", "serve")},
+                **{f"p2e_{name}": p2e[name]["by_dtype"] for name in ("train", "resume", "finetune")},
+                **{f"odv3_{name}": odv3[name]["by_dtype"] for name in ("train", "resume")},
             },
+            "p2e_rows": [{"dtype": r["dtype"], **{k: r[k] for k in keep if k in r}} for r in p2e_rows],
             "bf16_rows": [{k: r[k] for k in keep if k in r} for r in gru_bf16["rows"]],
             "bf16_max_abs_err": gru_bf16["max_abs_err"],
             "train_rows": [{k: r[k] for k in keep} for r in train_rows],
@@ -2084,6 +2429,7 @@ def main() -> int:
                  "launches": path["launches"], "serve_parity": parity, "serve_profile": profile,
                  "train": train, "train_parity": train_parity, "train_timing": train_timing,
                  "gru_bf16": gru_bf16, "bf16": bf16, "serving_planes": planes,
+                 "p2e": p2e, "odv3": odv3,
                  "ppo": ppo, "a2c": a2c, "sac": sac, "droq": droq, "kernels": kernels},
                 f, indent=2,
             )

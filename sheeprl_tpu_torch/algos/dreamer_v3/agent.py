@@ -650,6 +650,12 @@ class DV3Agent(nn.Module):
         logits = self.world_model["transition_model"](h)
         return unimix_logits(logits, self.discrete_size, self.unimix)
 
+    def head_latent(self, latent: torch.Tensor) -> torch.Tensor:
+        """The latent the heads read (actor, critic, reward, continue,
+        decoder) from the RSSM's ``concat(z, h)``: the latent itself here;
+        Offline Dreamer's concept bottleneck maps it."""
+        return latent
+
     @cast_once()
     def dynamic_scan(
         self,
@@ -703,23 +709,26 @@ class DV3Agent(nn.Module):
         horizon: int,
         transition_noise: torch.Tensor,
         action_noise: torch.Tensor,
+        actor: Optional[nn.Module] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Latent imagination from ``z0`` [N, S*D] and ``h0`` [N, H]: the actor
-        acts on detached latents while gradients flow through the dynamics
-        (the continuous-control pathwise objective needs them).
+        (``self.actor`` unless another is given: Plan2Explore's exploration
+        actor) acts on detached latents while gradients flow through the
+        dynamics (the continuous-control pathwise objective needs them).
         ``transition_noise`` [horizon, N, S*D] is the prior samples' Gumbel
         noise, ``action_noise`` [horizon + 1, N, A] the actor's. Returns
-        (latents [horizon+1, N, L], actions [horizon+1, N, A]). Each parameter
-        is cast to the compute dtype once for the whole rollout."""
-        latent = torch.cat([z0, h0], dim=-1)
-        a = actor_sample(self, self.actor(latent.detach()), action_noise[0])
+        (head latents [horizon+1, N, L], actions [horizon+1, N, A]). Each
+        parameter is cast to the compute dtype once for the whole rollout."""
+        actor = self.actor if actor is None else actor
+        latent = self.head_latent(torch.cat([z0, h0], dim=-1))
+        a = actor_sample(self, actor(latent.detach()), action_noise[0])
         latents, actions = [latent], [a]
         z, h = z0, h0.contiguous()
         for t in range(horizon):
             h = self._recurrent(z, a, h)
             _, z = self._transition(h, transition_noise[t])
-            latent = torch.cat([z, h], dim=-1)
-            a = actor_sample(self, self.actor(latent.detach()), action_noise[t + 1])
+            latent = self.head_latent(torch.cat([z, h], dim=-1))
+            a = actor_sample(self, actor(latent.detach()), action_noise[t + 1])
             latents.append(latent)
             actions.append(a)
         return torch.stack(latents), torch.stack(actions)
@@ -734,13 +743,15 @@ def player_step(
     repr_noise: torch.Tensor,
     action_noise: Optional[torch.Tensor],
     greedy: bool,
+    actor: Optional[nn.Module] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One acting step over a batch of normalized observations: encoder,
-    recurrent step, posterior sample, actor. Returns (actions, h, z)."""
+    recurrent step, posterior sample, actor (``agent.actor`` unless another
+    is given) on the head latent. Returns (actions, h, z)."""
     embedded = agent.encoder(obs)
     h = agent._recurrent(z, action, h)
     _, z = agent._representation(h, embedded, repr_noise)
-    pre = agent.actor(torch.cat([z, h], dim=-1))
+    pre = (agent.actor if actor is None else actor)(agent.head_latent(torch.cat([z, h], dim=-1)))
     return actor_sample(agent, pre, action_noise, greedy=greedy), h, z
 
 
@@ -751,10 +762,21 @@ class PlayerDV3:
     float32, as the env takes them.
 
     ``get_actions`` takes the posterior's Gumbel noise and the actor's noise as
-    arguments, or draws them from ``generator``."""
+    arguments, or draws them from ``generator``. ``actor`` is the policy it
+    acts with (``agent.actor`` by default; Plan2Explore's players pick theirs
+    and finetuning switches it)."""
 
-    def __init__(self, agent: DV3Agent, num_envs: int, cnn_keys: Sequence[str], mlp_keys: Sequence[str]):
+    def __init__(
+        self,
+        agent: DV3Agent,
+        num_envs: int,
+        cnn_keys: Sequence[str],
+        mlp_keys: Sequence[str],
+        actor: Optional[nn.Module] = None,
+    ):
         self.agent = agent
+        self.actor = agent.actor if actor is None else actor
+        self.calls = 0  # batched acting steps taken
         self.num_envs = num_envs
         self.cnn_keys = tuple(cnn_keys)
         self.mlp_keys = tuple(mlp_keys)
@@ -807,7 +829,9 @@ class PlayerDV3:
             noise["repr"],
             None if greedy else noise["act"],
             greedy,
+            self.actor,
         )
+        self.calls += 1
         self.actions = actions.float()
         return self.actions
 
@@ -820,10 +844,20 @@ def build_agent(
     obs_space,
     seed: int,
     agent_state: Optional[Dict[str, Any]] = None,
+    *,
+    head_latent_size: Optional[int] = None,
+    extra_world_model: Optional[Dict[str, nn.Module]] = None,
+    agent_cls: Optional[type] = None,
 ) -> DV3Agent:
     """Build the agent on ``fabric.device``: initialized from ``seed`` through a
     CPU ``torch.Generator`` (the same weights on every device), or loaded from a
-    Flax-layout numpy tree ``agent_state`` (a checkpoint's ``state["agent"]``)."""
+    Flax-layout numpy tree ``agent_state`` (a checkpoint's ``state["agent"]``).
+
+    The Dreamer-V3 forks build through here: ``head_latent_size`` is the width
+    the heads read (the decoder, reward, continue, actor and critic; the RSSM
+    latent's by default), ``extra_world_model`` adds modules to the world model
+    (initialized after the others, each by its ``init_weights``) and
+    ``agent_cls`` is the agent's class (``DV3Agent`` by default)."""
     from sheeprl_tpu_torch.config.instantiate import locate
 
     wm_cfg = cfg.algo.world_model
@@ -872,6 +906,7 @@ def build_agent(
     stoch_state_size = stochastic_size * discrete_size
     recurrent_state_size = wm_cfg.recurrent_model.recurrent_state_size
     latent_state_size = stoch_state_size + recurrent_state_size
+    head_size = latent_state_size if head_latent_size is None else int(head_latent_size)
     act_dim = int(np.sum(actions_dim))
     decoupled_rssm = bool(wm_cfg.get("decoupled_rssm", False))
     posterior_scale = 1.0 if cfg.algo.hafner_initialization else None
@@ -881,7 +916,7 @@ def build_agent(
         CNNDecoder(
             keys=cnn_dec_keys,
             output_channels=[int(np.prod(obs_space[k].shape[:-2])) for k in cnn_dec_keys],
-            latent_dim=latent_state_size,
+            latent_dim=head_size,
             channels_multiplier=wm_cfg.observation_model.cnn_channels_multiplier,
             image_size=tuple(obs_space[cnn_dec_keys[0]].shape[-2:]),
             stages=cnn_stages,
@@ -897,7 +932,7 @@ def build_agent(
         MLPDecoder(
             keys=mlp_dec_keys,
             output_dims=[obs_space[k].shape[0] for k in mlp_dec_keys],
-            latent_dim=latent_state_size,
+            latent_dim=head_size,
             mlp_layers=wm_cfg.observation_model.mlp_layers,
             dense_units=wm_cfg.observation_model.dense_units,
             activation=cfg.algo.dense_act,
@@ -941,7 +976,7 @@ def build_agent(
             ),
             "observation_model": Decoder(cnn_decoder, mlp_decoder),
             "reward_model": MLPHead(
-                latent_state_size,
+                head_size,
                 wm_cfg.reward_model.dense_units,
                 wm_cfg.reward_model.mlp_layers,
                 wm_cfg.reward_model.bins,
@@ -951,7 +986,7 @@ def build_agent(
                 dtype,
             ),
             "continue_model": MLPHead(
-                latent_state_size,
+                head_size,
                 wm_cfg.discount_model.dense_units,
                 wm_cfg.discount_model.mlp_layers,
                 1,
@@ -960,6 +995,7 @@ def build_agent(
                 posterior_scale,
                 dtype,
             ),
+            **(extra_world_model or {}),
         }
     )
 
@@ -975,7 +1011,7 @@ def build_agent(
 
     def make_critic() -> MLPHead:
         return MLPHead(
-            latent_state_size,
+            head_size,
             critic_cfg.dense_units,
             critic_cfg.mlp_layers,
             critic_cfg.bins,
@@ -985,11 +1021,11 @@ def build_agent(
             dtype,
         )
 
-    agent = DV3Agent(
+    agent = (agent_cls or DV3Agent)(
         world_model,
         torch.zeros(recurrent_state_size),
         actor_cls(
-            latent_state_size,
+            head_size,
             actions_dim,
             is_continuous,
             actor_cfg.dense_units,
@@ -1032,6 +1068,7 @@ def build_agent(
             "observation_model",
             "reward_model",
             "continue_model",
+            *(extra_world_model or {}),
         ):
             world_model[name].init_weights(generator)
         agent.actor.init_weights(generator)

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -90,10 +90,25 @@ class DV3Trainer:
     At a bf16 compute dtype the losses are computed as the JAX step computes
     them (bf16 blocks, float32 where JAX promotes), the gradients land on the
     float32 parameters, and the optimizers, the global-norm clip and the
-    target critic's EMA are the float32 ones."""
+    target critic's EMA are the float32 ones.
 
-    def __init__(self, agent: DV3Agent, cfg, optimizers: Dict[str, torch.optim.Optimizer]):
+    ``world_latent_hook(latents, noise) -> (head latents, extra loss, extra
+    metrics)`` lets a fork map the latent the world model's heads read and add
+    loss terms, as ``make_train_phase``'s hook of the same name does (Offline
+    Dreamer's concept bottleneck); ``noise`` is the step's ``noise["hook"]``."""
+
+    # Plan2Explore trains the continue head on detached latents
+    continue_on_detached_latents = False
+
+    def __init__(
+        self,
+        agent: DV3Agent,
+        cfg,
+        optimizers: Dict[str, torch.optim.Optimizer],
+        world_latent_hook: Optional[Callable] = None,
+    ):
         self.agent = agent
+        self.world_latent_hook = world_latent_hook
         self.optimizers = optimizers
         self.groups = param_groups(agent)
         self.device = agent.initial_recurrent_state.device
@@ -135,7 +150,7 @@ class DV3Trainer:
         }
 
     # -- losses --------------------------------------------------------------------
-    def world_loss(self, batch: Batch, gumbel: torch.Tensor):
+    def world_loss(self, batch: Batch, gumbel: torch.Tensor, hook_noise: Any = None):
         """Returns (loss, (posteriors, recurrent states, metrics))."""
         agent, wm = self.agent, self.agent.world_model
         batch_obs = {k: batch[k] / 255.0 - 0.5 for k in self.cnn_keys}
@@ -148,6 +163,9 @@ class DV3Trainer:
         embedded = agent.encoder(batch_obs)
         hs, zs, post_logits, prior_logits = agent.dynamic_scan(embedded, actions, is_first, gumbel)
         latents = torch.cat([zs, hs], dim=-1)
+        extra_loss, extra_metrics = None, {}
+        if self.world_latent_hook is not None:
+            latents, extra_loss, extra_metrics = self.world_latent_hook(latents, hook_noise)
         recon = wm["observation_model"](latents)
         obs_lps = {
             k: MSEDistribution(recon[k], dims=len(recon[k].shape[2:])).log_prob(batch_obs[k])
@@ -160,7 +178,8 @@ class DV3Trainer:
             }
         )
         reward_lp = TwoHotEncodingDistribution(wm["reward_model"](latents), dims=1).log_prob(batch["rewards"])
-        cont_lp = Independent(BernoulliSafeMode(logits=wm["continue_model"](latents)), 1).log_prob(
+        cont_in = latents.detach() if self.continue_on_detached_latents else latents
+        cont_lp = Independent(BernoulliSafeMode(logits=wm["continue_model"](cont_in)), 1).log_prob(
             1.0 - batch["terminated"]
         )
         wm_cfg = self.wm_cfg
@@ -177,6 +196,8 @@ class DV3Trainer:
             continue_log_prob=cont_lp,
             continue_scale_factor=wm_cfg.continue_scale_factor,
         )
+        if extra_loss is not None:
+            loss = loss + extra_loss
         metrics = {
             "Loss/world_model_loss": loss,
             "Loss/observation_loss": observation_loss,
@@ -186,6 +207,7 @@ class DV3Trainer:
             "State/kl": kl,
             "State/post_entropy": _cat_entropy(post_logits.detach(), agent.discrete_size),
             "State/prior_entropy": _cat_entropy(prior_logits.detach(), agent.discrete_size),
+            **extra_metrics,
         }
         return loss, (zs, hs, metrics)
 
@@ -196,8 +218,10 @@ class DV3Trainer:
         true_continue: torch.Tensor,
         transition_noise: torch.Tensor,
         action_noise: torch.Tensor,
+        moments: Optional[Dict[str, torch.Tensor]] = None,
     ):
-        """Returns (policy loss, (latents, λ-values, discount, new Moments))."""
+        """Returns (policy loss, (latents, λ-values, discount, new Moments)),
+        normalizing with ``moments`` (``self.moments`` by default)."""
         agent, wm = self.agent, self.agent.world_model
         z0 = zs.detach().reshape(-1, agent.stoch_state_size)
         h0 = hs.detach().reshape(-1, agent.recurrent_state_size)
@@ -215,7 +239,8 @@ class DV3Trainer:
         )
         discount = (torch.cumprod(continues * self.gamma, dim=0) / self.gamma).detach()
 
-        offset, invscale, new_moments = update_moments(self.moments, lambda_values, **self.moments_kw)
+        moments = self.moments if moments is None else moments
+        offset, invscale, new_moments = update_moments(moments, lambda_values, **self.moments_kw)
         # the 0-d float32 Moments promote a bf16 baseline to float32 in JAX;
         # torch would keep bf16 for a 0-d operand, so the cast is written out
         baseline = predicted_values[:-1].float()
@@ -227,25 +252,40 @@ class DV3Trainer:
         policy_loss = -torch.mean(discount[:-1] * (objective + entropy[:-1]))
         return policy_loss, (latents, lambda_values, discount, new_moments)
 
-    def critic_loss(self, latents: torch.Tensor, lambda_values: torch.Tensor, discount: torch.Tensor):
-        agent = self.agent
-        qv = TwoHotEncodingDistribution(agent.critic(latents[:-1]), dims=1)
+    def critic_loss(
+        self,
+        latents: torch.Tensor,
+        lambda_values: torch.Tensor,
+        discount: torch.Tensor,
+        critic: Optional[torch.nn.Module] = None,
+        target: Optional[torch.nn.Module] = None,
+    ):
+        """The two-hot critic loss of ``critic`` against the λ-values and its
+        ``target``'s values (the agent's critic and target critic by default)."""
+        critic = self.agent.critic if critic is None else critic
+        target = self.agent.target_critic if target is None else target
+        qv = TwoHotEncodingDistribution(critic(latents[:-1]), dims=1)
         with torch.no_grad():
-            target_values = TwoHotEncodingDistribution(agent.target_critic(latents[:-1]), dims=1).mean
+            target_values = TwoHotEncodingDistribution(target(latents[:-1]), dims=1).mean
         value_loss = -qv.log_prob(lambda_values.detach())
         value_loss = value_loss - qv.log_prob(target_values)
         return torch.mean(value_loss * discount[:-1].squeeze(-1))
 
     # -- the step ------------------------------------------------------------------
+    def target_pairs(self) -> List[tuple]:
+        """(target, critic) module pairs that :meth:`update_target_critic` moves."""
+        return [(self.agent.target_critic, self.agent.critic)]
+
     @torch.no_grad()
     def update_target_critic(self, cum: int) -> None:
-        """EMA of the critic into the target critic, before the step, every
+        """EMA of each critic into its target, before the step, every
         ``per_rank_target_network_update_freq`` steps; a plain copy at step 0."""
         if cum % self.target_freq != 0:
             return
         tau = 1.0 if cum == 0 else self.tau
-        for t, c in zip(self.agent.target_critic.parameters(), self.agent.critic.parameters()):
-            t.copy_(tau * c + (1 - tau) * t)
+        for target, critic in self.target_pairs():
+            for t, c in zip(target.parameters(), critic.parameters()):
+                t.copy_(tau * c + (1 - tau) * t)
 
     def _apply(self, name: str, loss: torch.Tensor) -> torch.Tensor:
         """Gradients of ``loss`` for one group only, then :meth:`apply_grads`."""
@@ -267,7 +307,7 @@ class DV3Trainer:
         """One gradient step on a [T, B, ...] batch: world model, then actor,
         then critic. Returns the step's metrics as 0-d tensors."""
         self.update_target_critic(cum)
-        w_loss, (zs, hs, metrics) = self.world_loss(batch, noise["posterior"])
+        w_loss, (zs, hs, metrics) = self.world_loss(batch, noise["posterior"], noise.get("hook"))
         metrics["Grads/world_model"] = self._apply("world_model", w_loss)
 
         true_continue = (1 - batch["terminated"]).reshape(-1, 1)
@@ -296,6 +336,22 @@ class DV3Trainer:
         return dict(zip(keys, means.tolist()))
 
     # -- checkpoint state ----------------------------------------------------------
+    def agent_state(self) -> Dict[str, Any]:
+        """The agent's parameters in the JAX package's layout (a checkpoint's ``agent``)."""
+        from sheeprl_tpu_torch.interop.flax_to_torch import agent_to_flax
+
+        return agent_to_flax(self.agent)
+
+    def load_moments(self, tree: Any) -> None:
+        """A checkpoint's Moments (numpy or tensor leaves, nested dicts) onto the device."""
+
+        def walk(node):
+            if isinstance(node, dict):
+                return {k: walk(v) for k, v in node.items()}
+            return torch.as_tensor(np.array(node), device=self.device)
+
+        self.moments = walk(tree)
+
     def opt_state(self) -> Dict[str, Any]:
         return {name: opt.state_dict() for name, opt in self.optimizers.items()}
 
@@ -322,18 +378,37 @@ def _one_hot_actions(actions: np.ndarray, actions_dim: Sequence[int], num_envs: 
     )
 
 
-def run_dreamer(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
+def run_dreamer(
+    fabric,
+    cfg: Dict[str, Any],
+    *,
+    build_agent_fn: Optional[Callable] = None,
+    player_cls: Optional[Callable] = None,
+    make_trainer: Optional[Callable] = None,
+    finetuning: bool = False,
+    exploration_state: Optional[Dict[str, Any]] = None,
+) -> Dict[str, Any]:
     """The Dreamer-V3 training loop. Returns a summary of the run: policy and
     gradient steps, the player's batched calls, seconds spent stepping envs
     and training, the steady-state window (the policy steps, gradient steps
     and seconds from the first iteration after learning starts to the loop's
     end, without checkpoint writes), the last metrics, the test reward and the
-    last checkpoint's path."""
+    last checkpoint's path.
+
+    The forks with this loop's shape inject their pieces, as they do into the
+    JAX package's ``run_dreamer``: ``build_agent_fn`` (``build_agent``'s
+    signature), ``player_cls(agent, num_envs, cnn_keys, mlp_keys)`` and
+    ``make_trainer(agent, cfg)`` (a :class:`DV3Trainer` or a subclass; the
+    trainer also writes the checkpoint's agent and Moments). ``finetuning``
+    (Plan2Explore's second phase) has the player act from the first iteration,
+    with no random prefill, and switch to ``agent.actor`` (the task actor) once
+    learning starts; ``exploration_state`` is the exploration checkpoint the
+    agent comes from when the run is not resumed, and the replay buffer too
+    with ``buffer.load_from_exploration``."""
     from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
     from sheeprl_tpu_torch.data.prefetch import sample_to_device
     from sheeprl_tpu_torch.envs.spaces import action_space_dims
     from sheeprl_tpu_torch.envs.vector import SyncVectorEnv, episode_stats
-    from sheeprl_tpu_torch.interop.flax_to_torch import agent_to_flax
     from sheeprl_tpu_torch.resilience import signals
     from sheeprl_tpu_torch.utils.checkpoint import InertObject, load_checkpoint, load_run_buffer, save_run_checkpoint
     from sheeprl_tpu_torch.utils.env import make_env
@@ -383,15 +458,19 @@ def run_dreamer(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
     obs_keys = cnn_keys + mlp_keys
 
     fabric.seed_everything(cfg.seed)
-    agent = build_agent(
-        fabric, actions_dim, is_continuous, cfg, observation_space, cfg.seed, state["agent"] if state else None
+    source = state if state is not None else exploration_state
+    agent = (build_agent_fn or build_agent)(
+        fabric, actions_dim, is_continuous, cfg, observation_space, cfg.seed, source["agent"] if source else None
     )
-    player = PlayerDV3(agent, num_envs, cnn_keys, mlp_keys)
-    trainer = DV3Trainer(agent, cfg, build_optimizers(cfg, agent))
+    player = (player_cls or PlayerDV3)(agent, num_envs, cnn_keys, mlp_keys)
+    if make_trainer is None:
+        trainer = DV3Trainer(agent, cfg, build_optimizers(cfg, agent))
+    else:
+        trainer = make_trainer(agent, cfg)
     if state is not None and "opt_state" in state:
         trainer.load_opt_state(state["opt_state"])
     if state is not None and "moments" in state:
-        trainer.moments = {k: torch.as_tensor(np.asarray(v), device=device) for k, v in state["moments"].items()}
+        trainer.load_moments(state["moments"])
     save_configs(cfg, log_dir)
     aggregator = None if MetricAggregator.disabled else instantiate(cfg.metric.aggregator)
 
@@ -409,13 +488,16 @@ def run_dreamer(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
         memmap_dir=os.path.join(log_dir, "memmap_buffer", "rank_0"),
         buffer_cls=SequentialReplayBuffer,
     )
-    if state is not None and "rb" in state:
-        if isinstance(state["rb"], InertObject):
+    rb_source = state
+    if finetuning and state is None and cfg.buffer.get("load_from_exploration", False):
+        rb_source = exploration_state
+    if rb_source is not None and "rb" in rb_source:
+        if isinstance(rb_source["rb"], InertObject):
             raise NotImplementedError(
                 "the checkpoint holds a replay buffer of the JAX package: loading it is not yet ported "
                 "to sheeprl_tpu_torch (resume from a checkpoint written with buffer.checkpoint=False)"
             )
-        rb = load_run_buffer(state)
+        rb = load_run_buffer(rb_source)
     else:
         rb.seed(int(cfg.seed))
 
@@ -464,6 +546,7 @@ def run_dreamer(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
     window_t0 = None
     window_policy_step = window_gradient_step = 0
     window_ckpt_seconds = 0.0
+    actor_switch = None
 
     for iter_num in range(start_iter, total_iters + 1):
         if window_t0 is None and iter_num > learning_starts:
@@ -472,7 +555,7 @@ def run_dreamer(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
         policy_step += policy_steps_per_iter
         t0 = time.perf_counter()
         with timer("Time/env_interaction_time"):
-            if iter_num <= learning_starts and state is None:
+            if iter_num <= learning_starts and state is None and not finetuning:
                 actions = np.stack([envs.single_action_space.sample(action_rng) for _ in range(num_envs)])
                 real_actions = actions
                 if not is_continuous:
@@ -538,6 +621,10 @@ def run_dreamer(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
         )
 
         if iter_num >= learning_starts:
+            if finetuning and player.actor is not agent.actor:
+                # the prefill over, the player acts with the task actor
+                player.actor = agent.actor
+                actor_switch = {"iteration": iter_num, "player_calls_before": player_calls}
             per_rank_gradient_steps = ratio(policy_step - prefill_steps * policy_steps_per_iter)
             if per_rank_gradient_steps > 0:
                 t0 = time.perf_counter()
@@ -596,7 +683,7 @@ def run_dreamer(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
             last_checkpoint = policy_step
             pending_ckpt = False
             ckpt_state = {
-                "agent": agent_to_flax(agent),
+                "agent": trainer.agent_state(),
                 "opt_state": trainer.opt_state(),
                 "moments": trainer.moments,
                 "ratio": ratio.state_dict(),
@@ -621,6 +708,7 @@ def run_dreamer(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
     window_seconds = time.perf_counter() - window_t0 - window_ckpt_seconds if window_t0 is not None else 0.0
     envs.close()
     test_reward = None
+    calls_before_test = player.calls
     if not signals.preemption_requested() and cfg.algo.run_test:
         test_reward = test(player, cfg, log_dir, greedy=False, logger=logger)
     if logger is not None:
@@ -631,6 +719,7 @@ def run_dreamer(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
         "iterations": iter_num - start_iter + 1,
         "gradient_steps": cumulative_per_rank_gradient_steps,
         "player_calls": player_calls,
+        "test_player_calls": player.calls - calls_before_test,
         "env_seconds": env_seconds,
         "train_seconds": train_seconds,
         "wall_seconds": time.perf_counter() - t_start,
@@ -641,6 +730,7 @@ def run_dreamer(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
         "test_reward": test_reward,
         "checkpoint": ckpt_path,
         "preempted": signals.preemption_requested(),
+        **({"actor_switch": actor_switch} if finetuning else {}),
     }
 
 

@@ -3,7 +3,7 @@ one test episode of a checkpoint's agent."""
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import PlayerDV3, build_agent
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import test
@@ -12,7 +12,9 @@ from sheeprl_tpu_torch.envs.spaces import action_space_dims
 from sheeprl_tpu_torch.utils.env import make_env
 
 
-def evaluate(fabric, cfg: Dict[str, Any], state: Dict[str, Any]) -> float:
+def evaluate(fabric, cfg: Dict[str, Any], state: Dict[str, Any], build_agent_fn: Callable = build_agent) -> float:
+    """One test episode of the checkpoint's agent, acting with ``agent.actor``;
+    the Dreamer-V3 forks pass their own ``build_agent_fn``."""
     log_dir = cfg.get("log_dir", "logs/evaluation")
     env = make_env(cfg, cfg.seed, 0, log_dir, "test")()
     observation_space = env.observation_space
@@ -21,7 +23,7 @@ def evaluate(fabric, cfg: Dict[str, Any], state: Dict[str, Any]) -> float:
     if not isinstance(observation_space, spaces.Dict):
         raise RuntimeError(f"Unexpected observation type, should be of type Dict, got: {observation_space}")
     actions_dim, is_continuous = action_space_dims(action_space)
-    agent = build_agent(
+    agent = build_agent_fn(
         fabric,
         actions_dim,
         is_continuous,

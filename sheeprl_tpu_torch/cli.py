@@ -10,9 +10,13 @@ is set, refuses what is not ported, and runs the algorithm's loop on the card
 plays one test episode of a checkpoint (written by either package) with the
 config saved beside it.
 
-``fabric.precision=bf16-mixed|bf16-true`` runs Dreamer-V3 in bf16 (float32
-parameters); the other algorithms refuse it as not yet ported, in training,
-evaluation and serving alike.
+``fabric.precision=bf16-mixed|bf16-true`` runs Dreamer-V3, Plan2Explore and
+Offline Dreamer in bf16 (float32 parameters); the other algorithms refuse it
+as not yet ported, in training, evaluation and serving alike.
+
+``exp=p2e_dv3_finetuning checkpoint.exploration_ckpt_path=<ckpt>`` finetunes
+from an exploration checkpoint of either package, taking the exploration
+run's environment settings from the config.yaml beside it.
 
 Config keys the port keeps but does not act on yet accept only their off
 values: telemetry, the profiler, the supervisor, fault injection, the
@@ -112,7 +116,7 @@ def unported_settings(cfg) -> List[str]:
 
 
 # the algorithms ported at the bf16 policies (fabric.precision=bf16-mixed|bf16-true)
-BF16_ALGORITHMS = ("dreamer_v3",)
+BF16_ALGORITHMS = ("dreamer_v3", "p2e_dv3_exploration", "p2e_dv3_finetuning", "offline_dreamer")
 
 
 def unported_precision(cfg) -> None:
@@ -177,14 +181,55 @@ def setup_metrics(cfg) -> None:
     MetricAggregator.disabled = log_level == 0
 
 
+# the environment settings a finetuning run takes from its exploration run
+_EXPLORATION_ENV_KEYS = ("frame_stack", "screen_size", "action_repeat", "grayscale", "clip_rewards",
+                         "frame_stack_dilation", "max_episode_steps", "reward_as_observation")
+
+
+def exploration_config(cfg):
+    """The config of the exploration run a P2E finetuning run starts from (the
+    config.yaml beside ``checkpoint.exploration_ckpt_path``, written by either
+    package): the environment must be the same, and its settings carry over
+    into ``cfg``, as do the devices with ``buffer.load_from_exploration``."""
+    import yaml
+
+    from sheeprl_tpu_torch.config import dotdict, repoint_targets
+
+    ckpt_path = Path(cfg.checkpoint.exploration_ckpt_path)
+    try:
+        cfg_path = _config_beside(ckpt_path)
+    except ValueError:
+        raise ValueError(
+            f"cannot finetune from {ckpt_path}: no config.yaml found next to the exploration checkpoint"
+        ) from None
+    with open(cfg_path) as f:
+        exploration_cfg = dotdict(repoint_targets(yaml.safe_load(f)))
+    if exploration_cfg.env.id != cfg.env.id:
+        raise ValueError(
+            "This experiment is run with a different environment from the one of the exploration you want "
+            f"to finetune. Got '{cfg.env.id}', but the environment used during exploration was "
+            f"{exploration_cfg.env.id}."
+        )
+    for k in _EXPLORATION_ENV_KEYS:
+        if k in exploration_cfg.env:
+            cfg.env[k] = exploration_cfg.env[k]
+    if cfg.buffer.get("load_from_exploration", False):
+        cfg.fabric.devices = exploration_cfg.fabric.devices
+    return exploration_cfg
+
+
 def run_algorithm(cfg) -> Any:
-    """Registry lookup, metrics, fabric, then the algorithm's ``main(fabric, cfg)``."""
+    """Registry lookup, metrics, fabric, then the algorithm's ``main(fabric,
+    cfg)``; a P2E finetuning run also gets its exploration run's config."""
     import torch
 
     main = check_configs(cfg)
     setup_metrics(cfg)
     torch.set_num_threads(int(cfg.get("num_threads") or 1))
-    return main(_fabric(cfg), cfg)
+    kwargs = {}
+    if cfg.algo.name.startswith("p2e") and "finetuning" in cfg.algo.name:
+        kwargs["exploration_cfg"] = exploration_config(cfg)
+    return main(_fabric(cfg), cfg, **kwargs)
 
 
 def run(args: Optional[Sequence[str]] = None) -> Any:

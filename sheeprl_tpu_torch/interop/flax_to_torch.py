@@ -17,9 +17,15 @@ port's ``nn.Module``s and back:
   [n, out]``) and ``LayerNorm`` (``scale``/``bias`` ``[n, h]``) leaves  <->
   ``EnsembleMLP``'s stacked parameters, kept as they are.
 
+- Plan2Explore's ``EnsembleHeads`` (``VmapMLPHead_0``: stacked ``[n, ...]``
+  kernels, LayerNorm and head leaves), kept as they are.
+
 Composite modules name their children as the Flax modules do (``Dense_0``,
-``LayerNorm_1``, ``DenseStack_0``, ``Conv_2``, ...). The Dreamer-V3 agent
-(:func:`agent_to_flax`, :func:`load_flax_params`), the PPO agent, which A2C
+``LayerNorm_1``, ``DenseStack_0``, ``Conv_2``, ``context_0``/``prob_0`` of
+Offline Dreamer's CEM, ...). The Dreamer-V3 agent, Offline Dreamer's with its
+``world_model/cem`` (:func:`agent_to_flax`, :func:`load_flax_params`), the
+Plan2Explore agent (:func:`p2e_to_flax`, :func:`load_p2e_params`,
+:func:`p2e_group_to_torch`), the PPO agent, which A2C
 shares (:func:`ppo_to_flax`, :func:`load_ppo_params`), and the SAC agent,
 which DroQ shares (:func:`sac_to_flax`, :func:`load_sac_params`), are mapped
 whole; :func:`dv3_group_to_torch`, :func:`ppo_to_torch` and
@@ -37,6 +43,8 @@ import torch
 from torch import nn
 
 from sheeprl_tpu_torch.algos.dreamer_v3 import agent as dv3
+from sheeprl_tpu_torch.algos.offline_dreamer import agent as odv3
+from sheeprl_tpu_torch.algos.p2e_dv3 import agent as p2e
 from sheeprl_tpu_torch.algos.ppo import agent as ppo
 from sheeprl_tpu_torch.algos.sac import agent as sac
 from sheeprl_tpu_torch.models.models import MLP, EnsembleMLP, LayerNormGRUCell, NatureCNN
@@ -149,9 +157,35 @@ def critic_ensemble_from_flax(m: "sac.CriticEnsemble", tree: Tree, what: str = "
             _copy(param, layers[name][key], f"{what}/{m.flax_name}/MLP_0/{name}.{key}")
 
 
+# Plan2Explore's ensemble: nn.vmap names the wrapped MLPHead ``VmapMLPHead_0``
+def ensemble_heads_to_flax(m: "p2e.EnsembleHeads") -> Tree:
+    stack = {f"Dense_{i}": {"kernel": _np(k)} for i, k in enumerate(m.kernels)}
+    for i, (scale, bias) in enumerate(zip(m.ln_scales, m.ln_biases)):
+        stack[f"LayerNorm_{i}"] = {"scale": _np(scale), "bias": _np(bias)}
+    head = {"kernel": _np(m.head_kernel), "bias": _np(m.head_bias)}
+    return {"VmapMLPHead_0": {"DenseStack_0": stack, "Dense_0": head}}
+
+
+def ensemble_heads_from_flax(m: "p2e.EnsembleHeads", tree: Tree, what: str = "ensembles") -> None:
+    mine = ensemble_heads_to_flax(m)["VmapMLPHead_0"]
+    node = tree.get("VmapMLPHead_0") if sorted(tree) == ["VmapMLPHead_0"] else None
+    if node is None or sorted(node) != sorted(mine) or sorted(node["DenseStack_0"]) != sorted(mine["DenseStack_0"]):
+        raise ValueError(f"{what}: checkpoint children {sorted(tree)} do not match the ensemble's VmapMLPHead_0 "
+                         f"with {sorted(mine['DenseStack_0'])} and a Dense_0 head")
+    stack = node["DenseStack_0"]
+    for i, kernel in enumerate(m.kernels):
+        _copy(kernel, stack[f"Dense_{i}"]["kernel"], f"{what}/DenseStack_0/Dense_{i}.kernel")
+    for i, (scale, bias) in enumerate(zip(m.ln_scales, m.ln_biases)):
+        _copy(scale, stack[f"LayerNorm_{i}"]["scale"], f"{what}/DenseStack_0/LayerNorm_{i}.scale")
+        _copy(bias, stack[f"LayerNorm_{i}"]["bias"], f"{what}/DenseStack_0/LayerNorm_{i}.bias")
+    _copy(m.head_kernel, node["Dense_0"]["kernel"], f"{what}/Dense_0.kernel")
+    _copy(m.head_bias, node["Dense_0"]["bias"], f"{what}/Dense_0.bias")
+
+
 _LEAVES = (
     (nn.Linear, linear_to_flax, linear_from_flax),
     (sac.CriticEnsemble, critic_ensemble_to_flax, critic_ensemble_from_flax),
+    (p2e.EnsembleHeads, ensemble_heads_to_flax, ensemble_heads_from_flax),
     (nn.Conv2d, conv_to_flax, conv_from_flax),
     (nn.ConvTranspose2d, deconv_to_flax, deconv_from_flax),
     (nn.LayerNorm, layer_norm_to_flax, layer_norm_from_flax),
@@ -205,6 +239,12 @@ def _children(m: nn.Module) -> Dict[str, nn.Module]:
         return {"MLP_0": m.mlp}
     if isinstance(m, sac.SACActor):
         return {"MLP_0": m.model, "Dense_0": m.fc_mean, "Dense_1": m.fc_logstd}
+    if isinstance(m, odv3.CEM):
+        out = {}
+        for c, (context, prob) in enumerate(zip(m.contexts, m.probs)):
+            out[f"context_{c}"], out[f"prob_{c}"] = context, prob
+        out[f"context_{len(m.probs)}"] = m.residual
+        return out
     if isinstance(m, dv3.Decoder):
         return {k: v for k, v in (("cnn_decoder", m.cnn_decoder), ("mlp_decoder", m.mlp_decoder)) if v is not None}
     raise TypeError(f"no Flax mapping for {type(m).__name__}")
@@ -235,20 +275,11 @@ def module_from_flax(m: nn.Module, tree: Tree, what: str = "") -> None:
 
 
 # -- the Dreamer-V3 agent ---------------------------------------------------------------
-_WORLD_MODEL = (
-    "encoder",
-    "recurrent_model",
-    "representation_model",
-    "transition_model",
-    "observation_model",
-    "reward_model",
-    "continue_model",
-)
-
-
 def agent_to_flax(agent: "dv3.DV3Agent") -> Tree:
-    """The agent's parameters as the JAX package's params tree (numpy leaves)."""
-    wm = {name: module_to_flax(agent.world_model[name]) for name in _WORLD_MODEL}
+    """The agent's parameters as the JAX package's params tree (numpy leaves);
+    a fork's extra world-model modules (Offline Dreamer's ``cem``) ride in
+    ``world_model`` under their names."""
+    wm = {name: module_to_flax(module) for name, module in agent.world_model.items()}
     wm["initial_recurrent_state"] = _np(agent.initial_recurrent_state)
     return {
         "world_model": wm,
@@ -261,8 +292,11 @@ def agent_to_flax(agent: "dv3.DV3Agent") -> Tree:
 def load_flax_params(agent: "dv3.DV3Agent", params: Tree) -> None:
     """Copy a JAX-package params tree (numpy or array-like leaves) into ``agent``."""
     wm = params["world_model"]
-    for name in _WORLD_MODEL:
-        module_from_flax(agent.world_model[name], wm[name], f"world_model/{name}")
+    extra = sorted(set(wm) - set(agent.world_model) - {"initial_recurrent_state"})
+    if extra:
+        raise ValueError(f"world_model: the checkpoint holds {extra}, which the agent has not")
+    for name, module in agent.world_model.items():
+        module_from_flax(module, wm[name], f"world_model/{name}")
     _copy(agent.initial_recurrent_state, wm["initial_recurrent_state"], "initial_recurrent_state")
     module_from_flax(agent.actor, params["actor"], "actor")
     module_from_flax(agent.critic, params["critic"], "critic")
@@ -277,11 +311,76 @@ def dv3_group_to_torch(agent: "dv3.DV3Agent", group: str) -> Callable[[Tree], Li
     def convert(tree: Tree) -> List[torch.Tensor]:
         if group == "world_model":
             scratch = copy.deepcopy(agent.world_model)
-            for name in _WORLD_MODEL:
-                module_from_flax(scratch[name], tree[name], f"world_model/{name}")
+            for name, module in scratch.items():
+                module_from_flax(module, tree[name], f"world_model/{name}")
             init = torch.tensor(np.asarray(tree["initial_recurrent_state"], dtype=np.float32))
             return [p.detach() for p in scratch.parameters()] + [init]
         scratch = copy.deepcopy(getattr(agent, group))
+        module_from_flax(scratch, tree, group)
+        return [p.detach() for p in scratch.parameters()]
+
+    return convert
+
+
+# -- the Plan2Explore agent ---------------------------------------------------------------
+_P2E_KEYS = ("world_model", "actor_task", "critic_task", "target_critic_task", "actor_exploration",
+             "critics_exploration", "ensembles")
+
+
+def p2e_to_flax(agent: "dv3.DV3Agent") -> Tree:
+    """A Plan2Explore agent's parameters as the JAX package's P2E params tree."""
+    dv3_tree = agent_to_flax(agent)
+    return {
+        "world_model": dv3_tree["world_model"],
+        "actor_task": dv3_tree["actor"],
+        "critic_task": dv3_tree["critic"],
+        "target_critic_task": dv3_tree["target_critic"],
+        "actor_exploration": module_to_flax(agent.actor_exploration),
+        "critics_exploration": {
+            name: {"module": module_to_flax(pair["module"]), "target": module_to_flax(pair["target"])}
+            for name, pair in agent.critics_exploration.items()
+        },
+        "ensembles": module_to_flax(agent.ensembles),
+    }
+
+
+def load_p2e_params(agent: "dv3.DV3Agent", params: Tree) -> None:
+    """Copy a JAX-package (or port) P2E params tree into a Plan2Explore agent:
+    the ensembles' stacked leaves as they are, one module and one target per
+    exploration critic, which must be the config's critics."""
+    if sorted(params) != sorted(_P2E_KEYS):
+        raise ValueError(f"P2E params: checkpoint children {sorted(params)} do not match {sorted(_P2E_KEYS)}")
+    if sorted(params["critics_exploration"]) != sorted(agent.critics_exploration):
+        raise ValueError(f"P2E params: the checkpoint's exploration critics {sorted(params['critics_exploration'])} "
+                         f"are not the config's {sorted(agent.critics_exploration)}")
+    load_flax_params(agent, {"world_model": params["world_model"], "actor": params["actor_task"],
+                             "critic": params["critic_task"], "target_critic": params["target_critic_task"]})
+    module_from_flax(agent.actor_exploration, params["actor_exploration"], "actor_exploration")
+    for name, pair in agent.critics_exploration.items():
+        for role in ("module", "target"):
+            module_from_flax(pair[role], params["critics_exploration"][name][role], f"critics_exploration/{name}/{role}")
+    module_from_flax(agent.ensembles, params["ensembles"], "ensembles")
+
+
+def p2e_group_modules(agent: "dv3.DV3Agent") -> Dict[str, nn.Module]:
+    """The modules of each Plan2Explore optimizer group but the world model's:
+    the task heads, the exploration actor, the ensembles and one group per
+    exploration critic (``critic_exploration_<name>``)."""
+    groups = {"actor_task": agent.actor, "critic_task": agent.critic, "actor_exploration": agent.actor_exploration,
+              "ensembles": agent.ensembles}
+    groups.update({f"critic_exploration_{name}": pair["module"] for name, pair in agent.critics_exploration.items()})
+    return groups
+
+
+def p2e_group_to_torch(agent: "dv3.DV3Agent", group: str) -> Callable[[Tree], List[torch.Tensor]]:
+    """A tree shaped like the JAX params of one P2E optimizer group -> tensors
+    in the order of that group's parameters."""
+    if group == "world_model":
+        return dv3_group_to_torch(agent, group)
+    module = p2e_group_modules(agent)[group]
+
+    def convert(tree: Tree) -> List[torch.Tensor]:
+        scratch = copy.deepcopy(module)
         module_from_flax(scratch, tree, group)
         return [p.detach() for p in scratch.parameters()]
 

@@ -12,10 +12,15 @@ from typing import Callable, Dict, Tuple
 
 _DV3 = "sheeprl_tpu_torch.algos.dreamer_v3"
 _DV3_NAMES = ("dreamer_v3", "dreamer_v3_decoupled")
+_P2E = "sheeprl_tpu_torch.algos.p2e_dv3"
+_ODV3 = "sheeprl_tpu_torch.algos.offline_dreamer"
 
 # the training loop ``main(fabric, cfg)``
 ALGORITHMS: Dict[str, Tuple[str, str]] = {
     "dreamer_v3": (f"{_DV3}.dreamer_v3", "main"),
+    "p2e_dv3_exploration": (f"{_P2E}.p2e_dv3_exploration", "main"),
+    "p2e_dv3_finetuning": (f"{_P2E}.p2e_dv3_finetuning", "main"),
+    "offline_dreamer": (f"{_ODV3}.offline_dreamer", "main"),
     "ppo": ("sheeprl_tpu_torch.algos.ppo.ppo", "main"),
     "a2c": ("sheeprl_tpu_torch.algos.a2c.a2c", "main"),
     "sac": ("sheeprl_tpu_torch.algos.sac.sac", "main"),
@@ -24,6 +29,9 @@ ALGORITHMS: Dict[str, Tuple[str, str]] = {
 # ``evaluate(fabric, cfg, state)``
 EVALUATIONS: Dict[str, Tuple[str, str]] = {
     **{name: (f"{_DV3}.evaluate", "evaluate") for name in _DV3_NAMES},
+    # both phases evaluate the task actor
+    **{name: (f"{_P2E}.evaluate", "evaluate") for name in ("p2e_dv3_exploration", "p2e_dv3_finetuning")},
+    "offline_dreamer": (f"{_ODV3}.evaluate", "evaluate"),
     "ppo": ("sheeprl_tpu_torch.algos.ppo.evaluate", "evaluate"),
     "a2c": ("sheeprl_tpu_torch.algos.ppo.evaluate", "evaluate"),
     "sac": ("sheeprl_tpu_torch.algos.sac.evaluate", "evaluate"),

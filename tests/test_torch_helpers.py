@@ -223,3 +223,93 @@ SAC_TINY = SAC_SMALL + [
     "algo.learning_starts=16", "checkpoint.every=32", "metric.log_every=32", "env.max_episode_steps=24",
     "root_dir=tiny", "run_name=run",
 ]
+
+
+# Plan2Explore at the small widths: the DV3 overrides under the exploration
+# exp, with 3 ensemble members
+def p2e_overrides(extra: Sequence[str] = ()) -> list:
+    base = [o for o in overrides("discrete", extra) if not o.startswith("exp=")]
+    return ["exp=p2e_dv3_exploration", "algo.ensembles.n=3", *base]
+
+
+def filled(params, seed: int = 11):
+    """``params`` with every all-zero leaf (biases, LayerNorm shifts, the
+    zero-initialised reward and critic heads, the initial state) drawn from
+    N(0, 0.1^2), so that each of them shows in a comparison."""
+    rng = np.random.default_rng(seed)
+
+    def fill(x):
+        x = np.asarray(x)
+        return (0.1 * rng.standard_normal(x.shape)).astype(x.dtype) if not np.any(x) else x
+
+    return jax.tree_util.tree_map(fill, params)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_p2e(extra: Tuple[str, ...] = (), precision: str = "32-true"):
+    """The JAX P2E agent, its ensemble module, params (numpy, zero leaves
+    filled: the init does not depend on the precision), config and
+    observation space, built once per worker."""
+    from sheeprl_tpu.algos.p2e_dv3.agent import build_agent as jax_build
+    from sheeprl_tpu.config import compose as jax_compose
+    from sheeprl_tpu.parallel.fabric import Fabric as JaxFabric
+    from sheeprl_tpu.utils.env import make_env as jax_make_env
+
+    cfg = jax_compose(p2e_overrides(extra))
+    env = jax_make_env(cfg, 0, 0)()
+    obs_space = env.observation_space
+    env.close()
+    fabric = JaxFabric(devices=1, accelerator="cpu", precision=precision)
+    fabric._setup()
+    agent, ensembles, params = jax_build(fabric, *ACTIONS["discrete"], cfg, obs_space, jax.random.PRNGKey(3))
+    if precision != "32-true":
+        params = jax_p2e(extra)[2]
+    else:
+        params = filled(numpy_tree(params))
+    return agent, ensembles, params, cfg, obs_space
+
+
+def port_p2e(extra: Sequence[str] = (), precision: str = "32-true", params=None):
+    """The port's P2E agent and config, loaded from the JAX parameters."""
+    from sheeprl_tpu_torch.algos.p2e_dv3.agent import build_agent
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.parallel.fabric import Fabric
+
+    _, _, jparams, _, obs_space = jax_p2e(tuple(extra))
+    cfg = compose(p2e_overrides(extra))
+    params = jparams if params is None else params
+    agent = build_agent(Fabric(accelerator="cpu", precision=precision), *ACTIONS["discrete"], cfg, obs_space, 3, params)
+    return agent, cfg
+
+
+def jax_categorical_noise(key, rows: int, widths: Sequence[int], dtype=None) -> np.ndarray:
+    """The Gumbel noise ``jax.random.categorical`` draws over ``len(widths)``
+    heads of [rows, w] logits from ``key`` split per head."""
+    keys = jax.random.split(key, len(widths))
+    return np.concatenate(
+        [np.asarray(jax.random.gumbel(k, (rows, w), dtype or np.float32), np.float32) for k, w in zip(keys, widths)], -1
+    )
+
+
+def jax_imagination_noise(key, agent, rows: int, horizon: int, dtype=None):
+    """What a JAX ``imagination_scan`` over discrete actions draws from
+    ``key``: ``k0, kscan = split(key)``; the first action from ``k0``; per
+    step key ``k`` of ``split(kscan, horizon)`` the prior sample from ``k``
+    and the action from ``fold_in(k, 1)``. Returns (transition, action) noise."""
+    shape = (rows, agent.stochastic_size, agent.discrete_size)
+    k0, kscan = jax.random.split(key)
+    steps = jax.random.split(kscan, horizon)
+    trans = [np.asarray(jax.random.gumbel(k, shape, dtype or np.float32), np.float32).reshape(rows, -1) for k in steps]
+    act = [jax_categorical_noise(k0, rows, agent.actions_dim, dtype)]
+    act += [jax_categorical_noise(jax.random.fold_in(k, 1), rows, agent.actions_dim, dtype) for k in steps]
+    return np.stack(trans), np.stack(act)
+
+
+def jax_scan_noise(key, T: int, B: int, agent, dtype=None) -> np.ndarray:
+    """A JAX ``dynamic_scan``'s posterior Gumbel noise: ``split(key, T)``,
+    one [B, S, D] draw per step key."""
+    shape = (B, agent.stochastic_size, agent.discrete_size)
+    return np.stack(
+        [np.asarray(jax.random.gumbel(k, shape, dtype or np.float32), np.float32).reshape(B, -1)
+         for k in jax.random.split(key, T)]
+    )
