@@ -71,6 +71,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and one ODV3 gradient step card vs CPU in float32 (TF32 off, T=16, B=4;
    ``train_step_parity``'s float32 bars, the actors' metrics within 1e-2),
    and the seconds per P2E gradient step at 4 x 64;
+5d. Dreamer-V2 and Dreamer-V1 in float32 at their exps' widths
+   (``env=dummy``, 4 envs): ``exp=dreamer_v2`` (dense 400 x 4 layers,
+   recurrent 600, CNN x48, 32 x 32 discrete latents, batch 16 x 50, horizon
+   15) trains for at least 16 gradient steps through ``run``, resumes for at
+   least 4, evaluates, and its checkpoint is served through ``serve_main``
+   (4 slots, 4 sessions of 512 steps); every LN-GRU launch is accounted for,
+   all float32: 65 a gradient step (50 scan steps, 15 imagined) plus one a
+   policy step of the loop and of its test episode, one a serving tick.
+   ``exp=dreamer_v1`` (dense 400, recurrent 200, CNN x32, batch 50 x 50) on
+   ``env.id=continuous_dummy`` (the TruncatedNormal actor) the same, with no
+   LN-GRU launch at all (its cell has no LayerNorm). Then one DV2 and one DV1
+   gradient step card vs CPU in float32 (TF32 off, T=16, B=4) within
+   ``train_step_parity``'s float32 bars, and the seconds per DV2 gradient
+   step at 16 x 50 and per DV1 step at 50 x 50;
 6. PPO (``exp=ppo``, CartPole-v1 at the exp's settings: 4 envs x 128 steps,
    minibatches of 64, 10 epochs, width 64) through the entry points on the
    card: 65536 policy steps with the metric log and the test episode (its
@@ -96,7 +110,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    kernel name, with its kernel launches per call counted in a captured CUDA
    graph; serving ticks (device time by kernel, the LN-GRU kernel's launches
    by name, busy share); a training step in float32 and one in bf16 (the
-   same, and its kernel count); a P2E step at the DOA++ widths in bf16; a PPO
+   same, and its kernel count); a P2E step at the DOA++ widths in bf16; a
+   DV2 step at 16 x 50 and a DV1 step at 50 x 50 in float32; a PPO
    train phase and a SAC train phase (busy share, device operations);
 9. print the ``kernels`` JSON line, the card line, and the final result line.
 
@@ -109,7 +124,11 @@ must read them and add rows).
 Phase 3 also covers the training shapes of the kernel: B = 16 (the posterior
 scan) and B = 1024 (imagination's 16 x 64 rows), forward and gradient, and
 the DOA++ cell (K = 1792, 3H = 3072) at B = 4 (P2E's scan), 16 (its player)
-and 256 (its imagination's 4 x 64 rows).
+and 256 (its imagination's 4 x 64 rows), and the DV2 cell (K = 400 + 600 =
+1000, 3H = 1800: the first that is not a whole number of the kernel's tiles,
+19 column groups the last of 24 columns, a last K stage of 8 rows) at B = 4
+(the player, serving), 16 (the posterior scan) and 800 (imagination's 16 x
+50 rows).
 """
 
 from __future__ import annotations
@@ -168,12 +187,18 @@ GRU_SHAPES = [
     ("DOA", 4, 1792, 1024),
     ("DOA", 16, 1792, 1024),
     ("DOA", 256, 1792, 1024),
+    # Dreamer-V2 at its exp's widths (K = 400 + 600): the player's and serving's
+    # 4 envs or slots, the posterior scan's batch, imagination's 16 x 50 rows
+    ("DV2", 4, 1000, 600),
+    ("DV2", 16, 1000, 600),
+    ("DV2", 800, 1000, 600),
 ]
 MAIN_SHAPE = ("S", 4, 1024, 512)  # serving: 4 slots at the S preset
 # training: the posterior scan's batch, then imagination's rows
 TRAIN_SHAPES = [("S", 16, 1024, 512), ("S", 1024, 1024, 512)]
 P2E_SHAPES = [("DOA", 4, 1792, 1024), ("DOA", 16, 1792, 1024), ("DOA", 256, 1792, 1024)]
-GRAD_SHAPES = [MAIN_SHAPE, *TRAIN_SHAPES, *P2E_SHAPES]
+DV2_SHAPES = [("DV2", 4, 1000, 600), ("DV2", 16, 1000, 600), ("DV2", 800, 1000, 600)]
+GRAD_SHAPES = [MAIN_SHAPE, *TRAIN_SHAPES, *P2E_SHAPES, *DV2_SHAPES]
 
 SLOTS = 4
 SESSIONS = 4
@@ -677,15 +702,17 @@ def _s_trainers(devices, T: int, B: int, seed: int = 0, precision: str = "32-tru
     return trainers, _random_batch(T, B, seed)
 
 
-def _random_batch(T: int, B: int, seed: int) -> dict:
+def _random_batch(T: int, B: int, seed: int, continuous: bool = False) -> dict:
     """A [T, B] replay batch of the dummy env's rgb and state keys on the CPU,
-    a twentieth of the rows terminal."""
+    a twentieth of the rows terminal; one-hot actions of 2 choices, or 2
+    continuous ones in [-1, 1]."""
     rng = np.random.default_rng(seed)
     terminated = (rng.uniform(size=(T, B, 1)) < 0.05).astype(np.float32)
+    actions = rng.uniform(-1, 1, (T, B, 2)) if continuous else np.eye(2)[rng.integers(0, 2, (T, B))]
     batch = {
         "rgb": rng.integers(0, 256, (T, B, 3, 64, 64)).astype(np.uint8),
         "state": rng.standard_normal((T, B, 10)).astype(np.float32),
-        "actions": np.eye(2, dtype=np.float32)[rng.integers(0, 2, (T, B))],
+        "actions": actions.astype(np.float32),
         "rewards": rng.standard_normal((T, B, 1)).astype(np.float32),
         "terminated": terminated,
         "truncated": np.zeros((T, B, 1), np.float32),
@@ -1104,15 +1131,133 @@ def odv3_path(out_dir: str) -> dict:
     return out
 
 
+# -- Dreamer-V2 and Dreamer-V1 (phase 5d) ------------------------------------------
+DV_ENVS = 4
+# each env holds one 50-step sequence before the first gradient step: 56
+# iterations of random actions (the exps' learning_starts of 1000 and 5000
+# policy steps cut); per_rank_pretrain_steps stays the DV2 exp's 100, which
+# Ratio caps at the 4 policy steps counted at learning start (0 gradient steps)
+DV_LEARNING_STARTS_ITERS = 56
+# after learning starts, 24 iterations: 19 DV2 gradient steps at replay ratio
+# 0.2, 9 DV1 steps at 0.1. The resumed runs wait learning_starts again, then
+# the governor restored from the checkpoint takes 5 (DV2) and 4 (DV1) steps
+DV_FIRST_ITERS = DV_LEARNING_STARTS_ITERS + 24
+DV_RESUME_EXTRA_ITERS = {"dreamer_v2": 8, "dreamer_v1": 12}
+DV_MIN_GRADIENT_STEPS = {"dreamer_v2": (16, 4), "dreamer_v1": (8, 4)}
+# the posterior scan over 50 steps, imagination over 15: DV2's cell only; DV1's
+# has no LayerNorm and launches nothing
+DV_GRU_CALLS_PER_GRAD_STEP = {"dreamer_v2": 50 + 15, "dreamer_v1": 0}
+DV_TAGS = ("Loss/world_model_loss", "Loss/policy_loss", "Loss/value_loss", "State/kl", "Time/sps_train")
+
+
+def dv_overrides(algo: str, run_dir: str = "") -> list:
+    """``exp=dreamer_v2`` or ``exp=dreamer_v1`` at the exp's widths, batch,
+    sequence, horizon, replay ratio and buffer, on the dummy env (DV1 on the
+    continuous one, for its TruncatedNormal actor), 4 envs, learning_starts
+    cut."""
+    return [
+        f"exp={algo}",
+        "env=dummy",
+        *(["env.id=continuous_dummy"] if algo == "dreamer_v1" else []),
+        f"env.num_envs={DV_ENVS}",
+        f"algo.learning_starts={DV_ENVS * DV_LEARNING_STARTS_ITERS}",
+        *([f"hydra.run.dir={run_dir}"] if run_dir else []),
+    ]
+
+
+def _f32_launches(name: str, need: int) -> dict:
+    """The LN-GRU kernel's launches of a float32 run: exactly ``need``, all
+    with float32 operands."""
+    by_dtype = dict(LN_GRU.launches_by_dtype)
+    print(f"[chip-smoke] {name}: LN-GRU launches {LN_GRU.launches} by dtype {by_dtype} (need == {need}, all "
+          f"float32)", flush=True)
+    if LN_GRU.launches != need or by_dtype.get("float32", 0) != need:
+        raise AssertionError(f"{name}: LN-GRU launches {LN_GRU.launches} by dtype {by_dtype} != {need} float32")
+    return by_dtype
+
+
+def _check_dv_run(algo: str, name: str, summary: dict, min_steps: int) -> dict:
+    calls = DV_GRU_CALLS_PER_GRAD_STEP[algo]
+    need = calls * summary["gradient_steps"] + (summary["player_calls"] + summary["test_player_calls"] if calls else 0)
+    print(f"[chip-smoke] {name}: {summary['gradient_steps']} gradient steps, {summary['player_calls']} player calls "
+          f"(+{summary['test_player_calls']} in the test episode), {summary['policy_steps']} policy steps in "
+          f"{summary['wall_seconds']:.2f}s (train {summary['train_seconds']:.2f}s); metrics "
+          f"{json.dumps(summary['metrics'])}", flush=True)
+    by_dtype = _f32_launches(name, need)
+    if summary["gradient_steps"] < min_steps:
+        raise AssertionError(f"{name}: {summary['gradient_steps']} gradient steps, fewer than {min_steps}")
+    if not all(math.isfinite(v) for v in summary["metrics"].values()):
+        raise AssertionError(f"{name}: non-finite metrics {summary['metrics']}")
+    return {"summary": summary, "launches": _launches(), "by_dtype": by_dtype, "need": need}
+
+
+def dv_path(algo: str, out_dir: str) -> dict:
+    """Dreamer-V2 or V1 through the entry points in float32: train, resume,
+    evaluate, serve (4 slots, 4 sessions of 512 steps). The launch counts are
+    zeroed just before each and read just after: DV2 launches the LN-GRU
+    kernel 65 times a gradient step, once a policy step and once a serving
+    tick, DV1 never."""
+    from sheeprl_tpu_torch.cli import evaluation, run
+    from sheeprl_tpu_torch.serve.main import serve_main
+
+    overrides = dv_overrides(algo, os.path.join(out_dir, algo))
+    short = {"dreamer_v2": "DV2", "dreamer_v1": "DV1"}[algo]
+    min_first, min_resumed = DV_MIN_GRADIENT_STEPS[algo]
+    out = {}
+    _zero_launches()
+    first = run(overrides + [f"algo.total_steps={DV_ENVS * DV_FIRST_ITERS}"])
+    out["train"] = _check_dv_run(algo, f"{short} first run", first, min_first)
+    scalars = check_scalars(f"{short} first run", first["log_dir"], DV_TAGS)
+    out["train"]["scalars"] = {t: scalars[t][-1] for t in DV_TAGS}
+    resume_iters = DV_FIRST_ITERS + DV_LEARNING_STARTS_ITERS + DV_RESUME_EXTRA_ITERS[algo]
+    _zero_launches()
+    resumed = run(overrides + [f"algo.total_steps={DV_ENVS * resume_iters}",
+                               f"checkpoint.resume_from={first['checkpoint']}"])
+    out["resume"] = _check_dv_run(algo, f"{short} resumed run", resumed, min_resumed)
+    if not resumed["log_dir"].endswith("version_1"):
+        raise AssertionError(f"the resumed {short} run wrote {resumed['log_dir']}, not the run's version_1")
+    _zero_launches()
+    reward = evaluation([f"checkpoint_path={resumed['checkpoint']}"])
+    out["evaluation"] = {"reward": reward, "launches": _launches(), "by_dtype": dict(LN_GRU.launches_by_dtype)}
+    print(f"[chip-smoke] {short} evaluation: reward {reward}, LN-GRU launches {LN_GRU.launches}", flush=True)
+    if not math.isfinite(reward) or (LN_GRU.launches < 1 if DV_GRU_CALLS_PER_GRAD_STEP[algo] else LN_GRU.launches):
+        raise AssertionError(f"{short} evaluation: reward {reward}, {LN_GRU.launches} LN-GRU launches")
+    log_dir = os.path.join(out_dir, f"{algo}_serve")
+    _zero_launches()
+    rc = serve_main([f"checkpoint_path={resumed['checkpoint']}", f"serve.slots={SLOTS}", f"serve.sessions={SESSIONS}",
+                     f"serve.max_session_steps={MAX_SESSION_STEPS}", f"env.wrapper.n_steps={MAX_SESSION_STEPS}",
+                     f"serve.log_dir={log_dir}"])
+    with open(os.path.join(log_dir, "summary.json")) as f:
+        summary = json.load(f)
+    print(f"[chip-smoke] {short} serve rc={rc} summary={json.dumps(summary)}", flush=True)
+    if rc != 0 or summary["sessions_completed"] != SESSIONS or summary["steps"] != SESSIONS * MAX_SESSION_STEPS:
+        raise AssertionError(f"{short} serving did not complete every session: rc {rc}, {summary}")
+    need = summary["ticks"] if DV_GRU_CALLS_PER_GRAD_STEP[algo] else 0
+    out["serve"] = {"summary": summary, "by_dtype": _f32_launches(f"{short} serve", need), "launches": _launches(),
+                    "need": need}
+    out["seconds_per_gradient_step"] = first["train_seconds"] / first["gradient_steps"]
+    print(f"[chip-smoke] {short}: {out['seconds_per_gradient_step']:.4f} s per gradient step in the loop", flush=True)
+    return out
+
+
 def _family_trainers(kind: str, devices, T: int, B: int, seed: int = 0, precision: str = "32-true"):
-    """P2E (DOA++ widths) or ODV3 (S) trainers with the same weights from a
-    seed on each device at ``precision``, TF32 off, and a random batch."""
+    """P2E (DOA++ widths), ODV3 (S), DV2 or DV1 (their exps' widths) trainers
+    with the same weights from a seed on each device at ``precision``, TF32
+    off, and a random batch."""
     from sheeprl_tpu_torch.config import compose
-    from sheeprl_tpu_torch.interop.flax_to_torch import agent_to_flax, p2e_to_flax
+    from sheeprl_tpu_torch.interop.flax_to_torch import agent_to_flax, dv2_to_flax, p2e_to_flax
     from sheeprl_tpu_torch.parallel.fabric import Fabric
     from sheeprl_tpu_torch.utils.env import make_env
 
-    if kind == "p2e":
+    continuous = False
+    if kind in ("dv2", "dv1"):
+        import importlib
+
+        algo = {"dv2": "dreamer_v2", "dv1": "dreamer_v1"}[kind]
+        build_agent = importlib.import_module(f"sheeprl_tpu_torch.algos.{algo}.agent").build_agent
+        make_trainer = importlib.import_module(f"sheeprl_tpu_torch.algos.{algo}.{algo}").make_trainer
+        cfg, to_flax, continuous = compose(dv_overrides(algo)), dv2_to_flax, kind == "dv1"
+    elif kind == "p2e":
         from sheeprl_tpu_torch.algos.p2e_dv3.agent import build_agent
         from sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration import make_trainer
 
@@ -1126,10 +1271,10 @@ def _family_trainers(kind: str, devices, T: int, B: int, seed: int = 0, precisio
     trainers, weights = {}, None
     for accel in devices:
         fabric = Fabric(accelerator=accel, precision=precision, float32_matmul_precision="highest")
-        agent = build_agent(fabric, (2,), False, cfg, space, seed, weights)
+        agent = build_agent(fabric, (2,), continuous, cfg, space, seed, weights)
         weights = weights or to_flax(agent)
         trainers[accel] = make_trainer(agent, cfg)
-    return trainers, _random_batch(T, B, seed)
+    return trainers, _random_batch(T, B, seed, continuous)
 
 
 def _noise_to(noise, device, dtype):
@@ -1147,15 +1292,16 @@ def _flat_moments(moments, prefix: str = "") -> dict:
     return {prefix: float(moments)}
 
 
-def family_step_parity(kind: str) -> dict:
+def family_step_parity(kind: str, actor_rtol: float = FAMILY_ACTOR_RTOL) -> dict:
     """One gradient step of P2E (DOA++ widths, T=16, B=4) or ODV3 (S, T=16,
     B=4) on the card vs on the CPU in float32 with TF32 off, from the same
     weights, batch and noise, held to ``train_step_parity``'s float32 bars:
     every metric within TRAIN_STEP_RTOL but the actors' losses and gradient
-    norms (FAMILY_ACTOR_METRICS, within FAMILY_ACTOR_RTOL: see there); every
-    parameter (each exploration critic's and target's, the ensembles', the
-    CEM's) within 2 lr and a share >= TRAIN_PARAM_SHARE within
-    TRAIN_PARAM_ATOL; every Moments within TRAIN_STEP_RTOL."""
+    norms (FAMILY_ACTOR_METRICS, within ``actor_rtol``: FAMILY_ACTOR_RTOL,
+    see there; DV2 and DV1 take TRAIN_STEP_RTOL); every parameter (each
+    exploration critic's and target's, the ensembles', the CEM's) within 2
+    lr and a share >= TRAIN_PARAM_SHARE within TRAIN_PARAM_ATOL; every
+    Moments (DV2 and DV1 have none) within TRAIN_STEP_RTOL."""
     T, B = 16, 4
     threads = torch.get_num_threads()
     torch.set_num_threads(os.cpu_count() or 1)  # the CLI runs left one
@@ -1180,18 +1326,18 @@ def family_step_parity(kind: str) -> dict:
     card, cpu = trainers["gpu"], trainers["cpu"]
     ours = {k: v.detach().cpu() for k, v in card.agent.state_dict().items()}
     flat = torch.cat([(ours[k] - v).abs().reshape(-1) for k, v in cpu.agent.state_dict().items()])
-    m_card, m_cpu = _flat_moments(card.moments), _flat_moments(cpu.moments)
+    m_card, m_cpu = _flat_moments(getattr(card, "moments", {})), _flat_moments(getattr(cpu, "moments", {}))
     state = {
         "param_max_abs_gap": float(flat.max()),
         "param_share_within_atol": float((flat <= TRAIN_PARAM_ATOL).float().mean()),
-        "moments_rel_gap": max(abs(m_card[k] - v) / max(abs(v), 1e-3) for k, v in m_cpu.items()),
+        "moments_rel_gap": max((abs(m_card[k] - v) / max(abs(v), 1e-3) for k, v in m_cpu.items()), default=0.0),
         "parameters": int(flat.numel()),
     }
     print(f"[chip-smoke] {kind} train step card vs CPU (float32, TF32 off, T={T}, B={B}): worst relative err of the "
-          f"metrics {worst} (bar {TRAIN_STEP_RTOL}), of the actors' {worst_actor} (bar {FAMILY_ACTOR_RTOL}); state "
+          f"metrics {worst} (bar {TRAIN_STEP_RTOL}), of the actors' {worst_actor} (bar {actor_rtol}); state "
           f"{json.dumps(state)} (bars: every parameter within {2 * lr:.1e}, a share >= {TRAIN_PARAM_SHARE} within "
           f"{TRAIN_PARAM_ATOL}); metrics {json.dumps(metrics)}", flush=True)
-    if worst > TRAIN_STEP_RTOL or worst_actor > FAMILY_ACTOR_RTOL:
+    if worst > TRAIN_STEP_RTOL or worst_actor > actor_rtol:
         raise AssertionError(f"the {kind} train step on the card disagrees with the CPU: {json.dumps(rel)}")
     if not (state["param_max_abs_gap"] <= 2 * lr and state["param_share_within_atol"] >= TRAIN_PARAM_SHARE
             and state["moments_rel_gap"] <= TRAIN_STEP_RTOL):
@@ -1200,13 +1346,19 @@ def family_step_parity(kind: str) -> dict:
             "B": B, **metrics}
 
 
+# (T, B, precision) of each family's timed step: P2E at its DOA++ batch in
+# bf16, DV2 and DV1 at their exps' batches in float32
+FAMILY_TIMING = {"p2e": (64, 4, P2E_PRECISION), "dv2": (50, 16, "32-true"), "dv1": (50, 50, "32-true")}
+
+
 def time_family_steps(kind: str = "p2e", steps: int = 3) -> tuple:
     """Seconds per gradient step of P2E at the DOA++ widths and batch (4 x
-    64), bf16-mixed, eager; returns the warm trainer for the profile."""
+    64, bf16-mixed), or of DV2 (16 x 50) or DV1 (50 x 50) in float32, eager,
+    TF32 as the config sets it; returns the warm trainer for the profile."""
     from sheeprl_tpu_torch.parallel.fabric import apply_matmul_precision
 
-    T, B = 64, 4
-    trainers, batch = _family_trainers(kind, ("gpu",), T, B, seed=2, precision=P2E_PRECISION)
+    T, B, precision = FAMILY_TIMING[kind]
+    trainers, batch = _family_trainers(kind, ("gpu",), T, B, seed=2, precision=precision)
     trainer = trainers["gpu"]
     apply_matmul_precision("high")
     batch = {k: v.to(trainer.device) for k, v in batch.items()}
@@ -1218,7 +1370,7 @@ def time_family_steps(kind: str = "p2e", steps: int = 3) -> tuple:
     for cum in range(2, 2 + steps):
         trainer.train_step(batch, cum, trainer.draw_noise(T, B, generator))
     torch.cuda.synchronize()
-    out = {"kind": kind, "precision": P2E_PRECISION, "T": T, "B": B, "steps": steps,
+    out = {"kind": kind, "precision": precision, "T": T, "B": B, "steps": steps,
            "seconds_per_gradient_step": (time.perf_counter() - t0) / steps}
     print(f"[chip-smoke] {kind} train step timing: {json.dumps(out)}", flush=True)
     return out, (trainer, batch, generator)
@@ -2335,6 +2487,12 @@ def main() -> int:
         p2e["parity"] = family_step_parity("p2e")
         odv3["parity"] = family_step_parity("odv3")
         p2e["timing"], p2e_warm = time_family_steps("p2e")
+        # Dreamer-V2 and V1 in float32 at their exps' widths
+        dv2, dv1 = dv_path("dreamer_v2", tmp), dv_path("dreamer_v1", tmp)
+        dv2["parity"] = family_step_parity("dv2", actor_rtol=TRAIN_STEP_RTOL)
+        dv1["parity"] = family_step_parity("dv1", actor_rtol=TRAIN_STEP_RTOL)
+        dv2["timing"], dv2_warm = time_family_steps("dv2")
+        dv1["timing"], dv1_warm = time_family_steps("dv1")
         ppo = ppo_path(tmp)
         ppo["serve"] = ppo_serve_path(ppo["train"]["summary"]["checkpoint"], tmp)
         a2c = a2c_path(tmp)
@@ -2352,13 +2510,16 @@ def main() -> int:
         train_timing["profile"] = profile_train_steps(warm)
         bf16["timing"]["profile"] = profile_train_steps(warm_bf16)
         p2e["timing"]["profile"] = profile_train_steps(p2e_warm, steps=2)
+        dv2["timing"]["profile"] = profile_train_steps(dv2_warm, steps=2)
+        dv1["timing"]["profile"] = profile_train_steps(dv1_warm, steps=2)
         ppo["timing"]["profile"] = profile_ppo_train_phase(ppo_warm)
         sac["timing"]["profile"] = profile_sac_train_phase(sac_warm)
-        del warm, warm_bf16, ppo_warm, sac_warm, p2e_warm
+        del warm, warm_bf16, ppo_warm, sac_warm, p2e_warm, dv2_warm, dv1_warm
 
     main_row = next(r for r in gru["rows"] if (r["preset"], r["B"], r["K"], r["H"]) == MAIN_SHAPE)
     train_rows = [r for r in gru["rows"] if (r["preset"], r["B"], r["K"], r["H"]) in TRAIN_SHAPES]
     p2e_rows = [r for r in gru["rows"] + gru_bf16["rows"] if (r["preset"], r["B"], r["K"], r["H"]) in P2E_SHAPES]
+    dv2_rows = [r for r in gru["rows"] + gru_bf16["rows"] if (r["preset"], r["B"], r["K"], r["H"]) in DV2_SHAPES]
     keep = ("B", "K", "H", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err",
             "grad_max_abs_err", "launches_per_call", "call_ms")
     kernels = [
@@ -2393,10 +2554,16 @@ def main() -> int:
                 **{f"p2e_{name}": p2e[name]["launches"][LN_GRU.name]
                    for name in ("train", "resume", "evaluation", "finetune", "finetune_evaluation")},
                 **{f"odv3_{name}": odv3[name]["launches"][LN_GRU.name] for name in ("train", "resume", "evaluation")},
+                # Dreamer-V2 and V1 in float32: 65 launches a DV2 gradient step plus one
+                # a policy step and one a serving tick; DV1's cell launches none
+                **{f"{fam}_{name}": res[name]["launches"][LN_GRU.name]
+                   for fam, res in (("dv2", dv2), ("dv1", dv1)) for name in ("train", "resume", "evaluation", "serve")},
             },
             "launches_needed_by_path": {
                 **{f"p2e_{name}": p2e[name]["need"] for name in ("train", "resume", "finetune")},
                 **{f"odv3_{name}": odv3[name]["need"] for name in ("train", "resume")},
+                **{f"{fam}_{name}": res[name]["need"]
+                   for fam, res in (("dv2", dv2), ("dv1", dv1)) for name in ("train", "resume", "serve")},
             },
             "launches_by_dtype": {
                 **{name: bf16[name]["by_dtype"] for name in ("train", "resume", "evaluation", "serve")},
@@ -2404,6 +2571,7 @@ def main() -> int:
                 **{f"odv3_{name}": odv3[name]["by_dtype"] for name in ("train", "resume")},
             },
             "p2e_rows": [{"dtype": r["dtype"], **{k: r[k] for k in keep if k in r}} for r in p2e_rows],
+            "dv2_rows": [{"dtype": r["dtype"], **{k: r[k] for k in keep if k in r}} for r in dv2_rows],
             "bf16_rows": [{k: r[k] for k in keep if k in r} for r in gru_bf16["rows"]],
             "bf16_max_abs_err": gru_bf16["max_abs_err"],
             "train_rows": [{k: r[k] for k in keep} for r in train_rows],
@@ -2429,7 +2597,7 @@ def main() -> int:
                  "launches": path["launches"], "serve_parity": parity, "serve_profile": profile,
                  "train": train, "train_parity": train_parity, "train_timing": train_timing,
                  "gru_bf16": gru_bf16, "bf16": bf16, "serving_planes": planes,
-                 "p2e": p2e, "odv3": odv3,
+                 "p2e": p2e, "odv3": odv3, "dv2": dv2, "dv1": dv1,
                  "ppo": ppo, "a2c": a2c, "sac": sac, "droq": droq, "kernels": kernels},
                 f, indent=2,
             )

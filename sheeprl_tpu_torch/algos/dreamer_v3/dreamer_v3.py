@@ -84,7 +84,64 @@ def _cat_entropy(logits: torch.Tensor, discrete: int) -> torch.Tensor:
     return -torch.sum(torch.exp(lp) * lp, dim=(-2, -1)).mean()
 
 
-class DV3Trainer:
+class DreamerTrainer:
+    """What the Dreamer trainers share: one optimizer per parameter group
+    (``self.groups``, ``self.optimizers``, ``self.clips``), a group's clipped
+    update from its gradients, ``G`` steps over a replay block, and the
+    optimizer states in and out of checkpoints. A subclass defines
+    ``draw_noise``, ``train_step``, ``agent_state`` and ``group_to_torch``."""
+
+    def extra_state(self) -> Dict[str, Any]:
+        """What the trainer adds to a checkpoint besides the agent and the
+        optimizer states."""
+        return {}
+
+    def _apply(self, name: str, loss: torch.Tensor) -> torch.Tensor:
+        """Gradients of ``loss`` for one group only, then :meth:`apply_grads`."""
+        return self.apply_grads(name, torch.autograd.grad(loss, self.groups[name], allow_unused=True))
+
+    def apply_grads(self, name: str, grads) -> torch.Tensor:
+        """One group's update from its gradients (in group order): clipped,
+        then its optimizer step. Returns the global norm before clipping."""
+        params = self.groups[name]
+        for p, g in zip(params, grads):
+            p.grad = g
+        norm = clip_grad_global_norm_(params, self.clips[name])
+        self.optimizers[name].step()
+        for p in params:
+            p.grad = None
+        return norm
+
+    def train(self, data: Batch, cum_steps: int, generator: Optional[torch.Generator]) -> Dict[str, float]:
+        """``G`` gradient steps over a [G, T, B, ...] block; returns the mean of
+        each metric over them."""
+        G, T, B = data["rewards"].shape[:3]
+        all_metrics = []
+        for g in range(G):
+            batch = {k: v[g] for k, v in data.items()}
+            all_metrics.append(self.train_step(batch, cum_steps + g, self.draw_noise(T, B, generator)))
+        keys = sorted(all_metrics[0])
+        means = torch.stack([torch.stack([m[k] for m in all_metrics]).float().mean() for k in keys]).cpu()
+        return dict(zip(keys, means.tolist()))
+
+    def opt_state(self) -> Dict[str, Any]:
+        return {name: opt.state_dict() for name, opt in self.optimizers.items()}
+
+    def load_opt_state(self, opt_state: Any) -> None:
+        """Load the optimizer states of a checkpoint of either package: the
+        port's torch state dicts, or the JAX package's optax states, converted
+        (``interop/optax_to_torch.py``)."""
+        from sheeprl_tpu_torch.interop.optax_to_torch import load_optimizer_state
+
+        if not (isinstance(opt_state, dict) and set(opt_state) >= set(self.optimizers)):
+            raise ValueError(
+                f"the checkpoint's optimizer state should hold the groups {sorted(self.optimizers)}"
+            )
+        for name, opt in self.optimizers.items():
+            load_optimizer_state(opt, opt_state[name], self.group_to_torch(name))
+
+
+class DV3Trainer(DreamerTrainer):
     """Owns the optimizers and the Moments state, and takes gradient steps.
 
     At a bf16 compute dtype the losses are computed as the JAX step computes
@@ -287,22 +344,6 @@ class DV3Trainer:
             for t, c in zip(target.parameters(), critic.parameters()):
                 t.copy_(tau * c + (1 - tau) * t)
 
-    def _apply(self, name: str, loss: torch.Tensor) -> torch.Tensor:
-        """Gradients of ``loss`` for one group only, then :meth:`apply_grads`."""
-        return self.apply_grads(name, torch.autograd.grad(loss, self.groups[name], allow_unused=True))
-
-    def apply_grads(self, name: str, grads) -> torch.Tensor:
-        """One group's update from its gradients (in group order): clipped,
-        then its optimizer step. Returns the global norm before clipping."""
-        params = self.groups[name]
-        for p, g in zip(params, grads):
-            p.grad = g
-        norm = clip_grad_global_norm_(params, self.clips[name])
-        self.optimizers[name].step()
-        for p in params:
-            p.grad = None
-        return norm
-
     def train_step(self, batch: Batch, cum: int, noise: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One gradient step on a [T, B, ...] batch: world model, then actor,
         then critic. Returns the step's metrics as 0-d tensors."""
@@ -323,18 +364,6 @@ class DV3Trainer:
         metrics["Loss/value_loss"] = c_loss.detach()
         return {k: v.detach() for k, v in metrics.items()}
 
-    def train(self, data: Batch, cum_steps: int, generator: Optional[torch.Generator]) -> Dict[str, float]:
-        """``G`` gradient steps over a [G, T, B, ...] block; returns the mean of
-        each metric over them."""
-        G, T, B = data["rewards"].shape[:3]
-        all_metrics = []
-        for g in range(G):
-            batch = {k: v[g] for k, v in data.items()}
-            all_metrics.append(self.train_step(batch, cum_steps + g, self.draw_noise(T, B, generator)))
-        keys = sorted(all_metrics[0])
-        means = torch.stack([torch.stack([m[k] for m in all_metrics]).float().mean() for k in keys]).cpu()
-        return dict(zip(keys, means.tolist()))
-
     # -- checkpoint state ----------------------------------------------------------
     def agent_state(self) -> Dict[str, Any]:
         """The agent's parameters in the JAX package's layout (a checkpoint's ``agent``)."""
@@ -352,22 +381,13 @@ class DV3Trainer:
 
         self.moments = walk(tree)
 
-    def opt_state(self) -> Dict[str, Any]:
-        return {name: opt.state_dict() for name, opt in self.optimizers.items()}
+    def extra_state(self) -> Dict[str, Any]:
+        return {"moments": self.moments}
 
-    def load_opt_state(self, opt_state: Any) -> None:
-        """Load the optimizer states of a checkpoint of either package: the
-        port's torch state dicts, or the JAX package's optax states, converted
-        (``interop/optax_to_torch.py``)."""
+    def group_to_torch(self, name: str):
         from sheeprl_tpu_torch.interop.flax_to_torch import dv3_group_to_torch
-        from sheeprl_tpu_torch.interop.optax_to_torch import load_optimizer_state
 
-        if not (isinstance(opt_state, dict) and set(opt_state) >= set(self.optimizers)):
-            raise ValueError(
-                f"the checkpoint's optimizer state should hold the groups {sorted(self.optimizers)}"
-            )
-        for name, opt in self.optimizers.items():
-            load_optimizer_state(opt, opt_state[name], dv3_group_to_torch(self.agent, name))
+        return dv3_group_to_torch(self.agent, name)
 
 
 def _one_hot_actions(actions: np.ndarray, actions_dim: Sequence[int], num_envs: int) -> np.ndarray:
@@ -387,6 +407,10 @@ def run_dreamer(
     make_trainer: Optional[Callable] = None,
     finetuning: bool = False,
     exploration_state: Optional[Dict[str, Any]] = None,
+    dv3_loop: bool = True,
+    make_buffer: Optional[Callable] = None,
+    expl_amount: Optional[Callable[[int], float]] = None,
+    prefill_actor: Optional[torch.nn.Module] = None,
 ) -> Dict[str, Any]:
     """The Dreamer-V3 training loop. Returns a summary of the run: policy and
     gradient steps, the player's batched calls, seconds spent stepping envs
@@ -404,7 +428,16 @@ def run_dreamer(
     with no random prefill, and switch to ``agent.actor`` (the task actor) once
     learning starts; ``exploration_state`` is the exploration checkpoint the
     agent comes from when the run is not resumed, and the replay buffer too
-    with ``buffer.load_from_exploration``."""
+    with ``buffer.load_from_exploration``.
+
+    The Dreamer-V1/V2 loops are this one with ``dv3_loop=False`` (frame_stack
+    1 and none of the Dreamer-V3 loop's screen-size and key checks, as the
+    JAX loops): ``make_buffer(cfg, buffer_size, num_envs, obs_keys,
+    memmap_dir)`` builds their replay buffer (sequential or episodes),
+    ``expl_amount(policy_step)`` is the exploration noise's amount the player
+    adds, and ``prefill_actor`` the actor the player acts with while
+    learning has not started (``exploration_actor_params`` of the JAX
+    Dreamer-V2 loop)."""
     from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
     from sheeprl_tpu_torch.data.prefetch import sample_to_device
     from sheeprl_tpu_torch.envs.spaces import action_space_dims
@@ -420,8 +453,8 @@ def run_dreamer(
     state = load_checkpoint(cfg.checkpoint.resume_from) if cfg.checkpoint.resume_from else None
 
     # these cannot be changed
-    cfg.env.frame_stack = -1
-    if 2 ** int(np.log2(cfg.env.screen_size)) != cfg.env.screen_size:
+    cfg.env.frame_stack = -1 if dv3_loop else 1
+    if dv3_loop and 2 ** int(np.log2(cfg.env.screen_size)) != cfg.env.screen_size:
         raise ValueError(f"The screen size must be a power of 2, got: {cfg.env.screen_size}")
 
     log_dir = get_log_dir(cfg)
@@ -440,17 +473,17 @@ def run_dreamer(
     clip_rewards_fn = (lambda r: np.tanh(r)) if cfg.env.clip_rewards else (lambda r: r)
     cnn_keys = list(cfg.algo.cnn_keys.encoder)
     mlp_keys = list(cfg.algo.mlp_keys.encoder)
-    if (
+    if dv3_loop and (
         len(set(cnn_keys).intersection(set(cfg.algo.cnn_keys.decoder))) == 0
         and len(set(mlp_keys).intersection(set(cfg.algo.mlp_keys.decoder))) == 0
     ):
         raise RuntimeError("The CNN keys or the MLP keys of the encoder and decoder must not be disjointed")
-    if len(set(cfg.algo.cnn_keys.decoder) - set(cnn_keys)) > 0:
+    if dv3_loop and len(set(cfg.algo.cnn_keys.decoder) - set(cnn_keys)) > 0:
         raise RuntimeError(
             "The CNN keys of the decoder must be contained in the encoder ones. "
             f"Those keys are decoded without being encoded: {list(set(cfg.algo.cnn_keys.decoder))}"
         )
-    if len(set(cfg.algo.mlp_keys.decoder) - set(mlp_keys)) > 0:
+    if dv3_loop and len(set(cfg.algo.mlp_keys.decoder) - set(mlp_keys)) > 0:
         raise RuntimeError(
             "The MLP keys of the decoder must be contained in the encoder ones. "
             f"Those keys are decoded without being encoded: {list(set(cfg.algo.mlp_keys.decoder))}"
@@ -480,14 +513,18 @@ def run_dreamer(
         # steps sample sequences of that one row (the JAX loop would ask for
         # the configured length and fail)
         cfg.algo.per_rank_sequence_length = 1
-    rb = EnvIndependentReplayBuffer(
-        buffer_size,
-        n_envs=num_envs,
-        obs_keys=tuple(obs_keys),
-        memmap=cfg.buffer.memmap,
-        memmap_dir=os.path.join(log_dir, "memmap_buffer", "rank_0"),
-        buffer_cls=SequentialReplayBuffer,
-    )
+    memmap_dir = os.path.join(log_dir, "memmap_buffer", "rank_0")
+    if make_buffer is not None:
+        rb = make_buffer(cfg, buffer_size, num_envs, tuple(obs_keys), memmap_dir)
+    else:
+        rb = EnvIndependentReplayBuffer(
+            buffer_size,
+            n_envs=num_envs,
+            obs_keys=tuple(obs_keys),
+            memmap=cfg.buffer.memmap,
+            memmap_dir=memmap_dir,
+            buffer_cls=SequentialReplayBuffer,
+        )
     rb_source = state
     if finetuning and state is None and cfg.buffer.get("load_from_exploration", False):
         rb_source = exploration_state
@@ -562,7 +599,10 @@ def run_dreamer(
                     actions = _one_hot_actions(actions, actions_dim, num_envs)
             else:
                 jobs = prepare_obs(obs, cnn_keys=cnn_keys, mlp_keys=mlp_keys, num_envs=num_envs, device=device)
-                actions = player.get_actions(jobs, generator=generator).cpu().numpy()
+                if prefill_actor is not None:
+                    player.actor = prefill_actor if iter_num <= learning_starts else agent.actor
+                kwargs = {} if expl_amount is None else {"expl_amount": expl_amount(policy_step)}
+                actions = player.get_actions(jobs, generator=generator, **kwargs).cpu().numpy()
                 player_calls += 1
                 real_actions = env_actions(actions, actions_dim, is_continuous)
 
@@ -685,7 +725,7 @@ def run_dreamer(
             ckpt_state = {
                 "agent": trainer.agent_state(),
                 "opt_state": trainer.opt_state(),
-                "moments": trainer.moments,
+                **trainer.extra_state(),
                 "ratio": ratio.state_dict(),
                 "iter_num": iter_num,
                 "batch_size": cfg.algo.per_rank_batch_size,

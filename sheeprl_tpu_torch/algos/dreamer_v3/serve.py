@@ -1,4 +1,4 @@
-"""Dreamer-V3 serving policy (port of ``sheeprl_tpu/algos/dreamer_v3/serve.py``).
+"""Dreamer-family serving policies (port of ``sheeprl_tpu/algos/dreamer_v3/serve.py``).
 
 The per-session carry is the player's per-env state: previous action,
 recurrent state ``h`` and stochastic state ``z``, plus the session's own
@@ -6,6 +6,8 @@ recurrent state ``h`` and stochastic state ``z``, plus the session's own
 :func:`dv3_step_slots` is the JAX ``step_slot`` written batched over slots —
 encoder, recurrent model, posterior, actor — so the LayerNorm-GRU step runs
 once per tick at ``[slots, K]`` through the hand-written kernel.
+:func:`dreamer_serve_policy` is the shape every Dreamer family serves
+through (Dreamer-V1 and V2 with their own carries, steps and noise).
 
 At a bf16 compute dtype the carry is the JAX table's: ``action`` float32,
 ``h`` float32 holding the bf16 step's values (the fresh carry's ``tanh(w)``
@@ -15,7 +17,7 @@ noise is drawn in bf16.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,10 +53,12 @@ def dv3_step_slots(
     mlp_keys: Sequence[str],
     greedy: bool,
     action_shape: Tuple[int, ...],
+    step_fn: Callable = player_step,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One serving step for every slot: ``obs`` are raw ``[S, ...]`` env
-    observations, ``noise["repr"]`` Gumbel noise for the posterior sample and
-    ``noise["act"]`` the actor's noise (absent when greedy)."""
+    observations, ``noise["repr"]`` the posterior sample's noise and
+    ``noise["act"]`` the actor's (absent when greedy). ``step_fn`` is the
+    family's acting step (``player_step``'s signature)."""
     S = carry["h"].shape[0]
     norm: Dict[str, torch.Tensor] = {}
     for k in (*cnn_keys, *mlp_keys):
@@ -65,7 +69,7 @@ def dv3_step_slots(
         else:
             norm[k] = v.reshape(S, -1)
     with torch.no_grad():
-        actions, h, z = player_step(
+        actions, h, z = step_fn(
             agent, norm, carry["action"], carry["h"], carry["z"], noise["repr"], noise.get("act"), greedy
         )
     actions = actions.float()
@@ -81,7 +85,48 @@ def dv3_step_slots(
     return env_action, {"action": actions, "h": h, "z": z}
 
 
+def dv3_noise_spec(agent: DV3Agent, greedy: bool) -> Dict[str, NoiseSpec]:
+    """Gumbel noise for the posterior; the actor's, unless greedy: normal
+    (continuous) or Gumbel (discrete), in the compute dtype."""
+    spec = {"repr": NoiseSpec("gumbel", agent.stoch_state_size, agent.dtype)}
+    if not greedy:
+        act_size = int(np.sum(agent.actions_dim))
+        spec["act"] = NoiseSpec("normal" if agent.is_continuous else "gumbel", act_size, agent.dtype)
+    return spec
+
+
 def get_serve_policy(fabric, cfg: Dict[str, Any], state: Dict[str, Any]) -> ServePolicy:
+    return dreamer_serve_policy(
+        fabric,
+        cfg,
+        state,
+        family="dreamer_v3",
+        build_agent_fn=build_agent,
+        init_slots=dv3_init_slots,
+        step_fn=player_step,
+        noise_spec=dv3_noise_spec,
+        params_tree=agent_to_flax,
+        load_params=load_flax_params,
+    )
+
+
+def dreamer_serve_policy(
+    fabric,
+    cfg: Dict[str, Any],
+    state: Dict[str, Any],
+    *,
+    family: str,
+    build_agent_fn: Callable,
+    init_slots: Callable,
+    step_fn: Callable,
+    noise_spec: Callable,
+    params_tree: Callable,
+    load_params: Callable,
+) -> ServePolicy:
+    """The Dreamer family's serving policy (the JAX ``dreamer_serve_policy``):
+    the family's agent, its fresh carries ``init_slots(agent, n)``, its acting
+    step ``step_fn`` batched over slots by :func:`dv3_step_slots`, its noise
+    ``noise_spec(agent, greedy)`` and its checkpoint layout."""
     env = make_env(cfg, cfg.seed, 0, None, "serve-probe")()
     observation_space = env.observation_space
     action_space = env.action_space
@@ -91,7 +136,7 @@ def get_serve_policy(fabric, cfg: Dict[str, Any], state: Dict[str, Any]) -> Serv
     actions_dim, is_continuous = action_space_dims(action_space)
     action_shape = tuple(int(s) for s in action_space.shape)
 
-    agent = build_agent(
+    agent = build_agent_fn(
         fabric,
         actions_dim,
         is_continuous,
@@ -105,10 +150,6 @@ def get_serve_policy(fabric, cfg: Dict[str, Any], state: Dict[str, Any]) -> Serv
     cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
     mlp_keys = tuple(cfg.algo.mlp_keys.encoder)
     greedy = bool((cfg.get("serve") or {}).get("greedy", True))
-    noise_spec = {"repr": NoiseSpec("gumbel", agent.stoch_state_size, agent.dtype)}
-    if not greedy:
-        act_size = int(np.sum(actions_dim))
-        noise_spec["act"] = NoiseSpec("normal" if is_continuous else "gumbel", act_size, agent.dtype)
 
     def step_slots(carry, obs, noise):
         return dv3_step_slots(
@@ -120,19 +161,20 @@ def get_serve_policy(fabric, cfg: Dict[str, Any], state: Dict[str, Any]) -> Serv
             mlp_keys=mlp_keys,
             greedy=greedy,
             action_shape=action_shape,
+            step_fn=step_fn,
         )
 
     return ServePolicy(
         algo=str(cfg.algo.name),
         device=fabric.device,
-        init_slots=lambda n: dv3_init_slots(agent, n),
+        init_slots=lambda n: init_slots(agent, n),
         step_slots=step_slots,
-        noise_spec=noise_spec,
+        noise_spec=noise_spec(agent, greedy),
         obs_spec=space_obs_spec(observation_space, cnn_keys + mlp_keys),
         action_shape=action_shape,
         action_dtype=np.float32 if is_continuous else np.int32,
         module=agent,
-        meta={"family": "dreamer_v3", "greedy": greedy, "recurrent": True},
-        params_tree=agent_to_flax,
-        load_params=load_flax_params,
+        meta={"family": family, "greedy": greedy, "recurrent": True},
+        params_tree=params_tree,
+        load_params=load_params,
     )

@@ -220,18 +220,10 @@ class P2ETrainer(DV3Trainer):
 
         return p2e_to_flax(self.agent)
 
-    def load_opt_state(self, opt_state: Any) -> None:
-        """Load the groups' optimizer states of a checkpoint of either package
-        (the JAX package's optax states converted group by group)."""
+    def group_to_torch(self, name: str):
         from sheeprl_tpu_torch.interop.flax_to_torch import p2e_group_to_torch
-        from sheeprl_tpu_torch.interop.optax_to_torch import load_optimizer_state
 
-        if not (isinstance(opt_state, dict) and set(opt_state) >= set(self.optimizers)):
-            raise ValueError(
-                f"the checkpoint's optimizer state should hold the groups {sorted(self.optimizers)}"
-            )
-        for name, opt in self.optimizers.items():
-            load_optimizer_state(opt, opt_state[name], p2e_group_to_torch(self.agent, name))
+        return p2e_group_to_torch(self.agent, name)
 
 
 def make_trainer(agent: DV3Agent, cfg) -> P2ETrainer:

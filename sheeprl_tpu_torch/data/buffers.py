@@ -1,6 +1,6 @@
 """Host-side replay buffers (a copy of the ``ReplayBuffer``,
-``SequentialReplayBuffer`` and ``EnvIndependentReplayBuffer`` of
-``sheeprl_tpu/data/buffers.py``; numpy only).
+``SequentialReplayBuffer``, ``EnvIndependentReplayBuffer`` and
+``EpisodeBuffer`` of ``sheeprl_tpu/data/buffers.py``; numpy only).
 
 The same ``(T, B, *)`` dict-of-numpy semantics: circular wrap-around writes,
 uniform and contiguous-sequence sampling, one sub-buffer per env with ragged
@@ -9,11 +9,19 @@ order, so two buffers seeded alike sample the same indices. ``sample_tensors``
 lands a sample on a torch device.
 
 Storage is plain numpy or ``MemmapArray`` (disk-backed) per key.
+
+``EpisodeBuffer`` keeps whole episodes (one folder of files each when
+memory-mapped) and evicts the oldest; an episode whose files a checkpoint
+refers to (its arrays no longer own them, ``utils/checkpoint.py``) leaves
+its files to the checkpoints' rotation when it is evicted.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
+import uuid
+from itertools import compress
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Type
 
@@ -529,7 +537,216 @@ class EnvIndependentReplayBuffer:
         return {k: get_tensor(v, dtype=dtype, device=device) for k, v in samples.items()}
 
 
+class EpisodeBuffer:
+    """Whole-episode storage: each env's steps accumulate in an open episode
+    until one ends, then the episode is stored and the oldest ones are
+    evicted until it fits; ``prioritize_ends`` samples sequences that end an
+    episode more often (reference buffers.py:746-1120). Sampling draws from
+    the same numpy generator calls as the JAX buffer."""
+
+    batch_axis: int = 2
+
+    def __init__(
+        self,
+        buffer_size: int,
+        minimum_episode_length: int,
+        n_envs: int = 1,
+        obs_keys: Sequence[str] = ("observations",),
+        prioritize_ends: bool = False,
+        memmap: bool = False,
+        memmap_dir: str | os.PathLike | None = None,
+        memmap_mode: str = "r+",
+    ) -> None:
+        if buffer_size <= 0:
+            raise ValueError(f"The buffer size must be greater than zero, got: {buffer_size}")
+        if minimum_episode_length <= 0:
+            raise ValueError(f"The sequence length must be greater than zero, got: {minimum_episode_length}")
+        if buffer_size < minimum_episode_length:
+            raise ValueError(
+                "The sequence length must be lower than the buffer size, "
+                f"got: bs = {buffer_size} and sl = {minimum_episode_length}"
+            )
+        self._n_envs = n_envs
+        self._obs_keys = tuple(obs_keys)
+        self._buffer_size = buffer_size
+        self._minimum_episode_length = minimum_episode_length
+        self._prioritize_ends = prioritize_ends
+        self._open_episodes: List[List[Dict[str, np.ndarray]]] = [[] for _ in range(n_envs)]
+        self._cum_lengths: List[int] = []
+        self._buf: List[Dict[str, np.ndarray | MemmapArray]] = []
+        self._memmap = memmap
+        self._memmap_dir = memmap_dir
+        self._memmap_mode = memmap_mode
+        self._rng: np.random.Generator = np.random.default_rng()
+        if self._memmap:
+            if self._memmap_mode not in _VALID_MEMMAP_MODES:
+                raise ValueError(f"memmap_mode must be one of {_VALID_MEMMAP_MODES}")
+            if self._memmap_dir is None:
+                raise ValueError("The buffer is memory-mapped but 'memmap_dir' is None")
+            self._memmap_dir = Path(self._memmap_dir)
+            self._memmap_dir.mkdir(parents=True, exist_ok=True)
+
+    @property
+    def prioritize_ends(self) -> bool:
+        return self._prioritize_ends
+
+    @property
+    def buffer(self) -> Sequence[Dict[str, np.ndarray | MemmapArray]]:
+        return self._buf
+
+    @property
+    def n_envs(self) -> int:
+        return self._n_envs
+
+    @property
+    def buffer_size(self) -> int:
+        return self._buffer_size
+
+    @property
+    def is_memmap(self) -> bool:
+        return self._memmap
+
+    @property
+    def full(self) -> bool:
+        return self._cum_lengths[-1] + self._minimum_episode_length > self._buffer_size if self._buf else False
+
+    def __len__(self) -> int:
+        return self._cum_lengths[-1] if self._buf else 0
+
+    def seed(self, seed: Optional[int]) -> None:
+        self._rng = np.random.default_rng(seed)
+
+    def add(self, data: Dict[str, np.ndarray], env_idxes: Sequence[int] | None = None, validate_args: bool = False):
+        """Append ``[steps, len(env_idxes), ...]`` rows to the envs' open
+        episodes; an episode whose last row is terminated or truncated is
+        stored."""
+        if validate_args:
+            _validate_add_data(data)
+            if "terminated" not in data and "truncated" not in data:
+                raise RuntimeError(f"The episode must contain the `terminated` and the `truncated` keys, got: {data.keys()}")
+            if env_idxes is not None and (np.asarray(env_idxes) >= self._n_envs).any():
+                raise ValueError(f"The indices of the environment must be integers in [0, {self._n_envs}), given {env_idxes}")
+        if env_idxes is None:
+            env_idxes = range(self._n_envs)
+        for i, env in enumerate(env_idxes):
+            env_data = {k: v[:, i] for k, v in data.items()}
+            done = np.logical_or(env_data["terminated"], env_data["truncated"])
+            episode_ends = done.nonzero()[0].tolist()
+            if len(episode_ends) == 0:
+                self._open_episodes[env].append(env_data)
+                continue
+            episode_ends.append(len(done))
+            start = 0
+            for stop in episode_ends:
+                episode = {k: env_data[k][start : stop + 1] for k in env_data}
+                if len(np.logical_or(episode["terminated"], episode["truncated"])) > 0:
+                    self._open_episodes[env].append(episode)
+                start = stop + 1
+                last = self._open_episodes[env][-1] if self._open_episodes[env] else None
+                if last is not None and np.logical_or(last["terminated"][-1], last["truncated"][-1]):
+                    self._save_episode(self._open_episodes[env])
+                    self._open_episodes[env] = []
+
+    def _evict(self, episode: Dict[str, np.ndarray | MemmapArray]) -> None:
+        """Drop a stored episode; its folder goes with it unless a checkpoint
+        refers to its files."""
+        arrays = [v for v in episode.values() if isinstance(v, MemmapArray)]
+        if arrays and all(a.has_ownership for a in arrays):
+            shutil.rmtree(os.path.dirname(arrays[0].filename), ignore_errors=True)
+
+    def _save_episode(self, episode_chunks: Sequence[Dict[str, np.ndarray]]) -> None:
+        if len(episode_chunks) == 0:
+            raise RuntimeError("Invalid episode, an empty sequence is given.")
+        episode = {k: np.concatenate([chunk[k] for chunk in episode_chunks], axis=0) for k in episode_chunks[0]}
+        ends = np.logical_or(episode["terminated"], episode["truncated"])
+        ep_len = ends.shape[0]
+        if len(ends.nonzero()[0]) != 1 or not ends[-1]:
+            raise RuntimeError("The episode must contain exactly one done at its end")
+        if ep_len < self._minimum_episode_length:
+            raise RuntimeError(f"Episode too short (at least {self._minimum_episode_length} steps), got: {ep_len} steps")
+        if ep_len > self._buffer_size:
+            raise RuntimeError(f"Episode too long (at most {self._buffer_size} steps), got: {ep_len} steps")
+        # evict the oldest episodes until the new one fits
+        if self.full or len(self) + ep_len > self._buffer_size:
+            cum = np.asarray(self._cum_lengths)
+            last_to_remove = int(((len(self) - cum + ep_len) <= self._buffer_size).argmax())
+            for old in self._buf[: last_to_remove + 1]:
+                self._evict(old)
+            self._buf = self._buf[last_to_remove + 1 :]
+            self._cum_lengths = (cum[last_to_remove + 1 :] - cum[last_to_remove]).tolist()
+        self._cum_lengths.append(len(self) + ep_len)
+        if self._memmap:
+            episode_dir = Path(self._memmap_dir) / f"episode_{uuid.uuid4()}"
+            episode_dir.mkdir(parents=True, exist_ok=True)
+            stored: Dict[str, np.ndarray | MemmapArray] = {}
+            for k, v in episode.items():
+                stored[k] = MemmapArray(filename=str(episode_dir / f"{k}.memmap"), dtype=v.dtype, shape=v.shape,
+                                        mode=self._memmap_mode)
+                stored[k][:] = v
+            self._buf.append(stored)
+        else:
+            self._buf.append(episode)
+
+    def sample(
+        self,
+        batch_size: int,
+        sample_next_obs: bool = False,
+        n_samples: int = 1,
+        clone: bool = False,
+        sequence_length: int = 1,
+        **kwargs: Any,
+    ) -> Dict[str, np.ndarray]:
+        """``[n_samples, sequence_length, batch_size, ...]`` sequences, each
+        inside one stored episode; episodes are drawn uniformly among those
+        long enough, then a start within the episode (with
+        ``prioritize_ends`` the start range runs ``sequence_length`` past the
+        last whole sequence and is clipped to it)."""
+        if batch_size <= 0:
+            raise ValueError(f"Batch size must be greater than 0, got: {batch_size}")
+        if n_samples <= 0:
+            raise ValueError(f"The number of samples must be greater than 0, got: {n_samples}")
+        lengths = np.asarray(self._cum_lengths) - np.asarray([0] + self._cum_lengths[:-1])
+        valid_mask = lengths > sequence_length if sample_next_obs else lengths >= sequence_length
+        valid_episodes = list(compress(self._buf, valid_mask))
+        if len(valid_episodes) == 0:
+            raise RuntimeError(
+                f"No valid episodes in the buffer; add at least one episode of length >= {sequence_length}"
+            )
+        chunk = np.arange(sequence_length, dtype=np.intp)[None, :]
+        nsample_per_eps = np.bincount(self._rng.integers(0, len(valid_episodes), (batch_size * n_samples,))).astype(np.intp)
+        gathered: Dict[str, List[np.ndarray]] = {k: [] for k in valid_episodes[0]}
+        if sample_next_obs:
+            gathered.update({f"next_{k}": [] for k in self._obs_keys})
+        for i, n in enumerate(nsample_per_eps):
+            if n <= 0:
+                continue
+            ep = valid_episodes[i]
+            ep_len = np.logical_or(ep["terminated"], ep["truncated"]).shape[0]
+            if sample_next_obs:
+                ep_len -= 1
+            upper = ep_len - sequence_length + 1
+            if self._prioritize_ends:
+                upper += sequence_length
+            start_idxes = np.minimum(self._rng.integers(0, upper, size=(n, 1)), ep_len - sequence_length, dtype=np.intp)
+            indices = start_idxes + chunk
+            for k in valid_episodes[0]:
+                arr = np.asarray(ep[k])
+                gathered[k].append(arr[indices.reshape(-1)].reshape(n, sequence_length, *arr.shape[1:]))
+                if sample_next_obs and k in self._obs_keys:
+                    gathered[f"next_{k}"].append(arr[indices + 1])
+        out: Dict[str, np.ndarray] = {}
+        for k, v in gathered.items():
+            if v:
+                out[k] = np.moveaxis(
+                    np.concatenate(v, axis=0).reshape(n_samples, batch_size, sequence_length, *v[0].shape[2:]), 2, 1
+                )
+        return out
+
+
 def memmap_arrays(rb: Any) -> List[MemmapArray]:
-    """The disk-backed arrays of a ``ReplayBuffer`` or an ``EnvIndependentReplayBuffer``."""
+    """The disk-backed arrays of a ``ReplayBuffer``, an ``EnvIndependentReplayBuffer``
+    or an ``EpisodeBuffer`` (its stored episodes')."""
+    if isinstance(rb, EpisodeBuffer):
+        return [v for ep in rb.buffer for v in ep.values() if isinstance(v, MemmapArray)]
     buffers = rb.buffer if isinstance(rb, EnvIndependentReplayBuffer) else (rb,)
     return [v for b in buffers for v in b.buffer.values() if isinstance(v, MemmapArray)]

@@ -20,6 +20,9 @@ port's ``nn.Module``s and back:
 - Plan2Explore's ``EnsembleHeads`` (``VmapMLPHead_0``: stacked ``[n, ...]``
   kernels, LayerNorm and head leaves), kept as they are.
 
+The Dreamer-V2 agent, which Dreamer-V1 shares (:func:`dv2_to_flax`,
+:func:`load_dv2_params`, :func:`dv2_group_to_torch`), maps whole too.
+
 Composite modules name their children as the Flax modules do (``Dense_0``,
 ``LayerNorm_1``, ``DenseStack_0``, ``Conv_2``, ``context_0``/``prob_0`` of
 Offline Dreamer's CEM, ...). The Dreamer-V3 agent, Offline Dreamer's with its
@@ -42,6 +45,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from sheeprl_tpu_torch.algos.dreamer_v2 import agent as dv2
 from sheeprl_tpu_torch.algos.dreamer_v3 import agent as dv3
 from sheeprl_tpu_torch.algos.offline_dreamer import agent as odv3
 from sheeprl_tpu_torch.algos.p2e_dv3 import agent as p2e
@@ -119,17 +123,22 @@ def gru_to_flax(m: LayerNormGRUCell) -> Tree:
     out = {"kernel": _np(m.kernel)}
     if m.has_bias:
         out["bias"] = _np(m.bias)
-    out["ln_scale"] = _np(m.ln_scale)
-    out["ln_bias"] = _np(m.ln_bias)
+    if m.layer_norm:
+        out["ln_scale"] = _np(m.ln_scale)
+        out["ln_bias"] = _np(m.ln_bias)
     return out
 
 
 def gru_from_flax(m: LayerNormGRUCell, tree: Tree, what: str = "LayerNormGRUCell") -> None:
+    leaves = ["kernel", *(["bias"] if m.has_bias else []), *(["ln_scale", "ln_bias"] if m.layer_norm else [])]
+    if sorted(tree) != sorted(leaves):
+        raise ValueError(f"{what}: checkpoint leaves {sorted(tree)} do not match the cell's {sorted(leaves)}")
     _copy(m.kernel, tree["kernel"], what + ".kernel")
     if m.has_bias:
         _copy(m.bias, tree["bias"], what + ".bias")
-    _copy(m.ln_scale, tree["ln_scale"], what + ".ln_scale")
-    _copy(m.ln_bias, tree["ln_bias"], what + ".ln_bias")
+    if m.layer_norm:
+        _copy(m.ln_scale, tree["ln_scale"], what + ".ln_scale")
+        _copy(m.ln_bias, tree["ln_bias"], what + ".ln_bias")
 
 
 def _ensemble_leaves(m: EnsembleMLP) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -194,8 +203,39 @@ _LEAVES = (
 
 
 # -- composites -----------------------------------------------------------------------
+def _dv2_children(m: nn.Module) -> Dict[str, nn.Module]:
+    """The Dreamer-V1/V2 blocks' Flax children (None for another module)."""
+    if isinstance(m, dv2.DenseStack):
+        out = {f"Dense_{i}": lin for i, lin in enumerate(m.linears)}
+        out.update({f"LayerNorm_{i}": ln for i, ln in enumerate(m.norms)})
+        return out
+    if isinstance(m, dv2.MLPHead):
+        return {"DenseStack_0": m.stack, "Dense_0": m.head}
+    if isinstance(m, dv2.CNNEncoder):
+        out = {f"Conv_{i}": conv for i, conv in enumerate(m.convs)}
+        out.update({f"LayerNorm_{i}": ln for i, ln in enumerate(m.norms)})
+        return out
+    if isinstance(m, dv2.MLPEncoder):
+        return {"DenseStack_0": m.stack}
+    if isinstance(m, dv2.CNNDecoder):
+        out = {"Dense_0": m.linear}
+        out.update({f"ConvTranspose_{i}": d for i, d in enumerate(m.deconvs)})
+        out.update({f"LayerNorm_{i}": ln for i, ln in enumerate(m.norms)})
+        return out
+    if isinstance(m, (dv2.MLPDecoder, dv2.Actor)):
+        out = {"DenseStack_0": m.stack}
+        out.update({f"Dense_{i}": head for i, head in enumerate(m.heads)})
+        return out
+    if isinstance(m, dv2.RecurrentModel):
+        return {"DenseStack_0": m.stack, "LayerNormGRUCell_0": m.cell}
+    return None
+
+
 def _children(m: nn.Module) -> Dict[str, nn.Module]:
     """Flax child name -> port module, for every composite module of the agent."""
+    out = _dv2_children(m)
+    if out is not None:
+        return out
     if isinstance(m, dv3.DenseStack):
         out = {f"Dense_{i}": lin for i, lin in enumerate(m.linears)}
         out.update({f"LayerNorm_{i}": ln for i, ln in enumerate(m.norms)})
@@ -317,6 +357,54 @@ def dv3_group_to_torch(agent: "dv3.DV3Agent", group: str) -> Callable[[Tree], Li
             return [p.detach() for p in scratch.parameters()] + [init]
         scratch = copy.deepcopy(getattr(agent, group))
         module_from_flax(scratch, tree, group)
+        return [p.detach() for p in scratch.parameters()]
+
+    return convert
+
+
+# -- the Dreamer-V1 and V2 agents ------------------------------------------------------------
+def dv2_to_flax(agent: "dv2.DV2Agent") -> Tree:
+    """A Dreamer-V2 (or V1) agent's parameters as the JAX package's params
+    tree: ``world_model`` (``continue_model`` with ``use_continues``),
+    ``actor``, ``critic`` and, for Dreamer-V2, ``target_critic``."""
+    out = {
+        "world_model": {name: module_to_flax(module) for name, module in agent.world_model.items()},
+        "actor": module_to_flax(agent.actor),
+        "critic": module_to_flax(agent.critic),
+    }
+    if agent.target_critic is not None:
+        out["target_critic"] = module_to_flax(agent.target_critic)
+    return out
+
+
+def load_dv2_params(agent: "dv2.DV2Agent", params: Tree) -> None:
+    """Copy a JAX-package Dreamer-V2 (or V1) params tree into ``agent``."""
+    expected = ["world_model", "actor", "critic"] + (["target_critic"] if agent.target_critic is not None else [])
+    if sorted(params) != sorted(expected):
+        raise ValueError(f"Dreamer params: checkpoint children {sorted(params)} do not match the agent's {sorted(expected)}")
+    wm = params["world_model"]
+    if sorted(wm) != sorted(agent.world_model):
+        raise ValueError(f"world_model: checkpoint children {sorted(wm)} do not match the agent's "
+                         f"{sorted(agent.world_model)}")
+    for name, module in agent.world_model.items():
+        module_from_flax(module, wm[name], f"world_model/{name}")
+    for name in expected[1:]:
+        module_from_flax(getattr(agent, name), params[name], name)
+
+
+def dv2_group_to_torch(agent: "dv2.DV2Agent", group: str) -> Callable[[Tree], List[torch.Tensor]]:
+    """A tree shaped like the JAX params of one Dreamer-V1/V2 optimizer group
+    (``world_model``, ``actor`` or ``critic``) -> the group's tensors, in the
+    order of its module's parameters."""
+    module = agent.world_model if group == "world_model" else getattr(agent, group)
+
+    def convert(tree: Tree) -> List[torch.Tensor]:
+        scratch = copy.deepcopy(module)
+        if group == "world_model":
+            for name, child in scratch.items():
+                module_from_flax(child, tree[name], f"world_model/{name}")
+        else:
+            module_from_flax(scratch, tree, group)
         return [p.detach() for p in scratch.parameters()]
 
     return convert

@@ -316,7 +316,10 @@ class LayerNormGRUCell(nn.Module):
     the fused op (``ops/gru.py``). Parameters keep the Flax cell's names and
     layout: ``kernel`` [input+hidden, 3H] with rows ordered ``concat(x, h)`` and
     columns (reset, candidate, update); ``bias``, ``ln_scale``, ``ln_bias`` [3H].
-    (The Flax cell's ``layer_norm=False`` form has no user in the port.)
+
+    ``layer_norm=False`` (Dreamer-V1's cell) has no LayerNorm parameters and
+    computes ``concat(x, h) @ kernel + bias`` and the gating in plain PyTorch,
+    as the JAX cell computes that form outside its Pallas kernel.
 
     ``dtype`` is the compute dtype, with the JAX cell's mix: ``concat(x, h)``,
     ``h``, the kernel and the bias in ``dtype`` (the kernel and the bias cast
@@ -330,6 +333,7 @@ class LayerNormGRUCell(nn.Module):
         bias: bool = True,
         layer_norm_eps: float = 1e-3,
         dtype: torch.dtype = torch.float32,
+        layer_norm: bool = True,
     ) -> None:
         super().__init__()
         self.hidden_size = hidden_size
@@ -342,11 +346,18 @@ class LayerNormGRUCell(nn.Module):
         else:
             self.register_buffer("bias", torch.zeros(n), persistent=False)
         self.has_bias = bias
-        self.ln_scale = nn.Parameter(torch.ones(n))
-        self.ln_bias = nn.Parameter(torch.zeros(n))
+        self.layer_norm = layer_norm
+        if layer_norm:
+            self.ln_scale = nn.Parameter(torch.ones(n))
+            self.ln_bias = nn.Parameter(torch.zeros(n))
 
     def forward(self, hx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         dtype = self.dtype
         inp = torch.cat([x, hx], dim=-1).to(dtype)
         w, b = cast(self.kernel, dtype), cast(self.bias, dtype)
+        if not self.layer_norm:
+            reset, cand, update = torch.chunk(torch.matmul(inp, w) + b, 3, dim=-1)
+            cand = torch.tanh(sigmoid(reset) * cand)
+            update = sigmoid(update - 1)
+            return update * cand + (1 - update) * hx
         return ln_gru_step(inp, hx.to(dtype), w, b, self.ln_scale, self.ln_bias, self.layer_norm_eps)

@@ -45,9 +45,10 @@ class ObsSpec:
 
 @dataclass(frozen=True)
 class NoiseSpec:
-    """``size`` values per slot and step: ``gumbel`` (standard Gumbel) or
-    ``normal`` (standard normal), drawn in float32 and handed to the step in
-    ``dtype`` (the policy's compute dtype, the dtype JAX draws it in)."""
+    """``size`` values per slot and step: ``gumbel`` (standard Gumbel),
+    ``normal`` (standard normal) or ``uniform`` (in [1e-6, 1 - 1e-6], a
+    TruncatedNormal's inverse-CDF noise), drawn in float32 and handed to the
+    step in ``dtype`` (the policy's compute dtype, the dtype JAX draws it in)."""
 
     kind: str
     size: int
@@ -97,6 +98,8 @@ def draw_noise(
             out[i].uniform_(generator=gen)
     if spec.kind == "gumbel":
         out = gumbel_from_uniform(out)
+    elif spec.kind == "uniform":
+        out = out * (1 - 2e-6) + 1e-6
     elif spec.kind != "normal":
         raise ValueError(f"unknown noise kind {spec.kind!r}")
     return out.to(spec.dtype)

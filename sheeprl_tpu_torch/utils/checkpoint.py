@@ -143,7 +143,9 @@ def _numpy_admitted(module: str, name: str) -> bool:
 # what a pickled replay buffer of the port holds besides arrays: the buffer
 # classes, disk-backed arrays, their paths and numpy's random generators
 _PORT_CLASSES = {
-    "sheeprl_tpu_torch.data.buffers": ("ReplayBuffer", "SequentialReplayBuffer", "EnvIndependentReplayBuffer"),
+    "sheeprl_tpu_torch.data.buffers": (
+        "ReplayBuffer", "SequentialReplayBuffer", "EnvIndependentReplayBuffer", "EpisodeBuffer",
+    ),
     "sheeprl_tpu_torch.utils.memmap": ("MemmapArray",),
     "pathlib": ("Path", "PosixPath", "PurePosixPath"),
     "numpy.random._pickle": ("__generator_ctor", "__bit_generator_ctor"),
@@ -180,7 +182,13 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
 
 
 def _sub_buffers(rb) -> list:
-    """An ``EnvIndependentReplayBuffer``'s per-env buffers, or a ``ReplayBuffer`` itself."""
+    """An ``EnvIndependentReplayBuffer``'s per-env buffers, or a ``ReplayBuffer``
+    itself; none of an ``EpisodeBuffer``, which stores whole episodes only
+    and has no newest row to mark."""
+    from sheeprl_tpu_torch.data.buffers import EpisodeBuffer
+
+    if isinstance(rb, EpisodeBuffer):
+        return []
     return list(rb.buffer) if isinstance(rb.buffer, (list, tuple)) else [rb]
 
 

@@ -1,13 +1,14 @@
 """Probability distributions (port of the classes of ``sheeprl_tpu/utils/distribution.py``
-that Dreamer-V3 uses).
+that the Dreamer family uses).
 
 Small stateless classes over tensors, with the JAX package's formulas: the
 same log-probs, entropies and modes. Samplers take their noise as an
 argument, as the agent's functions do: standard normal noise for ``Normal``,
 standard Gumbel noise for the categoricals (Gumbel-max, as
 ``jax.random.categorical`` samples). Straight-through gradients detach the
-sample and add ``probs - probs.detach()``. ``TruncatedNormal`` (Dreamer-V2's
-actor) is not ported: Dreamer-V3 does not use it.
+sample and add ``probs - probs.detach()``. ``TruncatedNormal`` (the
+continuous actor of Dreamer-V1 and V2) samples by the inverse CDF from
+uniform noise in [1e-6, 1 - 1e-6], as the JAX class draws it.
 
 In bf16 the math follows JAX's type rules op by op: bf16 with float32 gives
 float32, a Python constant takes the array's dtype (``weak_scalar``), and
@@ -148,6 +149,55 @@ class Normal(Distribution):
 
     def entropy(self) -> torch.Tensor:
         return weak_scalar(0.5 + _HALF_LOG_2PI, self.scale.dtype) + torch.log(self.scale)
+
+
+class TruncatedNormal(Distribution):
+    """Normal truncated to [low, high] (JAX ``TruncatedNormal``). ``rsample``
+    takes ``u``, uniform noise in [1e-6, 1 - 1e-6] of ``loc``'s shape, maps it
+    through the inverse CDF (``erfinv``) and clips to the bounds."""
+
+    def __init__(self, loc: torch.Tensor, scale: torch.Tensor, low: float = -1.0, high: float = 1.0):
+        self.loc = loc
+        self.scale = scale
+        self.low = low
+        self.high = high
+        self._alpha = (low - loc) / scale
+        self._beta = (high - loc) / scale
+        self._big_phi_alpha = 0.5 * (1 + torch.erf(self._alpha / math.sqrt(2.0)))
+        self._big_phi_beta = 0.5 * (1 + torch.erf(self._beta / math.sqrt(2.0)))
+        self._z = torch.clamp(self._big_phi_beta - self._big_phi_alpha, min=1e-8)
+
+    @property
+    def mean(self) -> torch.Tensor:
+        phi_a = torch.exp(-0.5 * torch.square(self._alpha)) / math.sqrt(2 * math.pi)
+        phi_b = torch.exp(-0.5 * torch.square(self._beta)) / math.sqrt(2 * math.pi)
+        return self.loc + self.scale * (phi_a - phi_b) / self._z
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return torch.clamp(self.loc, self.low, self.high)
+
+    def rsample(self, u: torch.Tensor) -> torch.Tensor:
+        p = self._big_phi_alpha + u * (self._big_phi_beta - self._big_phi_alpha)
+        raw = math.sqrt(2.0) * torch.erfinv(2 * p - 1)
+        return torch.clamp(self.loc + self.scale * raw, self.low, self.high)
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        std_lp = -torch.square((value - self.loc) / self.scale) / 2 - _HALF_LOG_2PI
+        return std_lp - torch.log(self.scale) - torch.log(self._z)
+
+    def entropy(self) -> torch.Tensor:
+        # the JAX class's surrogate: the untruncated normal's entropy
+        return 0.5 + _HALF_LOG_2PI + torch.log(self.scale)
+
+
+def draw_truncated_uniform(
+    shape: Sequence[int], generator: Optional[torch.Generator], device, dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """The noise of :meth:`TruncatedNormal.rsample`: uniform in [1e-6, 1 - 1e-6]
+    (``jax.random.uniform``'s ``minval``/``maxval`` form)."""
+    u = torch.rand(tuple(shape), device=device, generator=generator)
+    return (u * (1 - 2e-6) + 1e-6).to(dtype)
 
 
 class Independent(Distribution):

@@ -100,6 +100,14 @@ def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not yet ported to sheeprl_tpu_torch")
 
 
+def unported_env(id: str, needs: str, **_: Any) -> Any:
+    """The wrapper of an env group the port composes but cannot build (its
+    env package is absent on the card): raises, naming what it needs."""
+    raise NotImplementedError(
+        f"env {id!r} needs {needs}, which sheeprl_tpu_torch does not port; run the experiment with env=dummy"
+    )
+
+
 def make_env(
     cfg: Dict[str, Any],
     seed: int,

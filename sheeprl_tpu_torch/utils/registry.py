@@ -14,6 +14,8 @@ _DV3 = "sheeprl_tpu_torch.algos.dreamer_v3"
 _DV3_NAMES = ("dreamer_v3", "dreamer_v3_decoupled")
 _P2E = "sheeprl_tpu_torch.algos.p2e_dv3"
 _ODV3 = "sheeprl_tpu_torch.algos.offline_dreamer"
+_DV2 = "sheeprl_tpu_torch.algos.dreamer_v2"
+_DV1 = "sheeprl_tpu_torch.algos.dreamer_v1"
 
 # the training loop ``main(fabric, cfg)``
 ALGORITHMS: Dict[str, Tuple[str, str]] = {
@@ -21,6 +23,8 @@ ALGORITHMS: Dict[str, Tuple[str, str]] = {
     "p2e_dv3_exploration": (f"{_P2E}.p2e_dv3_exploration", "main"),
     "p2e_dv3_finetuning": (f"{_P2E}.p2e_dv3_finetuning", "main"),
     "offline_dreamer": (f"{_ODV3}.offline_dreamer", "main"),
+    "dreamer_v2": (f"{_DV2}.dreamer_v2", "main"),
+    "dreamer_v1": (f"{_DV1}.dreamer_v1", "main"),
     "ppo": ("sheeprl_tpu_torch.algos.ppo.ppo", "main"),
     "a2c": ("sheeprl_tpu_torch.algos.a2c.a2c", "main"),
     "sac": ("sheeprl_tpu_torch.algos.sac.sac", "main"),
@@ -32,6 +36,8 @@ EVALUATIONS: Dict[str, Tuple[str, str]] = {
     # both phases evaluate the task actor
     **{name: (f"{_P2E}.evaluate", "evaluate") for name in ("p2e_dv3_exploration", "p2e_dv3_finetuning")},
     "offline_dreamer": (f"{_ODV3}.evaluate", "evaluate"),
+    "dreamer_v2": (f"{_DV2}.evaluate", "evaluate"),
+    "dreamer_v1": (f"{_DV1}.evaluate", "evaluate"),
     "ppo": ("sheeprl_tpu_torch.algos.ppo.evaluate", "evaluate"),
     "a2c": ("sheeprl_tpu_torch.algos.ppo.evaluate", "evaluate"),
     "sac": ("sheeprl_tpu_torch.algos.sac.evaluate", "evaluate"),
@@ -40,6 +46,8 @@ EVALUATIONS: Dict[str, Tuple[str, str]] = {
 # the family's ``get_serve_policy(fabric, cfg, state)`` extractor
 SERVE_POLICIES: Dict[str, Tuple[str, str]] = {
     **{name: (f"{_DV3}.serve", "get_serve_policy") for name in _DV3_NAMES},
+    "dreamer_v2": (f"{_DV2}.serve", "get_serve_policy"),
+    "dreamer_v1": (f"{_DV1}.serve", "get_serve_policy"),
     # A2C checkpoints hold the PPO agent
     **{name: ("sheeprl_tpu_torch.algos.ppo.serve", "get_serve_policy") for name in ("ppo", "a2c")},
     "sac": ("sheeprl_tpu_torch.algos.sac.serve", "get_serve_policy"),

@@ -313,3 +313,46 @@ def jax_scan_noise(key, T: int, B: int, agent, dtype=None) -> np.ndarray:
         [np.asarray(jax.random.gumbel(k, shape, dtype or np.float32), np.float32).reshape(B, -1)
          for k in jax.random.split(key, T)]
     )
+
+
+# Dreamer-V2 and V1 at small widths: dense 8, one layer, 4 x 4 latents (V2),
+# recurrent 8, CNN x2 on the 64 x 64 frames their encoders take
+def dreamer_overrides(algo: str = "dreamer_v2", kind: str = "discrete", extra: Sequence[str] = ()) -> list:
+    base = [o for o in overrides(kind) if not o.startswith(("exp=", "algo.world_model.discrete_size"))]
+    discrete = ["algo.world_model.discrete_size=4"] if algo == "dreamer_v2" else []
+    return [f"exp={algo}", *base, *discrete, *extra]
+
+
+@functools.lru_cache(maxsize=None)
+def jax_dreamer(algo: str = "dreamer_v2", kind: str = "discrete", extra: Tuple[str, ...] = ()):
+    """The JAX Dreamer-V1/V2 agent, its params (numpy, every zero leaf filled),
+    config and observation space, built once per worker."""
+    import importlib
+
+    from sheeprl_tpu.config import compose as jax_compose
+    from sheeprl_tpu.parallel.fabric import Fabric as JaxFabric
+    from sheeprl_tpu.utils.env import make_env as jax_make_env
+
+    build = importlib.import_module(f"sheeprl_tpu.algos.{algo}.agent").build_agent
+    cfg = jax_compose(dreamer_overrides(algo, kind, extra))
+    env = jax_make_env(cfg, 0, 0)()
+    obs_space = env.observation_space
+    env.close()
+    fabric = JaxFabric(devices=1, accelerator="cpu")
+    fabric._setup()
+    agent, params = build(fabric, *ACTIONS[kind], cfg, obs_space, jax.random.PRNGKey(3))
+    return agent, filled(numpy_tree(params)), cfg, obs_space
+
+
+def port_dreamer(algo: str = "dreamer_v2", kind: str = "discrete", extra: Sequence[str] = (), params=None):
+    """The port's Dreamer-V1/V2 agent and config, loaded from the JAX parameters."""
+    import importlib
+
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.parallel.fabric import Fabric
+
+    build = importlib.import_module(f"sheeprl_tpu_torch.algos.{algo}.agent").build_agent
+    _, jparams, _, obs_space = jax_dreamer(algo, kind, tuple(extra))
+    cfg = compose(dreamer_overrides(algo, kind, extra))
+    params = jparams if params is None else params
+    return build(Fabric(accelerator="cpu"), *ACTIONS[kind], cfg, obs_space, 3, params), cfg
