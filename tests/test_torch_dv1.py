@@ -8,7 +8,8 @@
 - one gradient step (the actor trained through the imagined dynamics)
   against the jitted JAX ``train_step``, discrete and continuous actions;
 - ``run``, resume, ``evaluation`` and ``serve`` through the entry points, and
-  no LN-GRU launch anywhere (the cell has no LayerNorm).
+  no LN-GRU launch anywhere (the cell has no LayerNorm); a checkpoint of the
+  JAX package resumes (optax.adam states converted), evaluates and serves.
 
 Tolerances as in ``tests/test_torch_dv2_train.py``: forward values 1e-5,
 metrics 1e-4, parameters within 2 learning rates and all but 0.1% within
@@ -197,3 +198,23 @@ def test_cli_trains_resumes_evaluates_and_serves(tmp_path, capsys):
     summary = json.loads((log_dir / "summary.json").read_text())
     assert summary["sessions_completed"] == 2
     assert LN_GRU.launches == 0
+
+
+def test_a_jax_checkpoint_resumes_evaluates_and_serves(tmp_path, capsys):
+    """A Dreamer-V1 checkpoint of the JAX package (Flax params without a
+    target critic, optax.adam states after one update) resumes with its
+    optimizer states converted, evaluates and serves."""
+    from sheeprl_tpu_torch.__main__ import main
+    from sheeprl_tpu_torch.cli import run
+    from test_torch_dv2_cli import jax_run, tiny_run
+
+    ckpt, _ = jax_run(tmp_path / "jax_run" / "version_0", "dreamer_v1", "continuous_dummy")
+    resumed = run(tiny_run("dreamer_v1", "continuous_dummy") + [
+        "algo.total_steps=24", f"checkpoint.resume_from={ckpt}", "buffer.prefetch.enabled=False"])
+    assert resumed["policy_steps"] == 24 and resumed["gradient_steps"] >= 1
+    assert all(np.isfinite(v) for v in resumed["metrics"].values())
+    capsys.readouterr()
+    assert main(["evaluation", f"checkpoint_path={ckpt}", "fabric.accelerator=cpu", "env.capture_video=False"]) == 0
+    assert "Test - Reward:" in capsys.readouterr().out
+    assert main(["serve", f"checkpoint_path={ckpt}", "fabric.accelerator=cpu", "serve.sessions=2", "serve.slots=2",
+                 "serve.max_session_steps=6", f"serve.log_dir={tmp_path / 'serve'}"]) == 0

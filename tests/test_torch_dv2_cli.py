@@ -112,17 +112,19 @@ def test_an_exploration_actor_acts_until_learning_starts(tmp_path):
     assert summary["player_calls"] == 8 and explorer.calls == 5 and summary["gradient_steps"] >= 1
 
 
-def _jax_run(run_dir):
-    """A Dreamer-V2 checkpoint as the JAX package writes one: its params, the
-    optax (adamw) states of its three groups with one update taken, its
-    counters, and its config.yaml beside."""
+def jax_run(run_dir, algo: str = "dreamer_v2", env_id: str = "discrete_dummy"):
+    """A Dreamer-V2 (or V1) checkpoint as the JAX package writes one: its
+    params, the optax states of its three groups (adamw for DV2's weight
+    decay, adam for DV1) with one update taken, its counters, and its
+    config.yaml beside."""
     from sheeprl_tpu.algos.dreamer_v3.dreamer_v3 import build_optimizers
     from sheeprl_tpu.config import compose as jax_compose
     from sheeprl_tpu.utils.checkpoint import save_checkpoint
     from sheeprl_tpu.utils.utils import Ratio, save_configs
 
-    _, params, _, _ = jax_dreamer("dreamer_v2", "discrete")
-    cfg = jax_compose([o for o in tiny_run("dreamer_v2") if not o.startswith(("root_dir", "run_name"))])
+    kind = {"discrete_dummy": "discrete", "continuous_dummy": "continuous"}[env_id]
+    _, params, _, _ = jax_dreamer(algo, kind)
+    cfg = jax_compose([o for o in tiny_run(algo, env_id) if not o.startswith(("root_dir", "run_name"))])
     world_tx, actor_tx, critic_tx, opt_state = build_optimizers(cfg, params)
     rng = np.random.default_rng(5)
     for name, tx in (("world_model", world_tx), ("actor", actor_tx), ("critic", critic_tx)):
@@ -144,7 +146,7 @@ def test_a_jax_checkpoint_resumes_evaluates_and_serves(tmp_path, capsys):
     from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
     from test_torch_dv2_train import adam_mu
 
-    ckpt, opt_state = _jax_run(tmp_path / "jax_run" / "version_0")
+    ckpt, opt_state = jax_run(tmp_path / "jax_run" / "version_0")
     # the three optax.adamw chains load into the port's AdamWs
     tagent, cfg = port_dreamer("dreamer_v2", "discrete")
     trainer = make_trainer(tagent, cfg)
