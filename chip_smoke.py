@@ -85,6 +85,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
    gradient step card vs CPU in float32 (TF32 off, T=16, B=4) within
    ``train_step_parity``'s float32 bars, and the seconds per DV2 gradient
    step at 16 x 50 and per DV1 step at 50 x 50;
+5e. Plan2Explore on Dreamer-V2 and V1, and SAC-AE, in float32 at their exps'
+   widths (4 envs): ``exp=p2e_dv2_exploration`` (dense 400 x 4, recurrent
+   400, CNN x48, 32 x 32 latents, 10 members, batch 16 x 50, horizon 15)
+   explores for at least 8 gradient steps through ``run``, resumes for at
+   least 2, evaluates, and finetunes from its checkpoint (the exploration
+   actor acts until learning starts, the task actor after; the finetuning
+   checkpoint holds Dreamer-V2's layout), which evaluates; every LN-GRU launch
+   is accounted for, all float32: 80 an exploration step (the scan and two
+   rollouts), 65 a finetuning step, plus one a policy step of the loop and of
+   its test episode. ``exp=p2e_dv1_exploration`` (dense 400, recurrent 400,
+   stochastic 60, batch 50 x 50) on ``env.id=continuous_dummy`` the same,
+   with no LN-GRU launch. ``exp=sac_ae`` (512-channel convolutions on 3
+   stacked 64 x 64 frames, features 64, hidden 1024, batch 128) trains for at
+   least 16 gradient steps, resumes and evaluates; its metric log holds the
+   reconstruction loss; no LN-GRU launch. Then one P2E-DV2 and one P2E-DV1
+   gradient step card vs CPU (T=16, B=4) and one SAC-AE step (B=2) within
+   ``train_step_parity``'s float32 bars, the new actors' included, and the
+   seconds per gradient step of each at its exp's batch;
 6. PPO (``exp=ppo``, CartPole-v1 at the exp's settings: 4 envs x 128 steps,
    minibatches of 64, 10 epochs, width 64) through the entry points on the
    card: 65536 policy steps with the metric log and the test episode (its
@@ -111,8 +129,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    graph; serving ticks (device time by kernel, the LN-GRU kernel's launches
    by name, busy share); a training step in float32 and one in bf16 (the
    same, and its kernel count); a P2E step at the DOA++ widths in bf16; a
-   DV2 step at 16 x 50 and a DV1 step at 50 x 50 in float32; a PPO
-   train phase and a SAC train phase (busy share, device operations);
+   DV2 step at 16 x 50 and a DV1 step at 50 x 50 in float32; a P2E-DV2
+   step at 16 x 50, a P2E-DV1 step at 50 x 50 and a SAC-AE train phase of 4
+   steps at batch 128; a PPO train phase and a SAC train phase (busy share,
+   device operations);
 9. print the ``kernels`` JSON line, the card line, and the final result line.
 
 The training phase launches with the config's defaults for video capture
@@ -128,12 +148,15 @@ and 256 (its imagination's 4 x 64 rows), and the DV2 cell (K = 400 + 600 =
 1000, 3H = 1800: the first that is not a whole number of the kernel's tiles,
 19 column groups the last of 24 columns, a last K stage of 8 rows) at B = 4
 (the player, serving), 16 (the posterior scan) and 800 (imagination's 16 x
-50 rows).
+50 rows), and the P2E-DV2 cell (K = 400 + 400 = 800, 3H = 1200: a 13th
+column group of 16 columns, a finish launch's 4th block of 16 of 128
+columns, 25 whole K stages) at the same three batches.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import math
 import os
@@ -192,13 +215,19 @@ GRU_SHAPES = [
     ("DV2", 4, 1000, 600),
     ("DV2", 16, 1000, 600),
     ("DV2", 800, 1000, 600),
+    # Plan2Explore on Dreamer-V2 at its exp's widths (K = 400 + 400): the
+    # player's 4 envs, the posterior scan's batch, imagination's 16 x 50 rows
+    ("P2E-DV2", 4, 800, 400),
+    ("P2E-DV2", 16, 800, 400),
+    ("P2E-DV2", 800, 800, 400),
 ]
 MAIN_SHAPE = ("S", 4, 1024, 512)  # serving: 4 slots at the S preset
 # training: the posterior scan's batch, then imagination's rows
 TRAIN_SHAPES = [("S", 16, 1024, 512), ("S", 1024, 1024, 512)]
 P2E_SHAPES = [("DOA", 4, 1792, 1024), ("DOA", 16, 1792, 1024), ("DOA", 256, 1792, 1024)]
 DV2_SHAPES = [("DV2", 4, 1000, 600), ("DV2", 16, 1000, 600), ("DV2", 800, 1000, 600)]
-GRAD_SHAPES = [MAIN_SHAPE, *TRAIN_SHAPES, *P2E_SHAPES, *DV2_SHAPES]
+P2E_DV2_SHAPES = [("P2E-DV2", 4, 800, 400), ("P2E-DV2", 16, 800, 400), ("P2E-DV2", 800, 800, 400)]
+GRAD_SHAPES = [MAIN_SHAPE, *TRAIN_SHAPES, *P2E_SHAPES, *DV2_SHAPES, *P2E_DV2_SHAPES]
 
 SLOTS = 4
 SESSIONS = 4
@@ -1146,7 +1175,12 @@ DV_RESUME_EXTRA_ITERS = {"dreamer_v2": 8, "dreamer_v1": 12}
 DV_MIN_GRADIENT_STEPS = {"dreamer_v2": (16, 4), "dreamer_v1": (8, 4)}
 # the posterior scan over 50 steps, imagination over 15: DV2's cell only; DV1's
 # has no LayerNorm and launches nothing
-DV_GRU_CALLS_PER_GRAD_STEP = {"dreamer_v2": 50 + 15, "dreamer_v1": 0}
+DV_GRU_CALLS_PER_GRAD_STEP = {"dreamer_v2": 50 + 15, "dreamer_v1": 0,
+                              # Plan2Explore: the scan and two 15-step imaginations (the
+                              # exploration actor's and the task actor's); finetuning
+                              # trains with the backbone's step
+                              "p2e_dv2_exploration": 50 + 15 + 15, "p2e_dv2_finetuning": 50 + 15,
+                              "p2e_dv1_exploration": 0, "p2e_dv1_finetuning": 0}
 DV_TAGS = ("Loss/world_model_loss", "Loss/policy_loss", "Loss/value_loss", "State/kl", "Time/sps_train")
 
 
@@ -1191,13 +1225,27 @@ def _check_dv_run(algo: str, name: str, summary: dict, min_steps: int) -> dict:
     return {"summary": summary, "launches": _launches(), "by_dtype": by_dtype, "need": need}
 
 
+def _evaluate_dv(algo: str, name: str, ckpt: str) -> dict:
+    """``evaluation`` of a Dreamer-V1/V2-family checkpoint: a finite reward,
+    the LN-GRU kernel launched (once a test step) where the cell has one."""
+    from sheeprl_tpu_torch.cli import evaluation
+
+    _zero_launches()
+    reward = evaluation([f"checkpoint_path={ckpt}"])
+    out = {"reward": reward, "launches": _launches(), "by_dtype": dict(LN_GRU.launches_by_dtype)}
+    print(f"[chip-smoke] {name} evaluation: reward {reward}, LN-GRU launches {LN_GRU.launches}", flush=True)
+    if not math.isfinite(reward) or (LN_GRU.launches < 1 if DV_GRU_CALLS_PER_GRAD_STEP[algo] else LN_GRU.launches):
+        raise AssertionError(f"{name} evaluation: reward {reward}, {LN_GRU.launches} LN-GRU launches")
+    return out
+
+
 def dv_path(algo: str, out_dir: str) -> dict:
     """Dreamer-V2 or V1 through the entry points in float32: train, resume,
     evaluate, serve (4 slots, 4 sessions of 512 steps). The launch counts are
     zeroed just before each and read just after: DV2 launches the LN-GRU
     kernel 65 times a gradient step, once a policy step and once a serving
     tick, DV1 never."""
-    from sheeprl_tpu_torch.cli import evaluation, run
+    from sheeprl_tpu_torch.cli import run
     from sheeprl_tpu_torch.serve.main import serve_main
 
     overrides = dv_overrides(algo, os.path.join(out_dir, algo))
@@ -1216,12 +1264,7 @@ def dv_path(algo: str, out_dir: str) -> dict:
     out["resume"] = _check_dv_run(algo, f"{short} resumed run", resumed, min_resumed)
     if not resumed["log_dir"].endswith("version_1"):
         raise AssertionError(f"the resumed {short} run wrote {resumed['log_dir']}, not the run's version_1")
-    _zero_launches()
-    reward = evaluation([f"checkpoint_path={resumed['checkpoint']}"])
-    out["evaluation"] = {"reward": reward, "launches": _launches(), "by_dtype": dict(LN_GRU.launches_by_dtype)}
-    print(f"[chip-smoke] {short} evaluation: reward {reward}, LN-GRU launches {LN_GRU.launches}", flush=True)
-    if not math.isfinite(reward) or (LN_GRU.launches < 1 if DV_GRU_CALLS_PER_GRAD_STEP[algo] else LN_GRU.launches):
-        raise AssertionError(f"{short} evaluation: reward {reward}, {LN_GRU.launches} LN-GRU launches")
+    out["evaluation"] = _evaluate_dv(algo, short, resumed["checkpoint"])
     log_dir = os.path.join(out_dir, f"{algo}_serve")
     _zero_launches()
     rc = serve_main([f"checkpoint_path={resumed['checkpoint']}", f"serve.slots={SLOTS}", f"serve.sessions={SESSIONS}",
@@ -1241,7 +1284,7 @@ def dv_path(algo: str, out_dir: str) -> dict:
 
 
 def _family_trainers(kind: str, devices, T: int, B: int, seed: int = 0, precision: str = "32-true"):
-    """P2E (DOA++ widths), ODV3 (S), DV2 or DV1 (their exps' widths) trainers
+    """P2E (DOA++ widths), ODV3 (S), DV2, DV1, P2E-DV2 or P2E-DV1 (their exps' widths) trainers
     with the same weights from a seed on each device at ``precision``, TF32
     off, and a random batch."""
     from sheeprl_tpu_torch.config import compose
@@ -1257,6 +1300,15 @@ def _family_trainers(kind: str, devices, T: int, B: int, seed: int = 0, precisio
         build_agent = importlib.import_module(f"sheeprl_tpu_torch.algos.{algo}.agent").build_agent
         make_trainer = importlib.import_module(f"sheeprl_tpu_torch.algos.{algo}.{algo}").make_trainer
         cfg, to_flax, continuous = compose(dv_overrides(algo)), dv2_to_flax, kind == "dv1"
+    elif kind in ("p2e_dv2", "p2e_dv1"):
+        import importlib
+
+        from sheeprl_tpu_torch.interop.flax_to_torch import p2e_dv_to_flax
+
+        v = int(kind[-1])
+        build_agent = importlib.import_module(f"sheeprl_tpu_torch.algos.{kind}.agent").build_agent
+        make_trainer = importlib.import_module(f"sheeprl_tpu_torch.algos.{kind}.{kind}_exploration").make_trainer
+        cfg, to_flax, continuous = compose(p2e_dv_overrides(v)), p2e_dv_to_flax, v == 1
     elif kind == "p2e":
         from sheeprl_tpu_torch.algos.p2e_dv3.agent import build_agent
         from sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration import make_trainer
@@ -1348,7 +1400,8 @@ def family_step_parity(kind: str, actor_rtol: float = FAMILY_ACTOR_RTOL) -> dict
 
 # (T, B, precision) of each family's timed step: P2E at its DOA++ batch in
 # bf16, DV2 and DV1 at their exps' batches in float32
-FAMILY_TIMING = {"p2e": (64, 4, P2E_PRECISION), "dv2": (50, 16, "32-true"), "dv1": (50, 50, "32-true")}
+FAMILY_TIMING = {"p2e": (64, 4, P2E_PRECISION), "dv2": (50, 16, "32-true"), "dv1": (50, 50, "32-true"),
+                 "p2e_dv2": (50, 16, "32-true"), "p2e_dv1": (50, 50, "32-true")}
 
 
 def time_family_steps(kind: str = "p2e", steps: int = 3) -> tuple:
@@ -1374,6 +1427,364 @@ def time_family_steps(kind: str = "p2e", steps: int = 3) -> tuple:
            "seconds_per_gradient_step": (time.perf_counter() - t0) / steps}
     print(f"[chip-smoke] {kind} train step timing: {json.dumps(out)}", flush=True)
     return out, (trainer, batch, generator)
+
+
+# -- Plan2Explore on Dreamer-V1 and V2, SAC-AE (phase 5e) --------------------------
+P2E_DV_ENVS = DV_ENVS
+# as phase 5d: each env holds one 50-step sequence after 56 iterations; then
+# P2E-DV2 (ratio 0.2) takes 8 gradient steps in 10 iterations, P2E-DV1 (0.1)
+# 8 in 20; the resumed runs wait the 56 again and take 2 (the restored
+# governor skips the first training iteration); finetuning acts with the
+# exploration actor for 56 iterations, then trains the task heads as long
+P2E_DV_EXTRA_ITERS = {2: 10, 1: 20}
+P2E_DV_RESUME_EXTRA_ITERS = {2: 4, 1: 8}
+P2E_DV_MIN_GRADIENT_STEPS = (8, 2)
+P2E_DV_TAGS = ("Loss/world_model_loss", "Loss/ensemble_loss", "Loss/policy_loss_exploration",
+               "Loss/policy_loss_task", "Rewards/intrinsic", "Time/sps_train")
+DV_LAYOUT = {2: ["actor", "critic", "target_critic", "world_model"], 1: ["actor", "critic", "world_model"]}
+# SAC-AE at its exp's widths (x16 channels: 512 a conv, features 64, hidden
+# 1024, batch 128, 3 stacked 64 x 64 frames) on the continuous dummy env, 4
+# envs: 32 iterations before learning starts (one batch of rows), then 4
+# gradient steps an iteration (replay ratio 1) for 5 iterations; the resumed
+# run waits the 32 again and takes 4 more. The exp's buffer of 1,000,000 rows
+# (73.7 kB of frames each) is cut to 16,384
+SAC_AE_ENVS = 4
+SAC_AE_LEARNING_STARTS_ITERS = 32
+SAC_AE_FIRST_ITERS = SAC_AE_LEARNING_STARTS_ITERS + 4
+SAC_AE_RESUME_ITERS = SAC_AE_FIRST_ITERS + SAC_AE_LEARNING_STARTS_ITERS + 2
+SAC_AE_MIN_GRADIENT_STEPS = (16, 4)
+SAC_AE_TAGS = ("Loss/value_loss", "Loss/policy_loss", "Loss/alpha_loss", "Loss/reconstruction_loss",
+               "Time/sps_train")
+# one SAC-AE train step card vs CPU in float32 with TF32 off: the CPU's
+# convolutions at 512 channels take about a second a sample, so the batch is 2
+SAC_AE_PARITY_B = 2
+# the card's float32 step against the exact (float64) one: in three runs on one
+# NVIDIA H100 80GB HBM3 at 700 W its weights beyond TRAIN_PARAM_ATOL of the
+# exact step were 0.94-1.06x the CPU's float32 ones (314,860-356,988 against
+# 336,557; the card's wgrad convolutions sum in a run-dependent order); a wrong
+# or missing update of any group but the temperature moves more weights than
+# twice the CPU's count
+SAC_AE_ROUNDING_FACTOR = 2
+
+
+def p2e_dv_overrides(v: int, run_dir: str = "", phase: str = "exploration") -> list:
+    """``exp=p2e_dv{v}_{phase}`` at the exp's widths, batch, sequence, horizon,
+    replay ratio, ensemble and buffer, on the dummy env (P2E-DV1 on the
+    continuous one), 4 envs, learning_starts cut."""
+    return [
+        f"exp=p2e_dv{v}_{phase}",
+        "env=dummy",
+        *(["env.id=continuous_dummy"] if v == 1 else []),
+        f"env.num_envs={P2E_DV_ENVS}",
+        f"algo.learning_starts={P2E_DV_ENVS * DV_LEARNING_STARTS_ITERS}",
+        *([f"hydra.run.dir={run_dir}"] if run_dir else []),
+    ]
+
+
+def p2e_dv_path(v: int, out_dir: str) -> dict:
+    """Plan2Explore on Dreamer-V{v} through the entry points in float32:
+    exploration (>= 8 gradient steps), a resume from its checkpoint (>= 2),
+    an evaluation, finetuning from it (the exploration actor acts until
+    learning starts, the task actor after; its checkpoint holds the
+    backbone's layout) and its evaluation. The launch counts are zeroed just
+    before each run and read just after: P2E-DV2 launches the LN-GRU kernel
+    80 times an exploration step and 65 a finetuning step, once a policy step
+    of the loop and of the test episode; P2E-DV1 never."""
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
+
+    short, expl_algo, ft_algo = f"P2E-DV{v}", f"p2e_dv{v}_exploration", f"p2e_dv{v}_finetuning"
+    expl = p2e_dv_overrides(v, os.path.join(out_dir, f"p2e_dv{v}"))
+    first_iters = DV_LEARNING_STARTS_ITERS + P2E_DV_EXTRA_ITERS[v]
+    out = {}
+    _zero_launches()
+    first = run(expl + [f"algo.total_steps={P2E_DV_ENVS * first_iters}"])
+    out["train"] = _check_dv_run(expl_algo, f"{short} exploration", first, P2E_DV_MIN_GRADIENT_STEPS[0])
+    scalars = check_scalars(f"{short} exploration", first["log_dir"], P2E_DV_TAGS)
+    out["train"]["scalars"] = {t: scalars[t][-1] for t in P2E_DV_TAGS}
+    resume_iters = first_iters + DV_LEARNING_STARTS_ITERS + P2E_DV_RESUME_EXTRA_ITERS[v]
+    _zero_launches()
+    resumed = run(expl + [f"algo.total_steps={P2E_DV_ENVS * resume_iters}",
+                          f"checkpoint.resume_from={first['checkpoint']}"])
+    out["resume"] = _check_dv_run(expl_algo, f"{short} exploration resumed", resumed, P2E_DV_MIN_GRADIENT_STEPS[1])
+    if not resumed["log_dir"].endswith("version_1"):
+        raise AssertionError(f"the resumed {short} run wrote {resumed['log_dir']}, not the run's version_1")
+    out["evaluation"] = _evaluate_dv(expl_algo, f"{short} exploration", resumed["checkpoint"])
+
+    _zero_launches()
+    ft = run(p2e_dv_overrides(v, os.path.join(out_dir, f"p2e_dv{v}_ft"), "finetuning") + [
+        f"algo.total_steps={P2E_DV_ENVS * first_iters}", f"checkpoint.exploration_ckpt_path={first['checkpoint']}"])
+    out["finetune"] = _check_dv_run(ft_algo, f"{short} finetuning", ft, P2E_DV_MIN_GRADIENT_STEPS[0])
+    switch = ft["actor_switch"]
+    layout = sorted(load_checkpoint(ft["checkpoint"])["agent"])
+    print(f"[chip-smoke] {short} finetuning: the player switched to the task actor at iteration "
+          f"{switch['iteration']} after {switch['player_calls_before']} calls with the exploration actor; "
+          f"{ft['player_calls']} calls in all; checkpoint layout {layout}", flush=True)
+    if switch != {"iteration": DV_LEARNING_STARTS_ITERS, "player_calls_before": DV_LEARNING_STARTS_ITERS} \
+            or ft["player_calls"] <= switch["player_calls_before"]:
+        raise AssertionError(f"{short} finetuning did not act with the exploration actor until learning started "
+                             f"and with the task actor after: {switch}, {ft['player_calls']} calls")
+    if layout != DV_LAYOUT[v]:
+        raise AssertionError(f"{short} finetuning checkpoint holds {layout}, not Dreamer-V{v}'s layout")
+    out["finetune_evaluation"] = _evaluate_dv(ft_algo, f"{short} finetuning", ft["checkpoint"])
+    out["seconds_per_gradient_step"] = first["train_seconds"] / first["gradient_steps"]
+    out["finetune_seconds_per_gradient_step"] = ft["train_seconds"] / ft["gradient_steps"]
+    print(f"[chip-smoke] {short}: {out['seconds_per_gradient_step']:.4f} s per exploration gradient step in the "
+          f"loop, {out['finetune_seconds_per_gradient_step']:.4f} s per finetuning step", flush=True)
+    return out
+
+
+def sac_ae_overrides(run_dir: str = "") -> list:
+    return [
+        "exp=sac_ae",
+        "env=dummy",
+        "env.id=continuous_dummy",
+        "algo.cnn_keys.encoder=[rgb]",
+        "algo.mlp_keys.encoder=[state]",
+        f"env.num_envs={SAC_AE_ENVS}",
+        f"algo.learning_starts={SAC_AE_ENVS * SAC_AE_LEARNING_STARTS_ITERS}",
+        "buffer.size=16384",
+        *([f"hydra.run.dir={run_dir}"] if run_dir else []),
+    ]
+
+
+def _check_sac_ae_run(name: str, summary: dict, min_steps: int) -> dict:
+    print(f"[chip-smoke] {name}: {summary['gradient_steps']} gradient steps in {summary['train_phases']} train phases, "
+          f"{summary['policy_steps']} policy steps in {summary['wall_seconds']:.2f}s (train "
+          f"{summary['train_seconds']:.2f}s, env {summary['env_seconds']:.2f}s); test reward {summary['test_reward']}; "
+          f"losses {json.dumps(summary['metrics'])}; LN-GRU launches {LN_GRU.launches}", flush=True)
+    if summary["gradient_steps"] < min_steps or not all(math.isfinite(x) for x in summary["metrics"].values()):
+        raise AssertionError(f"{name}: {summary['gradient_steps']} gradient steps, losses {summary['metrics']}")
+    if "Loss/reconstruction_loss" not in summary["metrics"] or LN_GRU.launches:
+        raise AssertionError(f"{name}: losses {sorted(summary['metrics'])}, {LN_GRU.launches} LN-GRU launches")
+    return {"summary": summary, "launches": _launches()}
+
+
+def sac_ae_path(out_dir: str) -> dict:
+    """``exp=sac_ae`` through the entry points on the card: train (>= 16
+    gradient steps; the metric log holds the reconstruction loss), resume
+    into version_1, evaluate. SAC-AE reaches no TPU kernel: the launch counts
+    are read to show that."""
+    from sheeprl_tpu_torch.cli import evaluation, run
+
+    overrides = sac_ae_overrides(os.path.join(out_dir, "sac_ae"))
+    out = {}
+    _zero_launches()
+    first = run(overrides + [f"algo.total_steps={SAC_AE_ENVS * SAC_AE_FIRST_ITERS}"])
+    out["train"] = _check_sac_ae_run("SAC-AE first run", first, SAC_AE_MIN_GRADIENT_STEPS[0])
+    scalars = check_scalars("SAC-AE first run", first["log_dir"], SAC_AE_TAGS)
+    out["train"]["scalars"] = {t: scalars[t][-1] for t in SAC_AE_TAGS}
+    _zero_launches()
+    resumed = run(overrides + [f"algo.total_steps={SAC_AE_ENVS * SAC_AE_RESUME_ITERS}",
+                               f"checkpoint.resume_from={first['checkpoint']}"])
+    out["resume"] = _check_sac_ae_run("SAC-AE resumed run", resumed, SAC_AE_MIN_GRADIENT_STEPS[1])
+    if not resumed["log_dir"].endswith("version_1"):
+        raise AssertionError(f"the resumed SAC-AE run wrote {resumed['log_dir']}, not the run's version_1")
+    _zero_launches()
+    reward = evaluation([f"checkpoint_path={resumed['checkpoint']}"])
+    out["evaluation"] = {"reward": reward, "launches": _launches()}
+    print(f"[chip-smoke] SAC-AE evaluation: reward {reward}, LN-GRU launches {LN_GRU.launches}", flush=True)
+    if not math.isfinite(reward) or LN_GRU.launches:
+        raise AssertionError(f"SAC-AE evaluation: reward {reward}, {LN_GRU.launches} LN-GRU launches")
+    out["seconds_per_gradient_step"] = first["train_seconds"] / first["gradient_steps"]
+    return out
+
+
+def _sac_ae_trainers(devices, precision: str = "highest", scale_heads: bool = True):
+    """SAC-AE trainers at the exp's widths with the same weights (the first
+    device's, from a seed) on each device; the actor's heads scaled by 0.1
+    (the pre-squash samples stay off tanh's tail, as the SAC parity does)."""
+    from sheeprl_tpu_torch.algos.sac_ae.agent import build_agent
+    from sheeprl_tpu_torch.algos.sac_ae.sac_ae import SACAETrainer, build_optimizers
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.interop.flax_to_torch import sac_ae_to_flax
+    from sheeprl_tpu_torch.parallel.fabric import Fabric
+    from sheeprl_tpu_torch.utils.env import make_env
+
+    cfg = compose(sac_ae_overrides())
+    env = make_env(cfg, 0, 0)()
+    trainers, weights = {}, None
+    for accel in devices:
+        fabric = Fabric(accelerator=accel, float32_matmul_precision=precision)
+        agent = build_agent(fabric, cfg, env.observation_space, env.action_space, 0, weights)
+        if weights is None:
+            if scale_heads:
+                with torch.no_grad():
+                    agent.actor.fc_mean.weight.mul_(0.1)
+                    agent.actor.fc_logstd.weight.mul_(0.1)
+            weights = sac_ae_to_flax(agent)
+        trainers[accel] = SACAETrainer(agent, build_optimizers(cfg, agent), cfg, -float(env.action_space.shape[0]))
+    env.close()
+    return trainers, cfg
+
+
+def _sac_ae_block(rng, G: int, B: int) -> dict:
+    def obs(prefix=""):
+        return {prefix + "rgb": rng.integers(0, 256, (G, B, 3, 3, 64, 64)).astype(np.uint8),
+                prefix + "state": rng.standard_normal((G, B, 10)).astype(np.float32)}
+
+    return {**obs(), **obs("next_"), "actions": rng.uniform(-1, 1, (G, B, 2)).astype(np.float32),
+            "rewards": rng.standard_normal((G, B, 1)).astype(np.float32),
+            "terminated": np.zeros((G, B, 1), np.float32)}
+
+
+def sac_ae_step_parity() -> dict:
+    """One SAC-AE gradient step (``cum`` 0: every gate open) at the exp's
+    widths on the card vs on the CPU in float32 with TF32 off, batch
+    SAC_AE_PARITY_B, from the same weights, block and draws: the four losses
+    within TRAIN_STEP_RTOL and every parameter within 2 lr
+    (``train_step_parity``'s bars). Its third bar, a share of the weights
+    within TRAIN_PARAM_ATOL of the CPU's, stands here against the exact step
+    (the CPU's, in float64, measured in the same run): the card's weights
+    beyond TRAIN_PARAM_ATOL of it may be at most SAC_AE_ROUNDING_FACTOR times
+    the CPU's float32 ones. Adam's first step, at the exp's eps of 1e-8, moves
+    a weight by about lr whatever its gradient's size, so where a gradient
+    lies within rounding of 0 (the 512-channel convolutions and the
+    320,000-wide projections hold hundreds of thousands of them) rounding
+    picks the step's sign: float32 rounding alone puts ~0.26% of the weights
+    beyond TRAIN_PARAM_ATOL of the exact step on either device."""
+    from sheeprl_tpu_torch.algos.sac_ae.sac_ae import SACAETrainer, build_optimizers
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.interop.flax_to_torch import sac_ae_to_flax
+    from sheeprl_tpu_torch.parallel.fabric import Fabric
+    from sheeprl_tpu_torch.utils.env import make_env
+
+    cfg = compose(sac_ae_overrides())
+    env = make_env(cfg, 0, 0)()
+    trainers, weights = {}, None
+    for accel in devices:
+        fabric = Fabric(accelerator=accel, float32_matmul_precision=precision)
+        agent = build_agent(fabric, cfg, env.observation_space, env.action_space, 0, weights)
+        if weights is None:
+            if scale_heads:
+                with torch.no_grad():
+                    agent.actor.fc_mean.weight.mul_(0.1)
+                    agent.actor.fc_logstd.weight.mul_(0.1)
+            weights = sac_ae_to_flax(agent)
+        trainers[accel] = SACAETrainer(agent, build_optimizers(cfg, agent), cfg, -float(env.action_space.shape[0]))
+    env.close()
+    return trainers, cfg
+
+
+def _sac_ae_block(rng, G: int, B: int) -> dict:
+    def obs(prefix=""):
+        return {prefix + "rgb": rng.integers(0, 256, (G, B, 3, 3, 64, 64)).astype(np.uint8),
+                prefix + "state": rng.standard_normal((G, B, 10)).astype(np.float32)}
+
+    return {**obs(), **obs("next_"), "actions": rng.uniform(-1, 1, (G, B, 2)).astype(np.float32),
+            "rewards": rng.standard_normal((G, B, 1)).astype(np.float32),
+            "terminated": np.zeros((G, B, 1), np.float32)}
+
+
+def sac_ae_step_parity() -> dict:
+    """One SAC-AE gradient step (``cum`` 0: every gate open) at the exp's
+    widths on the card vs on the CPU in float32 with TF32 off, batch
+    SAC_AE_PARITY_B, from the same weights, block and draws: the four losses
+    within TRAIN_STEP_RTOL and every parameter within 2 lr
+    (``train_step_parity``'s bars). Its third bar, a share of the weights
+    within TRAIN_PARAM_ATOL, stands here against a reference measured in the
+    same run: the weights of the card's step beyond TRAIN_PARAM_ATOL of the
+    CPU's may be no more than those of the CPU's float32 step beyond it of the
+    CPU's float64 step. Adam's first step, at the exp's eps of 1e-8, moves a
+    weight by about lr whatever its gradient's size, so where a gradient lies
+    within rounding of 0 (the 512-channel convolutions and the 320,000-wide
+    projections hold hundreds of thousands) rounding alone picks the step's
+    sign: float32 rounding alone puts more than 0.1% of the weights beyond
+    TRAIN_PARAM_ATOL of the exact step."""
+    from sheeprl_tpu_torch.algos.sac_ae.sac_ae import SACAETrainer, build_optimizers
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)
+    try:
+        trainers, cfg = _sac_ae_trainers(("gpu", "cpu"))
+        cpu = trainers["cpu"]
+        exact = copy.deepcopy(cpu.agent).to(torch.float64)
+        trainers["cpu_float64"] = SACAETrainer(exact, build_optimizers(cfg, exact), cfg, cpu.target_entropy)
+        block = _sac_ae_block(np.random.default_rng(17), 1, SAC_AE_PARITY_B)
+        noise = cpu.draw_noise(1, {k: torch.from_numpy(v) for k, v in block.items()}, torch.Generator().manual_seed(18))
+        losses = {}
+        for name, trainer in trainers.items():
+            dev, dtype = trainer.device, trainer.dtype
+            data = {k: torch.from_numpy(v).to(dev) for k, v in block.items()}
+            data = {k: v if v.dtype == torch.uint8 else v.to(dtype) for k, v in data.items()}
+            losses[name] = trainer.train_phase(data, 0, _noise_to(noise, dev, dtype)).cpu()
+    finally:
+        torch.set_num_threads(threads)
+    lr = max(group["lr"] for opt in cpu.optimizers.values() for group in opt.param_groups)
+    rel = (losses["gpu"] - losses["cpu"]).abs() / losses["cpu"].abs().clamp_min(1e-3)
+
+    def gap(a, b):
+        a, b = a.agent.state_dict(), b.agent.state_dict()
+        return torch.cat([(a[k].detach().cpu().double() - v.double()).abs().reshape(-1) for k, v in b.items()])
+
+    card, rounding = gap(trainers["gpu"], cpu), gap(cpu, trainers["cpu_float64"])
+    card_exact = gap(trainers["gpu"], trainers["cpu_float64"])
+    res = {"losses_rel_err": rel.tolist(), "worst_rel_err": float(rel.max()), "param_max_abs_gap": float(card.max()),
+           "params_beyond_atol": int((card > TRAIN_PARAM_ATOL).sum()),
+           "cpu_float32_params_beyond_atol_of_float64": int((rounding > TRAIN_PARAM_ATOL).sum()),
+           "card_params_beyond_atol_of_float64": int((card_exact > TRAIN_PARAM_ATOL).sum()),
+           "cpu_float32_param_max_abs_gap_to_float64": float(rounding.max()), "parameters": int(card.numel()),
+           "card": losses["gpu"].tolist(), "cpu": losses["cpu"].tolist(), "cpu_float64": losses["cpu_float64"].tolist(),
+           "batch": SAC_AE_PARITY_B}
+    print(f"[chip-smoke] SAC-AE train step card vs CPU (float32, TF32 off, B={SAC_AE_PARITY_B}): {json.dumps(res)} "
+          f"(bars: losses {TRAIN_STEP_RTOL} relative, every parameter within {2 * lr:.1e}, the card's parameters "
+          f"beyond {TRAIN_PARAM_ATOL} of the float64 step at most {SAC_AE_ROUNDING_FACTOR}x the CPU float32 step's)",
+          flush=True)
+    if not (res["worst_rel_err"] <= TRAIN_STEP_RTOL and res["param_max_abs_gap"] <= 2 * lr
+            and res["card_params_beyond_atol_of_float64"]
+            <= SAC_AE_ROUNDING_FACTOR * res["cpu_float32_params_beyond_atol_of_float64"]
+            and torch.isfinite(losses["gpu"]).all()):
+        raise AssertionError(f"the SAC-AE train step on the card disagrees with the CPU: {res}")
+    return res
+
+
+def time_sac_ae(phases: int = 3) -> tuple:
+    """Seconds per SAC-AE gradient step on the card at the exp's widths and
+    batch (128), in train phases of the loop's 4 steps from ``cum`` 0 (every
+    gate opens on the even steps), TF32 as the config sets it. Returns the
+    timing and the warm trainer with its inputs, for the profile."""
+    trainers, cfg = _sac_ae_trainers(("gpu",), precision="high", scale_heads=False)
+    trainer = trainers["gpu"]
+    G, B = SAC_AE_ENVS, int(cfg.algo.per_rank_batch_size)
+    data = {k: torch.from_numpy(v).to(trainer.device) for k, v in _sac_ae_block(np.random.default_rng(19), G, B).items()}
+    generator = torch.Generator(trainer.device).manual_seed(20)
+    trainer.train_phase(data, 0, trainer.draw_noise(G, data, generator))  # warm-up: cuDNN plans, the allocator
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(phases):
+        trainer.train_phase(data, G * (i + 1), trainer.draw_noise(G, data, generator))
+    torch.cuda.synchronize()
+    out = {"B": B, "G": G, "phases": phases, "seconds_per_gradient_step": (time.perf_counter() - t0) / (phases * G)}
+    print(f"[chip-smoke] SAC-AE train step timing: {json.dumps(out)}", flush=True)
+    return out, (trainer, data, generator)
+
+
+def profile_sac_ae_phase(warm: tuple) -> dict:
+    """Under torch.profiler (last), the card's busy share of one SAC-AE train
+    phase of 4 gradient steps, its device operations and device time by
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer, data, generator = warm
+    G = data["rewards"].shape[0]
+    noise = trainer.draw_noise(G, data, generator)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_phase(data, 100, noise)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel, count = {}, 0
+    for ev in device_events(prof):
+        by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+        count += 1
+    device_ms = sum(by_kernel.values())
+    out = {"gradient_steps": G, "phase_wall_ms": wall_ms, "phase_device_ms": device_ms if device_ms > 0 else None,
+           "device_busy_share": device_ms / wall_ms if device_ms > 0 else None, "device_operations": count,
+           "device_operations_per_gradient_step": count / G,
+           "top_device_ms": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]}
+    print(f"[chip-smoke] SAC-AE train phase profile: {json.dumps(out)}", flush=True)
+    return out
 
 
 # -- the serving planes (hot reload, faults, supervisor, telemetry, PPO) ------------
@@ -2493,6 +2904,14 @@ def main() -> int:
         dv1["parity"] = family_step_parity("dv1", actor_rtol=TRAIN_STEP_RTOL)
         dv2["timing"], dv2_warm = time_family_steps("dv2")
         dv1["timing"], dv1_warm = time_family_steps("dv1")
+        # Plan2Explore on Dreamer-V2 and V1, and SAC-AE, float32 at their exps' widths
+        p2e_dv2, p2e_dv1, sac_ae = p2e_dv_path(2, tmp), p2e_dv_path(1, tmp), sac_ae_path(tmp)
+        p2e_dv2["parity"] = family_step_parity("p2e_dv2", actor_rtol=TRAIN_STEP_RTOL)
+        p2e_dv1["parity"] = family_step_parity("p2e_dv1", actor_rtol=TRAIN_STEP_RTOL)
+        sac_ae["parity"] = sac_ae_step_parity()
+        p2e_dv2["timing"], p2e_dv2_warm = time_family_steps("p2e_dv2")
+        p2e_dv1["timing"], p2e_dv1_warm = time_family_steps("p2e_dv1")
+        sac_ae["timing"], sac_ae_warm = time_sac_ae()
         ppo = ppo_path(tmp)
         ppo["serve"] = ppo_serve_path(ppo["train"]["summary"]["checkpoint"], tmp)
         a2c = a2c_path(tmp)
@@ -2512,14 +2931,19 @@ def main() -> int:
         p2e["timing"]["profile"] = profile_train_steps(p2e_warm, steps=2)
         dv2["timing"]["profile"] = profile_train_steps(dv2_warm, steps=2)
         dv1["timing"]["profile"] = profile_train_steps(dv1_warm, steps=2)
+        p2e_dv2["timing"]["profile"] = profile_train_steps(p2e_dv2_warm, steps=2)
+        p2e_dv1["timing"]["profile"] = profile_train_steps(p2e_dv1_warm, steps=2)
+        sac_ae["timing"]["profile"] = profile_sac_ae_phase(sac_ae_warm)
         ppo["timing"]["profile"] = profile_ppo_train_phase(ppo_warm)
         sac["timing"]["profile"] = profile_sac_train_phase(sac_warm)
-        del warm, warm_bf16, ppo_warm, sac_warm, p2e_warm, dv2_warm, dv1_warm
+        del warm, warm_bf16, ppo_warm, sac_warm, p2e_warm, dv2_warm, dv1_warm, p2e_dv2_warm, p2e_dv1_warm, sac_ae_warm
 
     main_row = next(r for r in gru["rows"] if (r["preset"], r["B"], r["K"], r["H"]) == MAIN_SHAPE)
     train_rows = [r for r in gru["rows"] if (r["preset"], r["B"], r["K"], r["H"]) in TRAIN_SHAPES]
     p2e_rows = [r for r in gru["rows"] + gru_bf16["rows"] if (r["preset"], r["B"], r["K"], r["H"]) in P2E_SHAPES]
     dv2_rows = [r for r in gru["rows"] + gru_bf16["rows"] if (r["preset"], r["B"], r["K"], r["H"]) in DV2_SHAPES]
+    p2e_dv2_rows = [r for r in gru["rows"] + gru_bf16["rows"]
+                    if (r["preset"], r["B"], r["K"], r["H"]) in P2E_DV2_SHAPES]
     keep = ("B", "K", "H", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err",
             "grad_max_abs_err", "launches_per_call", "call_ms")
     kernels = [
@@ -2558,12 +2982,20 @@ def main() -> int:
                 # a policy step and one a serving tick; DV1's cell launches none
                 **{f"{fam}_{name}": res[name]["launches"][LN_GRU.name]
                    for fam, res in (("dv2", dv2), ("dv1", dv1)) for name in ("train", "resume", "evaluation", "serve")},
+                # Plan2Explore on DV2 (80 launches an exploration step, 65 a finetuning
+                # step, plus one a policy step) and on DV1 (none); SAC-AE none
+                **{f"{fam}_{name}": res[name]["launches"][LN_GRU.name]
+                   for fam, res in (("p2e_dv2", p2e_dv2), ("p2e_dv1", p2e_dv1))
+                   for name in ("train", "resume", "evaluation", "finetune", "finetune_evaluation")},
+                **{f"sac_ae_{name}": sac_ae[name]["launches"][LN_GRU.name] for name in ("train", "resume", "evaluation")},
             },
             "launches_needed_by_path": {
                 **{f"p2e_{name}": p2e[name]["need"] for name in ("train", "resume", "finetune")},
                 **{f"odv3_{name}": odv3[name]["need"] for name in ("train", "resume")},
                 **{f"{fam}_{name}": res[name]["need"]
                    for fam, res in (("dv2", dv2), ("dv1", dv1)) for name in ("train", "resume", "serve")},
+                **{f"{fam}_{name}": res[name]["need"]
+                   for fam, res in (("p2e_dv2", p2e_dv2), ("p2e_dv1", p2e_dv1)) for name in ("train", "resume", "finetune")},
             },
             "launches_by_dtype": {
                 **{name: bf16[name]["by_dtype"] for name in ("train", "resume", "evaluation", "serve")},
@@ -2572,6 +3004,7 @@ def main() -> int:
             },
             "p2e_rows": [{"dtype": r["dtype"], **{k: r[k] for k in keep if k in r}} for r in p2e_rows],
             "dv2_rows": [{"dtype": r["dtype"], **{k: r[k] for k in keep if k in r}} for r in dv2_rows],
+            "p2e_dv2_rows": [{"dtype": r["dtype"], **{k: r[k] for k in keep if k in r}} for r in p2e_dv2_rows],
             "bf16_rows": [{k: r[k] for k in keep if k in r} for r in gru_bf16["rows"]],
             "bf16_max_abs_err": gru_bf16["max_abs_err"],
             "train_rows": [{k: r[k] for k in keep} for r in train_rows],
@@ -2597,7 +3030,8 @@ def main() -> int:
                  "launches": path["launches"], "serve_parity": parity, "serve_profile": profile,
                  "train": train, "train_parity": train_parity, "train_timing": train_timing,
                  "gru_bf16": gru_bf16, "bf16": bf16, "serving_planes": planes,
-                 "p2e": p2e, "odv3": odv3, "dv2": dv2, "dv1": dv1,
+                 "p2e": p2e, "odv3": odv3, "dv2": dv2, "dv1": dv1, "p2e_dv2": p2e_dv2, "p2e_dv1": p2e_dv1,
+                 "sac_ae": sac_ae,
                  "ppo": ppo, "a2c": a2c, "sac": sac, "droq": droq, "kernels": kernels},
                 f, indent=2,
             )

@@ -61,27 +61,32 @@ class DV1Trainer(DV2Trainer):
             "State/post_entropy": _normal_entropy(post_std.detach()),
             "State/prior_entropy": _normal_entropy(prior_std.detach()),
         }
-        return loss, (zs, hs, metrics)
+        return loss, (zs, hs, embedded, metrics)
 
-    def actor_loss(self, zs, hs, true_continue, transition_noise, action_noise):
-        """Returns (policy loss, (latents, λ-values, discount)); the gradient
-        reaches the actor through the imagined dynamics."""
+    def actor_loss(self, zs, hs, true_continue, transition_noise, action_noise, actor=None, critic=None,
+                   reward_fn=None):
+        """Returns (policy loss, (latents, λ-values, discount, rewards)); the
+        gradient reaches the actor through the imagined dynamics. ``actor``,
+        ``critic`` (whose values the λ-returns take) and ``reward_fn(latents,
+        actions)`` default to the agent's actor, critic and reward head."""
         agent, wm = self.agent, self.agent.world_model
+        critic = agent.critic if critic is None else critic
         z0 = zs.detach().reshape(-1, agent.stoch_state_size)
         h0 = hs.detach().reshape(-1, agent.recurrent_state_size)
-        latents, _ = agent.imagination_scan(z0, h0, self.horizon, transition_noise, action_noise)
-        values = agent.critic(latents)
-        rewards = wm["reward_model"](latents)
+        latents, actions = agent.imagination_scan(z0, h0, self.horizon, transition_noise, action_noise, actor=actor)
+        values = critic(latents)
+        rewards = wm["reward_model"](latents) if reward_fn is None else reward_fn(latents, actions)
         if self.use_continues:
             continues = torch.sigmoid(wm["continue_model"](latents))
         else:
             continues = torch.ones_like(rewards.detach()) * self.gamma
         lambda_values = compute_lambda_values(rewards, values, continues, self.horizon, self.lmbda)
         discount = torch.cumprod(torch.cat([torch.ones_like(continues[:1]), continues[:-2]], dim=0), dim=0).detach()
-        return -torch.mean(discount * lambda_values), (latents, lambda_values, discount)
+        return -torch.mean(discount * lambda_values), (latents, lambda_values, discount, rewards)
 
-    def critic_loss(self, latents, lambda_values, discount):
-        lp = normal1_logprob(self.agent.critic(latents[:-1]), lambda_values.detach(), 1)
+    def critic_loss(self, latents, lambda_values, discount, critic=None):
+        critic = self.agent.critic if critic is None else critic
+        lp = normal1_logprob(critic(latents[:-1]), lambda_values.detach(), 1)
         return -torch.mean(discount[..., 0] * lp)
 
     def update_target_critic(self, cum: int) -> None:
@@ -92,8 +97,8 @@ def make_trainer(agent, cfg) -> DV1Trainer:
     return DV1Trainer(agent, cfg, build_optimizers(cfg, agent))
 
 
-def main(fabric, cfg: Dict[str, Any], exploration_actor: Optional[torch.nn.Module] = None) -> Dict[str, Any]:
-    """``exploration_actor`` acts while learning has not started (the JAX
-    loop's ``exploration_actor_params``, for Plan2Explore's finetuning)."""
+def main(fabric, cfg: Dict[str, Any], exploration_actor: Optional[Any] = None, **finetune: Any) -> Dict[str, Any]:
+    """``exploration_actor`` and ``finetune`` as Dreamer-V2's ``main`` takes them
+    (Plan2Explore's finetuning)."""
     return run_family(fabric, cfg, build_agent_fn=build_agent, make_trainer_fn=make_trainer,
-                      exploration_actor=exploration_actor)
+                      exploration_actor=exploration_actor, **finetune)

@@ -106,7 +106,7 @@ class DV2Trainer(DreamerTrainer):
         return obs_lps, reward_lp, cont_lp
 
     def world_loss(self, batch: Batch, noise: torch.Tensor):
-        """Returns (loss, (posteriors, recurrent states, metrics))."""
+        """Returns (loss, (posteriors, recurrent states, embeddings, metrics))."""
         agent, wm_cfg = self.agent, self.wm_cfg
         batch_obs, is_first, actions = self.observe(batch)
         embedded = agent.encoder(batch_obs)
@@ -135,19 +135,26 @@ class DV2Trainer(DreamerTrainer):
             "State/post_entropy": _cat_entropy(post_logits.detach(), agent.discrete_size),
             "State/prior_entropy": _cat_entropy(prior_logits.detach(), agent.discrete_size),
         }
-        return loss, (zs, hs, metrics)
+        return loss, (zs, hs, embedded, metrics)
 
-    def actor_loss(self, zs, hs, true_continue, transition_noise, action_noise):
-        """Returns (policy loss, (latents, λ-values, discount))."""
+    def actor_loss(self, zs, hs, true_continue, transition_noise, action_noise, actor=None, critic=None,
+                   reward_fn: Optional[Callable] = None):
+        """Returns (policy loss, (latents, λ-values, discount, rewards)).
+        ``actor`` imagines and is scored (the agent's by default), ``critic``
+        bootstraps the λ-returns (the target critic), ``reward_fn(latents,
+        actions)`` rewards the rollout (the world model's reward head);
+        Plan2Explore's exploration behaviour passes its own three."""
         agent, wm = self.agent, self.agent.world_model
+        actor = agent.actor if actor is None else actor
+        critic = agent.target_critic if critic is None else critic
         z0 = zs.detach().reshape(-1, agent.stoch_state_size)
         h0 = hs.detach().reshape(-1, agent.recurrent_state_size)
         # with objective_mix 1 the objective is REINFORCE on a detached
         # advantage: nothing of the rollout is differentiated
         with torch.set_grad_enabled(torch.is_grad_enabled() and self.objective_mix != 1.0):
-            latents, actions = agent.imagination_scan(z0, h0, self.horizon, transition_noise, action_noise)
-        target_values = agent.target_critic(latents)
-        rewards = wm["reward_model"](latents)
+            latents, actions = agent.imagination_scan(z0, h0, self.horizon, transition_noise, action_noise, actor=actor)
+        target_values = critic(latents)
+        rewards = wm["reward_model"](latents) if reward_fn is None else reward_fn(latents, actions)
         if self.use_continues:
             continues = torch.sigmoid(wm["continue_model"](latents))
             continues = torch.cat([true_continue[None] * self.gamma, continues[1:]], dim=0)
@@ -157,15 +164,16 @@ class DV2Trainer(DreamerTrainer):
             rewards[:-1], target_values[:-1], continues[:-1], bootstrap=target_values[-1:], lmbda=self.lmbda
         )
         discount = torch.cumprod(torch.cat([torch.ones_like(continues[:1]), continues[:-1]], dim=0), dim=0).detach()
-        lp, ent = actor_logprob_entropy(agent, agent.actor(latents[:-2].detach()), actions[1:-1].detach())
+        lp, ent = actor_logprob_entropy(agent, actor(latents[:-2].detach()), actions[1:-1].detach())
         dynamics = lambda_values[1:]
         advantage = (lambda_values[1:] - target_values[:-2]).detach()
         objective = self.objective_mix * lp * advantage + (1 - self.objective_mix) * dynamics
         policy_loss = -torch.mean(discount[:-2] * (objective + self.ent_coef * ent[..., None]))
-        return policy_loss, (latents, lambda_values, discount)
+        return policy_loss, (latents, lambda_values, discount, rewards)
 
-    def critic_loss(self, latents, lambda_values, discount):
-        lp = normal1_logprob(self.agent.critic(latents[:-1]), lambda_values.detach(), 1)
+    def critic_loss(self, latents, lambda_values, discount, critic=None):
+        critic = self.agent.critic if critic is None else critic
+        lp = normal1_logprob(critic(latents[:-1]), lambda_values.detach(), 1)
         return -torch.mean(discount[:-1, ..., 0] * lp)
 
     # -- the step ------------------------------------------------------------------
@@ -180,10 +188,10 @@ class DV2Trainer(DreamerTrainer):
         """One gradient step on a [T, B, ...] batch: the target copy, the world
         model, the actor, the critic. Returns the metrics as 0-d tensors."""
         self.update_target_critic(cum)
-        w_loss, (zs, hs, metrics) = self.world_loss(batch, noise["posterior"])
+        w_loss, (zs, hs, _, metrics) = self.world_loss(batch, noise["posterior"])
         metrics["Grads/world_model"] = self._apply("world_model", w_loss)
         true_continue = (1 - batch["terminated"]).reshape(-1, 1)
-        a_loss, (latents, lambda_values, discount) = self.actor_loss(
+        a_loss, (latents, lambda_values, discount, _) = self.actor_loss(
             zs, hs, true_continue, noise["transition"], noise["action"]
         )
         metrics["Grads/actor"] = self._apply("actor", a_loss)
@@ -232,11 +240,14 @@ def make_buffer(cfg, buffer_size: int, num_envs: int, obs_keys, memmap_dir: str)
 
 
 def run_family(fabric, cfg, *, build_agent_fn: Callable, make_trainer_fn: Callable,
-               buffer_fn: Optional[Callable] = None, exploration_actor: Optional[torch.nn.Module] = None):
+               buffer_fn: Optional[Callable] = None, exploration_actor: Optional[Any] = None,
+               player_cls: Optional[Callable] = None, finetuning: bool = False,
+               exploration_state: Optional[Dict[str, Any]] = None):
     """The Dreamer-V1/V2 loop: ``run_dreamer`` without its Dreamer-V3 checks,
     with the family's agent, trainer and buffer (``run_dreamer``'s sequential
-    one by default), the player adding the exploration noise
-    ``algo.actor.expl_*`` anneals."""
+    one by default), the player (``PlayerDV2`` unless ``player_cls``) adding
+    the exploration noise ``algo.actor.expl_*`` anneals. ``finetuning`` and
+    ``exploration_state`` are ``run_dreamer``'s (Plan2Explore's finetuning)."""
     from sheeprl_tpu_torch.algos.dreamer_v2.agent import actor_settings
 
     settings = actor_settings(cfg)
@@ -244,17 +255,21 @@ def run_family(fabric, cfg, *, build_agent_fn: Callable, make_trainer_fn: Callab
         fabric,
         cfg,
         build_agent_fn=build_agent_fn,
-        player_cls=PlayerDV2,
+        player_cls=player_cls or PlayerDV2,
         make_trainer=make_trainer_fn,
         dv3_loop=False,
         make_buffer=buffer_fn,
         expl_amount=lambda step: expl_amount_at(settings, step),
         prefill_actor=exploration_actor,
+        finetuning=finetuning,
+        exploration_state=exploration_state,
     )
 
 
-def main(fabric, cfg: Dict[str, Any], exploration_actor: Optional[torch.nn.Module] = None) -> Dict[str, Any]:
+def main(fabric, cfg: Dict[str, Any], exploration_actor: Optional[Any] = None, **finetune: Any) -> Dict[str, Any]:
     """``exploration_actor`` acts while learning has not started (the JAX
-    loop's ``exploration_actor_params``, for Plan2Explore's finetuning)."""
+    loop's ``exploration_actor_params``, for Plan2Explore's finetuning): a
+    module, or a function of the built agent that returns one; ``finetune``
+    passes ``finetuning`` and ``exploration_state`` on to ``run_dreamer``."""
     return run_family(fabric, cfg, build_agent_fn=build_agent, make_trainer_fn=make_trainer, buffer_fn=make_buffer,
-                      exploration_actor=exploration_actor)
+                      exploration_actor=exploration_actor, **finetune)

@@ -410,7 +410,7 @@ def run_dreamer(
     dv3_loop: bool = True,
     make_buffer: Optional[Callable] = None,
     expl_amount: Optional[Callable[[int], float]] = None,
-    prefill_actor: Optional[torch.nn.Module] = None,
+    prefill_actor: Optional[Any] = None,
 ) -> Dict[str, Any]:
     """The Dreamer-V3 training loop. Returns a summary of the run: policy and
     gradient steps, the player's batched calls, seconds spent stepping envs
@@ -437,7 +437,8 @@ def run_dreamer(
     ``expl_amount(policy_step)`` is the exploration noise's amount the player
     adds, and ``prefill_actor`` the actor the player acts with while
     learning has not started (``exploration_actor_params`` of the JAX
-    Dreamer-V2 loop)."""
+    Dreamer-V2 loop): a module, or a function of the built agent that
+    returns one."""
     from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
     from sheeprl_tpu_torch.data.prefetch import sample_to_device
     from sheeprl_tpu_torch.envs.spaces import action_space_dims
@@ -496,6 +497,8 @@ def run_dreamer(
         fabric, actions_dim, is_continuous, cfg, observation_space, cfg.seed, source["agent"] if source else None
     )
     player = (player_cls or PlayerDV3)(agent, num_envs, cnn_keys, mlp_keys)
+    if prefill_actor is not None and not isinstance(prefill_actor, torch.nn.Module):
+        prefill_actor = prefill_actor(agent)
     if make_trainer is None:
         trainer = DV3Trainer(agent, cfg, build_optimizers(cfg, agent))
     else:

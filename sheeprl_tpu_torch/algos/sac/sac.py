@@ -35,8 +35,10 @@ import torch
 
 from sheeprl_tpu_torch.algos.sac.agent import SACAgent, build_agent, squash_and_logprob
 from sheeprl_tpu_torch.algos.sac.loss import critic_loss, entropy_loss, policy_loss
+from sheeprl_tpu_torch.algos.sac.utils import flat_obs, prepare_obs, test
 from sheeprl_tpu_torch.config import instantiate
 from sheeprl_tpu_torch.data.prefetch import sample_to_device
+from sheeprl_tpu_torch.utils.utils import sync_actor
 
 Batch = Dict[str, torch.Tensor]
 
@@ -59,7 +61,13 @@ def _step(optimizer: torch.optim.Optimizer, params: List[torch.Tensor], loss: to
 
 
 class SACTrainer:
-    """Owns the agent's three optimizers and takes train phases on the agent's device."""
+    """Owns the agent's three optimizers and takes train phases on the agent's
+    device. Besides the train phase it holds what ``run_off_policy`` asks of
+    an algorithm: the observation checks, the optimizers, the replay rows,
+    the acting, the losses' names, the checkpoint's agent and the test."""
+
+    loss_names = ("Loss/value_loss", "Loss/policy_loss", "Loss/alpha_loss")
+    build_optimizers = staticmethod(build_optimizers)
 
     def __init__(self, agent: SACAgent, optimizers: Dict[str, torch.optim.Optimizer], cfg, target_entropy: float,
                  policy_steps_per_iter: int = 1):
@@ -152,6 +160,65 @@ class SACTrainer:
         data = sample_to_device(rb, G, **sample)
         return self.train_phase(data, iter_num, self.draw_noise(G, sample["batch_size"], generator))
 
+    # -- what the loop asks of the algorithm ------------------------------------------
+    @staticmethod
+    def check_spaces(cfg, observation_space, name: str) -> None:
+        """Vector observations only: the CNN keys are dropped with a warning."""
+        if len(cfg.algo.cnn_keys.encoder) > 0:
+            warnings.warn(f"{name} algorithm cannot allow to use images as observations, the CNN keys will be ignored")
+            cfg.algo.cnn_keys.encoder = []
+        if len(cfg.algo.mlp_keys.encoder) == 0:
+            raise RuntimeError("You should specify at least one MLP key for the encoder: `mlp_keys.encoder=[state]`")
+        for k in cfg.algo.mlp_keys.encoder:
+            if len(observation_space[k].shape) > 1:
+                raise ValueError(
+                    f"Only environments with vector-only observations are supported by the {name} agent. "
+                    f"The observation with key '{k}' has shape {observation_space[k].shape}. "
+                    f"Provided environment: {cfg.env.id}"
+                )
+
+    @staticmethod
+    def ratio_steps(policy_step: int, prefill_steps: int, policy_steps_per_iter: int) -> int:
+        """The policy steps the replay-ratio governor counts (the JAX loop's)."""
+        return policy_step - prefill_steps + policy_steps_per_iter
+
+    buffer_obs_keys = ("observations",)
+    uint8_keys = ()
+
+    def replay_rows(self, obs, real_next_obs, mlp_keys, num_envs: int, sample_next_obs: bool) -> Dict[str, np.ndarray]:
+        """The observation entries of one step's replay row: the flattened
+        vector keys (and the real next ones unless the buffer derives them)."""
+        rows = {"observations": flat_obs(obs, mlp_keys, num_envs)[np.newaxis]}
+        if not sample_next_obs:
+            rows["next_observations"] = flat_obs(real_next_obs, mlp_keys, num_envs)[np.newaxis]
+        return rows
+
+    def start_acting(self, seed: int) -> None:
+        """Acting runs on a host copy of the actor (see the module docstring)."""
+        actor = self.agent.actor
+        self.act_actor = actor if self.device.type == "cpu" else copy.deepcopy(actor).to("cpu")
+        self.act_generator = torch.Generator().manual_seed(int(seed))
+
+    @torch.no_grad()
+    def act(self, obs, mlp_keys, num_envs: int) -> np.ndarray:
+        """Sampled actions of the host actor for the envs' observations."""
+        actor = self.act_actor
+        mean, std = actor(prepare_obs(obs, mlp_keys=mlp_keys, num_envs=num_envs))
+        eps = torch.randn(mean.shape, generator=self.act_generator)
+        return squash_and_logprob(mean, std, eps, actor.action_scale, actor.action_bias)[0].numpy()
+
+    def sync_acting(self) -> None:
+        """After a train phase: the trained weights into the host actor."""
+        sync_actor(self.act_actor, self.agent.actor)
+
+    def agent_state(self) -> Dict[str, Any]:
+        from sheeprl_tpu_torch.interop.flax_to_torch import sac_to_flax
+
+        return sac_to_flax(self.agent)
+
+    def test(self, cfg, log_dir: str, logger) -> float:
+        return test(self.agent.actor, cfg, log_dir, logger)
+
     def opt_state(self) -> Dict[str, Any]:
         return {name: opt.state_dict() for name, opt in self.optimizers.items()}
 
@@ -168,32 +235,27 @@ class SACTrainer:
 
 
 def run_off_policy(fabric, cfg: Dict[str, Any], name: str, build_agent, trainer_cls) -> Dict[str, Any]:
-    """The training loop of SAC and DroQ (``name`` in messages), with the
-    algorithm's ``build_agent`` and trainer class. Returns a summary of the
+    """The training loop of SAC, DroQ and SAC-AE (``name`` in messages), with
+    the algorithm's ``build_agent`` and trainer class (its checks, optimizers,
+    replay rows, acting, checkpoint agent and test). Returns a summary of the
     run: policy and gradient steps, train phases, seconds spent stepping envs
     and training, the steady-state window (from the first iteration after
     learning starts to the loop's end, without checkpoint writes), the last
     losses, the test reward and the last checkpoint."""
-    from sheeprl_tpu_torch.algos.sac.utils import flat_obs, prepare_obs, test
     from sheeprl_tpu_torch.data.buffers import ReplayBuffer
     from sheeprl_tpu_torch.envs import spaces
     from sheeprl_tpu_torch.envs.vector import SyncVectorEnv, episode_stats
-    from sheeprl_tpu_torch.interop.flax_to_torch import sac_to_flax
     from sheeprl_tpu_torch.resilience import signals
     from sheeprl_tpu_torch.utils.checkpoint import InertObject, load_checkpoint, load_run_buffer, save_run_checkpoint
     from sheeprl_tpu_torch.utils.env import make_env
     from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
     from sheeprl_tpu_torch.utils.metric import MetricAggregator
     from sheeprl_tpu_torch.utils.timer import timer
-    from sheeprl_tpu_torch.utils.utils import Ratio, save_configs, sync_actor
+    from sheeprl_tpu_torch.utils.utils import Ratio, save_configs
 
     t_start = time.perf_counter()
     device = fabric.device
     state = load_checkpoint(cfg.checkpoint.resume_from) if cfg.checkpoint.resume_from else None
-
-    if len(cfg.algo.cnn_keys.encoder) > 0:
-        warnings.warn(f"{name} algorithm cannot allow to use images as observations, the CNN keys will be ignored")
-        cfg.algo.cnn_keys.encoder = []
 
     log_dir = get_log_dir(cfg)
     logger = get_logger(cfg, log_dir)
@@ -207,24 +269,19 @@ def run_off_policy(fabric, cfg: Dict[str, Any], name: str, build_agent, trainer_
         raise ValueError(f"Only continuous action space is supported for the {name} agent")
     if not isinstance(observation_space, spaces.Dict):
         raise RuntimeError(f"Unexpected observation type, should be of type Dict, got: {observation_space}")
-    if len(cfg.algo.mlp_keys.encoder) == 0:
-        raise RuntimeError("You should specify at least one MLP key for the encoder: `mlp_keys.encoder=[state]`")
-    for k in cfg.algo.mlp_keys.encoder:
-        if len(observation_space[k].shape) > 1:
-            raise ValueError(
-                f"Only environments with vector-only observations are supported by the {name} agent. "
-                f"The observation with key '{k}' has shape {observation_space[k].shape}. "
-                f"Provided environment: {cfg.env.id}"
-            )
+    trainer_cls.check_spaces(cfg, observation_space, name)
+    cnn_keys, mlp_keys = list(cfg.algo.cnn_keys.encoder), list(cfg.algo.mlp_keys.encoder)
     if cfg.metric.log_level > 0:
-        print("Encoder MLP keys:", cfg.algo.mlp_keys.encoder, flush=True)
-    mlp_keys = list(cfg.algo.mlp_keys.encoder)
+        if cnn_keys:
+            print("Encoder CNN keys:", cnn_keys, flush=True)
+        print("Encoder MLP keys:", mlp_keys, flush=True)
+    obs_keys = cnn_keys + mlp_keys
 
     fabric.seed_everything(cfg.seed)
     agent = build_agent(fabric, cfg, observation_space, action_space, int(cfg.seed), state["agent"] if state else None)
     act_dim = int(np.prod(action_space.shape))
     policy_steps_per_iter = num_envs
-    trainer = trainer_cls(agent, build_optimizers(cfg, agent), cfg, -float(act_dim), policy_steps_per_iter)
+    trainer = trainer_cls(agent, trainer_cls.build_optimizers(cfg, agent), cfg, -float(act_dim), policy_steps_per_iter)
     if state is not None:
         trainer.load_opt_state(state["opt_state"])
     save_configs(cfg, log_dir)
@@ -236,7 +293,7 @@ def run_off_policy(fabric, cfg: Dict[str, Any], name: str, build_agent, trainer_
         num_envs,
         memmap=cfg.buffer.memmap,
         memmap_dir=os.path.join(log_dir, "memmap_buffer", "rank_0"),
-        obs_keys=("observations",),
+        obs_keys=trainer.buffer_obs_keys,
     )
     if state is not None and "rb" in state:
         if isinstance(state["rb"], InertObject):
@@ -278,9 +335,7 @@ def run_off_policy(fabric, cfg: Dict[str, Any], name: str, build_agent, trainer_
         )
     sample_next_obs = bool(cfg.buffer.sample_next_obs)
 
-    # the acting actor: a host copy (see the module docstring)
-    act_actor = agent.actor if device.type == "cpu" else copy.deepcopy(agent.actor).to("cpu")
-    act_generator = torch.Generator().manual_seed(int(cfg.seed))
+    trainer.start_acting(int(cfg.seed))
     train_generator = torch.Generator(device).manual_seed(int(cfg.seed) + 1)
     action_rng = np.random.default_rng(int(cfg.seed))
 
@@ -307,11 +362,7 @@ def run_off_policy(fabric, cfg: Dict[str, Any], name: str, build_agent, trainer_
             if iter_num <= learning_starts:
                 actions = np.stack([action_space.sample(action_rng) for _ in range(num_envs)])
             else:
-                with torch.no_grad():
-                    mean, std = act_actor(prepare_obs(obs, mlp_keys=mlp_keys, num_envs=num_envs))
-                    eps = torch.randn(mean.shape, generator=act_generator)
-                    actions, _ = squash_and_logprob(mean, std, eps, act_actor.action_scale, act_actor.action_bias)
-                actions = actions.numpy()
+                actions = trainer.act(obs, obs_keys, num_envs)
             next_obs, rewards, terminated, truncated, infos = envs.step(actions.reshape(envs.action_space.shape))
 
             rews, lens = episode_stats(infos, num_envs)
@@ -320,40 +371,38 @@ def run_off_policy(fabric, cfg: Dict[str, Any], name: str, build_agent, trainer_
                 aggregator.update("Game/ep_len_avg", float(np.mean(lens)))
 
             # the real next observations of finished episodes
-            real_next_obs = {k: np.asarray(next_obs[k]).copy() for k in mlp_keys}
+            real_next_obs = {k: np.asarray(next_obs[k]).copy() for k in obs_keys}
             final_obs = infos.get("final_obs")
             if final_obs is not None:
                 for idx in range(num_envs):
                     if final_obs[idx] is not None:
-                        for k in mlp_keys:
+                        for k in obs_keys:
                             real_next_obs[k][idx] = np.asarray(final_obs[idx][k])
 
             step_data["terminated"] = np.asarray(terminated).reshape(1, num_envs, -1).astype(np.float32)
             step_data["truncated"] = np.asarray(truncated).reshape(1, num_envs, -1).astype(np.float32)
             step_data["actions"] = actions.reshape(1, num_envs, -1).astype(np.float32)
-            step_data["observations"] = flat_obs(obs, mlp_keys, num_envs)[np.newaxis]
-            if not sample_next_obs:
-                step_data["next_observations"] = flat_obs(real_next_obs, mlp_keys, num_envs)[np.newaxis]
+            step_data.update(trainer.replay_rows(obs, real_next_obs, obs_keys, num_envs, sample_next_obs))
             step_data["rewards"] = np.asarray(rewards, dtype=np.float32).reshape(1, num_envs, -1)
             rb.add(step_data, validate_args=cfg.buffer.validate_args)
         env_seconds += time.perf_counter() - t0
         obs = next_obs
 
         if iter_num >= learning_starts:
-            per_rank_gradient_steps = ratio(policy_step - prefill_steps + policy_steps_per_iter)
+            per_rank_gradient_steps = ratio(trainer.ratio_steps(policy_step, prefill_steps, policy_steps_per_iter))
             if per_rank_gradient_steps > 0:
                 t0 = time.perf_counter()
                 with timer("Time/train_time"):
-                    sample = dict(batch_size=batch_size, sample_next_obs=sample_next_obs, uint8_keys=(), device=device)
-                    losses = trainer.run_phase(rb, per_rank_gradient_steps, sample, train_generator, iter_num)
-                    # the copy to the host waits for the phase: the timer ends there
-                    sync_actor(act_actor, agent.actor)
+                    sample = dict(batch_size=batch_size, sample_next_obs=sample_next_obs,
+                                  uint8_keys=trainer.uint8_keys, device=device)
+                    # the losses' copy to the host waits for the phase: the timer ends there
+                    losses = trainer.run_phase(rb, per_rank_gradient_steps, sample, train_generator, iter_num).cpu()
+                    trainer.sync_acting()
                     cumulative_per_rank_gradient_steps += per_rank_gradient_steps
                     train_phases += 1
                     if aggregator is not None:
-                        aggregator.update("Loss/value_loss", losses[0])
-                        aggregator.update("Loss/policy_loss", losses[1])
-                        aggregator.update("Loss/alpha_loss", losses[2])
+                        for loss_name, value in zip(trainer.loss_names, losses):
+                            aggregator.update(loss_name, value)
                 train_seconds += time.perf_counter() - t0
 
         if cfg.metric.log_level > 0 and (
@@ -391,7 +440,7 @@ def run_off_policy(fabric, cfg: Dict[str, Any], name: str, build_agent, trainer_
         ):
             last_checkpoint = policy_step
             ckpt_state = {
-                "agent": sac_to_flax(agent),
+                "agent": trainer.agent_state(),
                 "opt_state": trainer.opt_state(),
                 "ratio": ratio.state_dict(),
                 "iter_num": iter_num,
@@ -418,10 +467,9 @@ def run_off_policy(fabric, cfg: Dict[str, Any], name: str, build_agent, trainer_
     test_reward = None
     if not preempted and cfg.algo.run_test:
         with timer("Time/test_time"):
-            test_reward = test(agent.actor, cfg, log_dir, logger)
+            test_reward = trainer.test(cfg, log_dir, logger)
     if logger is not None:
         logger.finalize()
-    names = ["Loss/value_loss", "Loss/policy_loss", "Loss/alpha_loss"]
     return {
         "log_dir": log_dir,
         "policy_steps": policy_step,
@@ -434,7 +482,7 @@ def run_off_policy(fabric, cfg: Dict[str, Any], name: str, build_agent, trainer_
         "steady_policy_steps": policy_step - window_policy_step if window_t0 is not None else 0,
         "steady_gradient_steps": cumulative_per_rank_gradient_steps - window_gradient_step,
         "steady_seconds": window_seconds,
-        "metrics": dict(zip(names, losses.cpu().tolist())) if losses is not None else {},
+        "metrics": dict(zip(trainer.loss_names, losses.tolist())) if losses is not None else {},
         "test_reward": test_reward,
         "checkpoint": ckpt_path,
         "preempted": preempted,

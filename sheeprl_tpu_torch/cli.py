@@ -14,9 +14,9 @@ config saved beside it.
 Offline Dreamer in bf16 (float32 parameters); the other algorithms refuse it
 as not yet ported, in training, evaluation and serving alike.
 
-``exp=p2e_dv3_finetuning checkpoint.exploration_ckpt_path=<ckpt>`` finetunes
-from an exploration checkpoint of either package, taking the exploration
-run's environment settings from the config.yaml beside it.
+``exp=p2e_dv{1,2,3}_finetuning checkpoint.exploration_ckpt_path=<ckpt>``
+finetunes from an exploration checkpoint of either package, taking the
+exploration run's environment settings from the config.yaml beside it.
 
 Config keys the port keeps but does not act on yet accept only their off
 values: telemetry, the profiler, the supervisor, fault injection, the

@@ -21,7 +21,9 @@ port's ``nn.Module``s and back:
   kernels, LayerNorm and head leaves), kept as they are.
 
 The Dreamer-V2 agent, which Dreamer-V1 shares (:func:`dv2_to_flax`,
-:func:`load_dv2_params`, :func:`dv2_group_to_torch`), maps whole too.
+:func:`load_dv2_params`, :func:`dv2_group_to_torch`), maps whole too, and so
+do the Plan2Explore agents built on them (:func:`p2e_dv_to_flax`,
+:func:`load_p2e_dv_params`, :func:`p2e_dv_group_to_torch`).
 
 Composite modules name their children as the Flax modules do (``Dense_0``,
 ``LayerNorm_1``, ``DenseStack_0``, ``Conv_2``, ``context_0``/``prob_0`` of
@@ -29,9 +31,10 @@ Offline Dreamer's CEM, ...). The Dreamer-V3 agent, Offline Dreamer's with its
 ``world_model/cem`` (:func:`agent_to_flax`, :func:`load_flax_params`), the
 Plan2Explore agent (:func:`p2e_to_flax`, :func:`load_p2e_params`,
 :func:`p2e_group_to_torch`), the PPO agent, which A2C
-shares (:func:`ppo_to_flax`, :func:`load_ppo_params`), and the SAC agent,
-which DroQ shares (:func:`sac_to_flax`, :func:`load_sac_params`), are mapped
-whole; :func:`dv3_group_to_torch`, :func:`ppo_to_torch` and
+shares (:func:`ppo_to_flax`, :func:`load_ppo_params`), the SAC agent,
+which DroQ shares (:func:`sac_to_flax`, :func:`load_sac_params`), and the
+SAC-AE agent (:func:`sac_ae_to_flax`, :func:`load_sac_ae_params`,
+:func:`sac_ae_group_to_torch`) are mapped whole; :func:`dv3_group_to_torch`, :func:`ppo_to_torch` and
 :func:`sac_group_to_torch` turn a tree shaped like a parameter group (an optax
 moment) into the group's tensors.
 """
@@ -51,6 +54,7 @@ from sheeprl_tpu_torch.algos.offline_dreamer import agent as odv3
 from sheeprl_tpu_torch.algos.p2e_dv3 import agent as p2e
 from sheeprl_tpu_torch.algos.ppo import agent as ppo
 from sheeprl_tpu_torch.algos.sac import agent as sac
+from sheeprl_tpu_torch.algos.sac_ae import agent as sac_ae
 from sheeprl_tpu_torch.models.models import MLP, EnsembleMLP, LayerNormGRUCell, NatureCNN
 
 Tree = Dict[str, Any]
@@ -277,6 +281,20 @@ def _children(m: nn.Module) -> Dict[str, nn.Module]:
         return {"NatureCNN_0": m.cnn}
     if isinstance(m, ppo.MLPEncoder):
         return {"MLP_0": m.mlp}
+    if isinstance(m, sac_ae.ConvTrunk):
+        return {f"Conv_{i}": conv for i, conv in enumerate(m.convs)}
+    if isinstance(m, sac_ae.EncoderFC):
+        return {"Dense_0": m.linear, "LayerNorm_0": m.norm}
+    if isinstance(m, sac_ae.VectorEncoder):
+        return {"MLP_0": m.mlp}
+    if isinstance(m, sac_ae.CNNDecoderAE):
+        out = {"Dense_0": m.linear}
+        out.update({f"ConvTranspose_{i}": d for i, d in enumerate(m.deconvs)})
+        return out
+    if isinstance(m, sac_ae.MLPDecoderAE):
+        out = {"MLP_0": m.mlp}
+        out.update({f"Dense_{i}": head for i, head in enumerate(m.heads)})
+        return out
     if isinstance(m, sac.SACActor):
         return {"MLP_0": m.model, "Dense_0": m.fc_mean, "Dense_1": m.fc_logstd}
     if isinstance(m, odv3.CEM):
@@ -475,6 +493,56 @@ def p2e_group_to_torch(agent: "dv3.DV3Agent", group: str) -> Callable[[Tree], Li
     return convert
 
 
+# -- the Plan2Explore agents on Dreamer-V1 and V2 ------------------------------------------
+# the P2E-DV1/DV2 params tree's keys and the agent's attributes that hold them
+_P2E_DV_MODULES = (("actor_task", "actor"), ("critic_task", "critic"), ("target_critic_task", "target_critic"),
+                   ("actor_exploration", "actor_exploration"), ("critic_exploration", "critic_exploration"),
+                   ("target_critic_exploration", "target_critic_exploration"), ("ensembles", "ensembles"))
+
+
+def p2e_dv_modules(agent: "dv2.DV2Agent") -> Dict[str, nn.Module]:
+    """A P2E-DV1/DV2 agent's modules by their params tree key, but the world
+    model's (P2E-DV1 has no target critics)."""
+    return {key: getattr(agent, attr) for key, attr in _P2E_DV_MODULES if getattr(agent, attr, None) is not None}
+
+
+def p2e_dv_to_flax(agent: "dv2.DV2Agent") -> Tree:
+    """A P2E-DV1/DV2 agent's parameters as the JAX package's params tree."""
+    out = {"world_model": {name: module_to_flax(module) for name, module in agent.world_model.items()}}
+    out.update({key: module_to_flax(module) for key, module in p2e_dv_modules(agent).items()})
+    return out
+
+
+def load_p2e_dv_params(agent: "dv2.DV2Agent", params: Tree) -> None:
+    """Copy a P2E-DV1/DV2 params tree (either package's) into ``agent``."""
+    modules = p2e_dv_modules(agent)
+    expected = sorted(["world_model", *modules])
+    if sorted(params) != expected:
+        raise ValueError(f"P2E params: checkpoint children {sorted(params)} do not match the agent's {expected}")
+    load_dv2_params(agent, {"world_model": params["world_model"], "actor": params["actor_task"],
+                            "critic": params["critic_task"],
+                            **({"target_critic": params["target_critic_task"]} if agent.target_critic is not None
+                               else {})})
+    for key, module in modules.items():
+        if key not in ("actor_task", "critic_task", "target_critic_task"):
+            module_from_flax(module, params[key], key)
+
+
+def p2e_dv_group_to_torch(agent: "dv2.DV2Agent", group: str) -> Callable[[Tree], List[torch.Tensor]]:
+    """A tree shaped like the JAX params of one P2E-DV1/DV2 optimizer group ->
+    the group's tensors, in the order of its module's parameters."""
+    if group == "world_model":
+        return dv2_group_to_torch(agent, group)
+    module = p2e_dv_modules(agent)[group]
+
+    def convert(tree: Tree) -> List[torch.Tensor]:
+        scratch = copy.deepcopy(module)
+        module_from_flax(scratch, tree, group)
+        return [p.detach() for p in scratch.parameters()]
+
+    return convert
+
+
 # -- the PPO agent (A2C's too) ------------------------------------------------------------
 def _ppo_parts(agent: "ppo.PPOAgent") -> Dict[str, nn.Module]:
     parts = {"critic": agent.critic, "actor_backbone": agent.actor_backbone}
@@ -549,5 +617,73 @@ def sac_group_to_torch(agent: "sac.SACAgent", group: str) -> Callable[[Tree], Li
         scratch = copy.deepcopy(getattr(agent, group))
         module_from_flax(scratch, tree, group)
         return [p.detach() for p in scratch.parameters()]
+
+    return convert
+
+
+# -- the SAC-AE agent ---------------------------------------------------------------------
+# each optimizer group's modules by their params tree key, in the group's order
+# (the decoder's group is ``agent.decoder``, the temperature's ``log_alpha``)
+SAC_AE_GROUPS = {"critic": ("conv", "mlp_enc", "critic_cnn_fc", "qfs"), "actor": ("actor", "actor_cnn_fc"),
+                 "encoder": ("conv", "mlp_enc", "critic_cnn_fc")}
+
+
+def sac_ae_group_modules(agent: "sac_ae.SACAEAgent", group: str) -> Dict[str, nn.Module]:
+    """The modules of one SAC-AE optimizer group (but ``alpha``'s) by their
+    params tree key, in the group's order."""
+    if group == "decoder":
+        return dict(agent.decoder.items())
+    return {k: getattr(agent, k) for k in SAC_AE_GROUPS[group] if getattr(agent, k) is not None}
+
+
+def _sac_ae_parts(agent: "sac_ae.SACAEAgent") -> Dict[str, nn.Module]:
+    names = ("conv", "mlp_enc", "critic_cnn_fc", "actor_cnn_fc", "qfs", "actor")
+    return {k: getattr(agent, k) for k in names if getattr(agent, k) is not None}
+
+
+def sac_ae_to_flax(agent: "sac_ae.SACAEAgent") -> Tree:
+    """The agent's parameters as the JAX package's SAC-AE params tree: the
+    modules by name, ``log_alpha`` [1], ``decoder`` (``cnn``, ``mlp``) and
+    ``target`` (``conv``, ``mlp_enc``, ``critic_cnn_fc``, ``qfs``)."""
+    out = {k: module_to_flax(m) for k, m in _sac_ae_parts(agent).items()}
+    out["log_alpha"] = _np(agent.log_alpha)
+    out["decoder"] = {k: module_to_flax(m) for k, m in agent.decoder.items()}
+    out["target"] = {k: module_to_flax(m) for k, m in agent.target.items()}
+    return out
+
+
+def load_sac_ae_params(agent: "sac_ae.SACAEAgent", params: Tree) -> None:
+    """Copy a SAC-AE params tree (either package's) into ``agent``."""
+    parts = _sac_ae_parts(agent)
+    expected = sorted([*parts, "log_alpha", "decoder", "target"])
+    found = sorted(params)
+    if found != expected or sorted(params["decoder"]) != sorted(agent.decoder) \
+            or sorted(params["target"]) != sorted(agent.target):
+        raise ValueError(f"SAC-AE params: checkpoint children {found} (decoder {sorted(params.get('decoder', {}))}, "
+                         f"target {sorted(params.get('target', {}))}) do not match the agent's {expected} "
+                         f"(decoder {sorted(agent.decoder)}, target {sorted(agent.target)})")
+    for k, module in parts.items():
+        module_from_flax(module, params[k], k)
+    _copy(agent.log_alpha, params["log_alpha"], "log_alpha")
+    for k, module in agent.decoder.items():
+        module_from_flax(module, params["decoder"][k], f"decoder/{k}")
+    for k, module in agent.target.items():
+        module_from_flax(module, params["target"][k], f"target/{k}")
+
+
+def sac_ae_group_to_torch(agent: "sac_ae.SACAEAgent", group: str) -> Callable[[Tree], List[torch.Tensor]]:
+    """A tree shaped like the JAX params of one SAC-AE optimizer group (a
+    dict of its modules' trees, or the ``log_alpha`` array) -> tensors in the
+    order of that group's parameters."""
+
+    def convert(tree: Tree) -> List[torch.Tensor]:
+        if group == "alpha":
+            return [torch.tensor(np.asarray(tree, dtype=np.float32))]
+        out = []
+        for k, module in sac_ae_group_modules(agent, group).items():
+            scratch = copy.deepcopy(module)
+            module_from_flax(scratch, tree[k], f"{group}/{k}")
+            out += [p.detach() for p in scratch.parameters()]
+        return out
 
     return convert

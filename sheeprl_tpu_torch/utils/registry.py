@@ -16,6 +16,8 @@ _P2E = "sheeprl_tpu_torch.algos.p2e_dv3"
 _ODV3 = "sheeprl_tpu_torch.algos.offline_dreamer"
 _DV2 = "sheeprl_tpu_torch.algos.dreamer_v2"
 _DV1 = "sheeprl_tpu_torch.algos.dreamer_v1"
+_P2E_DV1 = "sheeprl_tpu_torch.algos.p2e_dv1"
+_P2E_DV2 = "sheeprl_tpu_torch.algos.p2e_dv2"
 
 # the training loop ``main(fabric, cfg)``
 ALGORITHMS: Dict[str, Tuple[str, str]] = {
@@ -25,10 +27,15 @@ ALGORITHMS: Dict[str, Tuple[str, str]] = {
     "offline_dreamer": (f"{_ODV3}.offline_dreamer", "main"),
     "dreamer_v2": (f"{_DV2}.dreamer_v2", "main"),
     "dreamer_v1": (f"{_DV1}.dreamer_v1", "main"),
+    "p2e_dv1_exploration": (f"{_P2E_DV1}.p2e_dv1_exploration", "main"),
+    "p2e_dv1_finetuning": (f"{_P2E_DV1}.p2e_dv1_finetuning", "main"),
+    "p2e_dv2_exploration": (f"{_P2E_DV2}.p2e_dv2_exploration", "main"),
+    "p2e_dv2_finetuning": (f"{_P2E_DV2}.p2e_dv2_finetuning", "main"),
     "ppo": ("sheeprl_tpu_torch.algos.ppo.ppo", "main"),
     "a2c": ("sheeprl_tpu_torch.algos.a2c.a2c", "main"),
     "sac": ("sheeprl_tpu_torch.algos.sac.sac", "main"),
     "droq": ("sheeprl_tpu_torch.algos.droq.droq", "main"),
+    "sac_ae": ("sheeprl_tpu_torch.algos.sac_ae.sac_ae", "main"),
 }
 # ``evaluate(fabric, cfg, state)``
 EVALUATIONS: Dict[str, Tuple[str, str]] = {
@@ -38,10 +45,15 @@ EVALUATIONS: Dict[str, Tuple[str, str]] = {
     "offline_dreamer": (f"{_ODV3}.evaluate", "evaluate"),
     "dreamer_v2": (f"{_DV2}.evaluate", "evaluate"),
     "dreamer_v1": (f"{_DV1}.evaluate", "evaluate"),
+    # both phases: the task actor of an exploration checkpoint, or a
+    # finetuning checkpoint in the backbone's layout
+    **{name: (f"{_P2E_DV1}.evaluate", "evaluate") for name in ("p2e_dv1_exploration", "p2e_dv1_finetuning")},
+    **{name: (f"{_P2E_DV2}.evaluate", "evaluate") for name in ("p2e_dv2_exploration", "p2e_dv2_finetuning")},
     "ppo": ("sheeprl_tpu_torch.algos.ppo.evaluate", "evaluate"),
     "a2c": ("sheeprl_tpu_torch.algos.ppo.evaluate", "evaluate"),
     "sac": ("sheeprl_tpu_torch.algos.sac.evaluate", "evaluate"),
     "droq": ("sheeprl_tpu_torch.algos.droq.evaluate", "evaluate"),
+    "sac_ae": ("sheeprl_tpu_torch.algos.sac_ae.evaluate", "evaluate"),
 }
 # the family's ``get_serve_policy(fabric, cfg, state)`` extractor
 SERVE_POLICIES: Dict[str, Tuple[str, str]] = {
