@@ -114,6 +114,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the ms of one host acting step. The PPO checkpoint is served through
    ``serve_main`` (4 slots, 4 sessions) and its greedy step held card vs CPU
    (logits within 1e-5, equal actions);
+6b. recurrent PPO (``exp=ppo_recurrent``, CartPole-v1 at the exp's widths:
+   encoder, heads and LSTM 64, LayerNorm on) through the entry points on the
+   card, on the JAX package's learning test's schedule (4 envs x 128 steps,
+   sequences of 16, 4 minibatches, 4 epochs, 24,576 policy steps) with its
+   bar (a greedy test reward of 120), a resume into version_1 for one more
+   iteration, an evaluation, and the checkpoint served through ``serve_main``
+   (4 slots, 4 sessions). Then one train phase at the exp's own shape (16 envs
+   x 512 steps, sequences of 16, 8 minibatches, 8 epochs) on the card vs the
+   CPU (TF32 off, PPO's bars) and 4 greedy serve ticks likewise (the LSTM
+   state within 1e-5, equal actions), the seconds per train phase and the ms
+   of one host acting step for 16 envs;
 7. SAC (``exp=sac env.id=Pendulum-v1``, the exp's widths, batch and replay
    ratio, 4 envs) through the entry points on the card: 12,000 policy steps
    with the metric log and the test episode (its reward must reach -400), a
@@ -131,8 +142,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    same, and its kernel count); a P2E step at the DOA++ widths in bf16; a
    DV2 step at 16 x 50 and a DV1 step at 50 x 50 in float32; a P2E-DV2
    step at 16 x 50, a P2E-DV1 step at 50 x 50 and a SAC-AE train phase of 4
-   steps at batch 128; a PPO train phase and a SAC train phase (busy share,
-   device operations);
+   steps at batch 128; a PPO, a recurrent PPO and a SAC train phase (busy
+   share, device operations);
 9. print the ``kernels`` JSON line, the card line, and the final result line.
 
 The training phase launches with the config's defaults for video capture
@@ -1634,63 +1645,16 @@ def sac_ae_step_parity() -> dict:
     SAC_AE_PARITY_B, from the same weights, block and draws: the four losses
     within TRAIN_STEP_RTOL and every parameter within 2 lr
     (``train_step_parity``'s bars). Its third bar, a share of the weights
-    within TRAIN_PARAM_ATOL of the CPU's, stands here against the exact step
-    (the CPU's, in float64, measured in the same run): the card's weights
-    beyond TRAIN_PARAM_ATOL of it may be at most SAC_AE_ROUNDING_FACTOR times
-    the CPU's float32 ones. Adam's first step, at the exp's eps of 1e-8, moves
-    a weight by about lr whatever its gradient's size, so where a gradient
-    lies within rounding of 0 (the 512-channel convolutions and the
-    320,000-wide projections hold hundreds of thousands of them) rounding
-    picks the step's sign: float32 rounding alone puts ~0.26% of the weights
-    beyond TRAIN_PARAM_ATOL of the exact step on either device."""
-    from sheeprl_tpu_torch.algos.sac_ae.sac_ae import SACAETrainer, build_optimizers
-    from sheeprl_tpu_torch.config import compose
-    from sheeprl_tpu_torch.interop.flax_to_torch import sac_ae_to_flax
-    from sheeprl_tpu_torch.parallel.fabric import Fabric
-    from sheeprl_tpu_torch.utils.env import make_env
-
-    cfg = compose(sac_ae_overrides())
-    env = make_env(cfg, 0, 0)()
-    trainers, weights = {}, None
-    for accel in devices:
-        fabric = Fabric(accelerator=accel, float32_matmul_precision=precision)
-        agent = build_agent(fabric, cfg, env.observation_space, env.action_space, 0, weights)
-        if weights is None:
-            if scale_heads:
-                with torch.no_grad():
-                    agent.actor.fc_mean.weight.mul_(0.1)
-                    agent.actor.fc_logstd.weight.mul_(0.1)
-            weights = sac_ae_to_flax(agent)
-        trainers[accel] = SACAETrainer(agent, build_optimizers(cfg, agent), cfg, -float(env.action_space.shape[0]))
-    env.close()
-    return trainers, cfg
-
-
-def _sac_ae_block(rng, G: int, B: int) -> dict:
-    def obs(prefix=""):
-        return {prefix + "rgb": rng.integers(0, 256, (G, B, 3, 3, 64, 64)).astype(np.uint8),
-                prefix + "state": rng.standard_normal((G, B, 10)).astype(np.float32)}
-
-    return {**obs(), **obs("next_"), "actions": rng.uniform(-1, 1, (G, B, 2)).astype(np.float32),
-            "rewards": rng.standard_normal((G, B, 1)).astype(np.float32),
-            "terminated": np.zeros((G, B, 1), np.float32)}
-
-
-def sac_ae_step_parity() -> dict:
-    """One SAC-AE gradient step (``cum`` 0: every gate open) at the exp's
-    widths on the card vs on the CPU in float32 with TF32 off, batch
-    SAC_AE_PARITY_B, from the same weights, block and draws: the four losses
-    within TRAIN_STEP_RTOL and every parameter within 2 lr
-    (``train_step_parity``'s bars). Its third bar, a share of the weights
-    within TRAIN_PARAM_ATOL, stands here against a reference measured in the
-    same run: the weights of the card's step beyond TRAIN_PARAM_ATOL of the
-    CPU's may be no more than those of the CPU's float32 step beyond it of the
-    CPU's float64 step. Adam's first step, at the exp's eps of 1e-8, moves a
-    weight by about lr whatever its gradient's size, so where a gradient lies
-    within rounding of 0 (the 512-channel convolutions and the 320,000-wide
-    projections hold hundreds of thousands) rounding alone picks the step's
-    sign: float32 rounding alone puts more than 0.1% of the weights beyond
-    TRAIN_PARAM_ATOL of the exact step."""
+    within TRAIN_PARAM_ATOL, stands here against the exact step (the CPU's,
+    in float64, measured in the same run): the card's weights beyond
+    TRAIN_PARAM_ATOL of it may be at most SAC_AE_ROUNDING_FACTOR (2) times the
+    CPU float32 step's weights beyond TRAIN_PARAM_ATOL of it. Adam's first
+    step, at the exp's eps of 1e-8, moves a weight by about lr whatever its
+    gradient's size, so where a gradient lies within rounding of 0 (the
+    512-channel convolutions and the 320,000-wide projections hold hundreds
+    of thousands) rounding alone picks the step's sign: float32 rounding
+    alone puts more than 0.1% of the weights beyond TRAIN_PARAM_ATOL of the
+    exact step."""
     from sheeprl_tpu_torch.algos.sac_ae.sac_ae import SACAETrainer, build_optimizers
 
     threads = torch.get_num_threads()
@@ -2428,6 +2392,259 @@ def profile_ppo_train_phase(warm: tuple) -> dict:
     return out
 
 
+# Recurrent PPO on CartPole-v1 at the exp's widths (encoder, heads and LSTM
+# 64, LayerNorm on) on the JAX package's learning test's schedule
+# (tests/test_learning/test_learning.py: 4 envs x 128 steps, sequences of 16,
+# 4 minibatches, 4 epochs, 24,576 policy steps: 48 train phases) and its bar:
+# a greedy test reward of 120 (random play scores ~20). Resume: one more
+# iteration
+RPPO_LEARN = ["env.num_envs=4", "algo.rollout_steps=128", "algo.per_rank_sequence_length=16",
+              "algo.per_rank_num_batches=4", "algo.update_epochs=4", "metric.log_every=8192"]
+RPPO_TOTAL_STEPS = 24576
+RPPO_STEPS_PER_ITER = 4 * 128
+RPPO_MIN_TEST_REWARD = 120.0
+# one train phase at the exp's own shape (16 envs x 512 steps, sequences of
+# 16, 8 minibatches, 8 epochs), card vs CPU with TF32 off, within PPO's bars
+# (the exp's Adam also takes eps 1e-4); the serve step within PPO's serve bar
+RPPO_ENVS, RPPO_STEPS = 16, 512
+RPPO_SERVE_ATOL = 1e-5
+
+
+def rppo_path(out_dir: str) -> dict:
+    """``exp=ppo_recurrent`` through the entry points on the card: train on
+    the learning test's schedule with the metric log and the test episode
+    (its reward must reach RPPO_MIN_TEST_REWARD), resume into version_1 for
+    one more iteration, evaluate the last checkpoint, and serve it through
+    ``serve_main`` (4 slots, 4 greedy sessions). Recurrent PPO reaches no TPU
+    kernel: its launch counts are read to show that."""
+    from sheeprl_tpu_torch.cli import evaluation, run
+    from sheeprl_tpu_torch.serve.main import serve_main
+
+    overrides = ["exp=ppo_recurrent", *RPPO_LEARN, f"hydra.run.dir={os.path.join(out_dir, 'rppo')}"]
+    out = {}
+    _zero_launches()
+    first = run(overrides + [f"algo.total_steps={RPPO_TOTAL_STEPS}"])
+    out["train"] = {"summary": first, "launches": _launches()}
+    scalars = check_scalars("rPPO first run", first["log_dir"], PPO_TAGS)
+    out["train"]["scalars"] = {t: scalars[t][-1] for t in PPO_TAGS}
+    out["seconds_per_train_phase_in_the_loop"] = first["train_seconds"] / first["train_phases"]
+    out["seconds_per_vector_step_in_the_loop"] = first["env_seconds"] / (first["train_phases"] * 128)
+    print(f"[chip-smoke] rPPO first run: {first['train_phases']} train phases, {first['policy_steps']} policy steps "
+          f"in {first['wall_seconds']:.2f}s (train {first['train_seconds']:.2f}s, env {first['env_seconds']:.2f}s); "
+          f"test reward {first['test_reward']} (bar >= {RPPO_MIN_TEST_REWARD}); losses {json.dumps(first['metrics'])}; "
+          f"last Rewards/rew_avg {scalars['Rewards/rew_avg'][-1][1]:.1f}", flush=True)
+    if first["train_phases"] != RPPO_TOTAL_STEPS // RPPO_STEPS_PER_ITER:
+        raise AssertionError(f"rPPO took {first['train_phases']} train phases")
+    if not all(math.isfinite(v) for v in first["metrics"].values()):
+        raise AssertionError(f"rPPO: non-finite losses {first['metrics']}")
+    if not (first["test_reward"] is not None and first["test_reward"] >= RPPO_MIN_TEST_REWARD):
+        raise AssertionError(f"rPPO: test reward {first['test_reward']} < {RPPO_MIN_TEST_REWARD}")
+    _zero_launches()
+    resumed = run(overrides + [f"algo.total_steps={RPPO_TOTAL_STEPS + RPPO_STEPS_PER_ITER}",
+                               f"checkpoint.resume_from={first['checkpoint']}"])
+    out["resume"] = {"summary": resumed, "launches": _launches()}
+    print(f"[chip-smoke] rPPO resumed run: {resumed['train_phases']} train phase into {resumed['log_dir']}, "
+          f"losses {json.dumps(resumed['metrics'])}", flush=True)
+    if not (resumed["log_dir"].endswith("version_1") and resumed["train_phases"] == 1
+            and all(math.isfinite(v) for v in resumed["metrics"].values())):
+        raise AssertionError(f"rPPO resume: {resumed}")
+    _zero_launches()
+    reward = evaluation([f"checkpoint_path={resumed['checkpoint']}"])
+    out["evaluation"] = {"reward": reward, "launches": _launches()}
+    print(f"[chip-smoke] rPPO evaluation: reward {reward}", flush=True)
+    if not math.isfinite(reward):
+        raise AssertionError(f"rPPO evaluation: reward {reward}")
+    log_dir = os.path.join(out_dir, "rppo_serve")
+    _zero_launches()
+    rc = serve_main([f"checkpoint_path={resumed['checkpoint']}", f"serve.slots={SLOTS}",
+                     f"serve.sessions={SESSIONS}", f"serve.log_dir={log_dir}"])
+    launches = _launches()
+    with open(os.path.join(log_dir, "summary.json")) as f:
+        summary = json.load(f)
+    print(f"[chip-smoke] rPPO serve rc={rc} summary={json.dumps(summary)} launches={launches}", flush=True)
+    if rc != 0 or summary["sessions_completed"] != SESSIONS or summary["steps"] < SESSIONS:
+        raise AssertionError(f"rPPO serving did not complete every session: rc {rc}, {summary}")
+    check_telemetry("rPPO serve", log_dir)
+    out["serve"] = {"summary": summary, "launches": launches}
+    out["ckpt"] = resumed["checkpoint"]
+    return out
+
+
+def _rppo_trainers(devices, precision: str = "highest"):
+    """The exp's recurrent PPO trainer on each device, the same weights from a
+    seed; and the cfg."""
+    from sheeprl_tpu_torch.algos.ppo_recurrent.agent import build_agent
+    from sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent import RecurrentPPOTrainer, build_optimizer
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.parallel.fabric import Fabric
+    from sheeprl_tpu_torch.utils.env import make_env
+
+    cfg = compose(["exp=ppo_recurrent"])
+    space = make_env(cfg, 0, 0)().observation_space
+    trainers = {}
+    for accel in devices:
+        agent = build_agent(Fabric(accelerator=accel, float32_matmul_precision=precision), (2,), False, cfg, space, 0)
+        optimizer, schedule = build_optimizer(cfg, agent, cfg.algo.total_steps // (RPPO_ENVS * RPPO_STEPS))
+        trainers[accel] = RecurrentPPOTrainer(agent, optimizer, cfg, schedule)
+    return trainers, cfg
+
+
+def _rppo_block(seed: int) -> dict:
+    """The padded sequence block of a random [512, 16] CartPole rollout at the
+    exp's shape (episodes end with probability 1/40 a step), as the loop
+    builds it: GAE on the host, then ``chunk_sequences``."""
+    from sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent import chunk_sequences
+    from sheeprl_tpu_torch.utils.utils import gae
+
+    rng = np.random.default_rng(seed)
+    T, E, H = RPPO_STEPS, RPPO_ENVS, 64
+    data = {
+        "state": rng.standard_normal((T, E, 4)).astype(np.float32),
+        "actions": np.eye(2, dtype=np.float32)[rng.integers(0, 2, (T, E))],
+        "prev_actions": np.eye(2, dtype=np.float32)[rng.integers(0, 2, (T, E))],
+        "logprobs": -rng.uniform(0.1, 1.5, (T, E, 1)).astype(np.float32),
+        "values": rng.standard_normal((T, E, 1)).astype(np.float32),
+        "rewards": np.ones((T, E, 1), np.float32),
+        "dones": (rng.uniform(size=(T, E, 1)) < 1 / 40).astype(np.float32),
+        "prev_hx": (0.3 * rng.standard_normal((T, E, H))).astype(np.float32),
+        "prev_cx": (0.3 * rng.standard_normal((T, E, H))).astype(np.float32),
+    }
+    returns, advantages = gae(*(torch.from_numpy(data[k]) for k in ("rewards", "values", "dones")),
+                              torch.from_numpy(rng.standard_normal((E, 1)).astype(np.float32)), T, 0.99, 0.95)
+    return chunk_sequences({**data, "returns": returns.numpy(), "advantages": advantages.numpy()}, 16, 8)
+
+
+def rppo_parity() -> dict:
+    """One recurrent PPO train phase at the exp's shape on the card vs on the
+    CPU (TF32 off): the same weights, block and permutations; then greedy
+    serve steps from the CPU trainer's weights on both devices, from the same
+    carries and observations, 4 ticks over 4 slots."""
+    from sheeprl_tpu_torch.algos.ppo_recurrent.serve import get_serve_policy
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.interop.flax_to_torch import ppo_recurrent_to_flax
+    from sheeprl_tpu_torch.parallel.fabric import Fabric
+
+    trainers, cfg = _rppo_trainers(("gpu", "cpu"))
+    seqs = _rppo_block(21)
+    n = seqs["mask"].shape[1]
+    perms = trainers["cpu"].draw_permutations(n, torch.Generator().manual_seed(22))
+    out = {}
+    for accel, trainer in trainers.items():
+        losses = trainer.train_phase(seqs, perms, 0.2, float(cfg.algo.ent_coef))
+        out[accel] = (losses.cpu(), [p.detach().cpu() for p in trainer.agent.parameters()])
+    loss_gap = float(((out["gpu"][0] - out["cpu"][0]).abs() / out["cpu"][0].abs().clamp_min(1e-3)).max())
+    param_gap = max(float((a - b).abs().max()) for a, b in zip(out["gpu"][1], out["cpu"][1]))
+    updates = int(trainers["cpu"].optimizer.state[trainers["cpu"].params[0]]["step"])
+    res = {"losses_rel_gap": loss_gap, "param_max_abs_gap": param_gap, "card": out["gpu"][0].tolist(),
+           "cpu": out["cpu"][0].tolist(), "updates": updates, "sequences": int((seqs["mask"].sum((0, 2)) > 0).sum()),
+           "padded_sequences": n, "parameters": sum(p.numel() for p in trainers["cpu"].params)}
+    print(f"[chip-smoke] rPPO train phase card vs CPU (TF32 off, {updates} updates): {json.dumps(res)} (bars: losses "
+          f"{PPO_LOSS_RTOL} relative, every parameter {PPO_PARAM_ATOL})", flush=True)
+    if not (loss_gap <= PPO_LOSS_RTOL and param_gap <= PPO_PARAM_ATOL):
+        raise AssertionError(f"the rPPO train phase on the card disagrees with the CPU: {res}")
+
+    state = {"agent": ppo_recurrent_to_flax(trainers["cpu"].agent)}
+    serve_cfg = compose(["exp=ppo_recurrent"])
+    policies = {accel: get_serve_policy(Fabric(accelerator=accel, float32_matmul_precision="highest"), serve_cfg,
+                                        state) for accel in ("gpu", "cpu")}
+    carries = {accel: p.init_slots(SLOTS) for accel, p in policies.items()}
+    rng = np.random.default_rng(23)
+    err, equal, ticks = 0.0, True, 4
+    for _ in range(ticks):
+        obs = rng.uniform(-2, 2, (SLOTS, 4)).astype(np.float32)
+        step = {}
+        for accel, p in policies.items():
+            step[accel] = p.step_slots(carries[accel], {"state": torch.from_numpy(obs).to(p.device)}, {})
+            carries[accel] = step[accel][1]
+        equal = equal and bool(torch.equal(step["gpu"][0].cpu(), step["cpu"][0]))
+        err = max(err, *(float((step["gpu"][1][k].cpu() - step["cpu"][1][k]).abs().max()) for k in ("hx", "cx")))
+    res["serve_carry_max_abs_err"], res["serve_actions_equal"] = err, equal
+    print(f"[chip-smoke] rPPO serve step card vs CPU ({ticks} ticks, {SLOTS} slots): hx/cx max abs err {err} (bar "
+          f"{RPPO_SERVE_ATOL}), actions equal {equal}", flush=True)
+    if not (err <= RPPO_SERVE_ATOL and equal):
+        raise AssertionError(f"the rPPO serve step on the card disagrees with the CPU: {err}, {equal}")
+    return res
+
+
+def time_rppo(phases: int = 3) -> tuple:
+    """Seconds per recurrent PPO train phase on the card at the exp's shape
+    (TF32 as the config sets it), synchronized; and ms per acting step on the
+    host (the host agent's one-step forward and sample for the exp's 16 envs,
+    one torch thread as the loop runs it). Returns the timings and the warm
+    trainer with its block."""
+    from sheeprl_tpu_torch.algos.ppo.agent import draw_policy_noise, policy_output
+    from sheeprl_tpu_torch.algos.ppo_recurrent.utils import sequence_obs
+
+    trainers, cfg = _rppo_trainers(("gpu", "cpu"), precision="high")
+    trainer = trainers["gpu"]
+    seqs = _rppo_block(24)
+    n = seqs["mask"].shape[1]
+    generator = torch.Generator().manual_seed(25)
+    ent = float(cfg.algo.ent_coef)
+    trainer.train_phase(seqs, trainer.draw_permutations(n, generator), 0.2, ent)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(phases):
+        trainer.train_phase(seqs, trainer.draw_permutations(n, generator), 0.2, ent)
+    torch.cuda.synchronize()
+    out = {"phases": phases, "seconds_per_train_phase": (time.perf_counter() - t0) / phases,
+           "updates_per_phase": int(cfg.algo.update_epochs) * int(cfg.algo.per_rank_num_batches),
+           "padded_sequences": n}
+    act = trainers["cpu"].agent
+    obs = {"state": seqs["state"][0, :RPPO_ENVS]}
+    prev = torch.zeros(1, RPPO_ENVS, 2)
+    hx, cx = act.initial_states(RPPO_ENVS)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with torch.no_grad():
+        def act_step():
+            actor_outs, values, _ = act(sequence_obs(obs, ["state"], []), prev, hx, cx)
+            noise = draw_policy_noise((2,), False, RPPO_ENVS, generator, "cpu")
+            return policy_output([o[0] for o in actor_outs], values[0], (2,), False, noise=noise)
+
+        for _ in range(50):
+            act_step()
+        steps = 1000
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            act_step()
+        out["ms_per_acting_step"] = (time.perf_counter() - t0) * 1e3 / steps
+    torch.set_num_threads(threads)
+    print(f"[chip-smoke] rPPO timing: {json.dumps(out)}", flush=True)
+    return out, (trainer, seqs, generator, ent)
+
+
+def profile_rppo_train_phase(warm: tuple) -> dict:
+    """Under torch.profiler (last), the card's busy share of one recurrent PPO
+    train phase at the exp's shape and its device operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer, seqs, generator, ent = warm
+    perms = trainer.draw_permutations(seqs["mask"].shape[1], generator)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_phase(seqs, perms, 0.2, ent)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel, count = {}, 0
+    for ev in device_events(prof):
+        by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+        count += 1
+    device_ms = sum(by_kernel.values())
+    updates = len(perms) * trainer.num_batches
+    out = {
+        "phase_wall_ms": wall_ms,
+        "phase_device_ms": device_ms if device_ms > 0 else None,
+        "device_busy_share": device_ms / wall_ms if device_ms > 0 else None,
+        "device_operations": count,
+        "device_operations_per_update": count / updates,
+        "top_device_ms": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8],
+    }
+    print(f"[chip-smoke] rPPO train phase profile: {json.dumps(out)}", flush=True)
+    return out
+
+
 # SAC on Pendulum-v1 at the exp's settings (hidden 256 for the actor and the
 # 2 critics, batch 256, replay ratio 1, learning_starts 100, 4 envs): 12,000
 # policy steps (3,000 iterations, ~12,000 gradient steps). On the CPU three
@@ -2918,6 +3135,10 @@ def main() -> int:
         ppo["parity"] = ppo_train_phase_parity()
         a2c["rmsprop_parity"] = a2c_rmsprop_parity()
         ppo["timing"], ppo_warm = time_ppo()
+        # recurrent PPO: train, resume, evaluate, serve; a phase and a serve step card vs CPU
+        rppo = rppo_path(tmp)
+        rppo["parity"] = rppo_parity()
+        rppo["timing"], rppo_warm = time_rppo()
         sac = sac_path(tmp)
         sac["serve"] = sac_serve_path(sac["ckpt"], tmp)
         droq = droq_path(tmp)
@@ -2935,8 +3156,9 @@ def main() -> int:
         p2e_dv1["timing"]["profile"] = profile_train_steps(p2e_dv1_warm, steps=2)
         sac_ae["timing"]["profile"] = profile_sac_ae_phase(sac_ae_warm)
         ppo["timing"]["profile"] = profile_ppo_train_phase(ppo_warm)
+        rppo["timing"]["profile"] = profile_rppo_train_phase(rppo_warm)
         sac["timing"]["profile"] = profile_sac_train_phase(sac_warm)
-        del warm, warm_bf16, ppo_warm, sac_warm, p2e_warm, dv2_warm, dv1_warm, p2e_dv2_warm, p2e_dv1_warm, sac_ae_warm
+        del warm, warm_bf16, ppo_warm, rppo_warm, sac_warm, p2e_warm, dv2_warm, dv1_warm, p2e_dv2_warm, p2e_dv1_warm, sac_ae_warm
 
     main_row = next(r for r in gru["rows"] if (r["preset"], r["B"], r["K"], r["H"]) == MAIN_SHAPE)
     train_rows = [r for r in gru["rows"] if (r["preset"], r["B"], r["K"], r["H"]) in TRAIN_SHAPES]
@@ -2961,6 +3183,9 @@ def main() -> int:
                 **{f"ppo_{name}": ppo[name]["launches"][LN_GRU.name]
                    for name in ("train", "resume", "evaluation", "serve")},
                 "a2c": a2c["launches"][LN_GRU.name],
+                # recurrent PPO reaches no TPU kernel either (its cell is an LSTM)
+                **{f"rppo_{name}": rppo[name]["launches"][LN_GRU.name]
+                   for name in ("train", "resume", "evaluation", "serve")},
                 # SAC and DroQ reach no TPU kernel either
                 **{f"sac_{name}": sac[name]["launches"][LN_GRU.name]
                    for name in ("train", "resume", "evaluation", "serve")},
@@ -3032,7 +3257,7 @@ def main() -> int:
                  "gru_bf16": gru_bf16, "bf16": bf16, "serving_planes": planes,
                  "p2e": p2e, "odv3": odv3, "dv2": dv2, "dv1": dv1, "p2e_dv2": p2e_dv2, "p2e_dv1": p2e_dv1,
                  "sac_ae": sac_ae,
-                 "ppo": ppo, "a2c": a2c, "sac": sac, "droq": droq, "kernels": kernels},
+                 "ppo": ppo, "rppo": rppo, "a2c": a2c, "sac": sac, "droq": droq, "kernels": kernels},
                 f, indent=2,
             )
     print(json.dumps({"kernels": kernels}))

@@ -105,9 +105,9 @@ def unported_settings(cfg) -> List[str]:
         "resilience.distributed.gang.processes >= 2": int(
             (((resilience.get("distributed") or {}).get("gang") or {}).get("processes") or 0)
         ) >= 2,
-        # the thread samples ahead for the replay loops; PPO and A2C do not read the key
+        # the thread samples ahead for the replay loops; the on-policy loops do not read the key
         "buffer.prefetch.enabled (the prefetch thread)": bool((buffer.get("prefetch") or {}).get("enabled"))
-        and str((cfg.get("algo") or {}).get("name", "")) not in ("ppo", "a2c"),
+        and str((cfg.get("algo") or {}).get("name", "")) not in ("ppo", "a2c", "ppo_recurrent"),
         "buffer.backend other than local": str(buffer.get("backend", "local")) != "local",
         "checkpoint.backend other than pickle": str(checkpoint.get("backend", "pickle")) != "pickle",
         "checkpoint.async_save": bool(checkpoint.get("async_save")),

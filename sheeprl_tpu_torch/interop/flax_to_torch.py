@@ -12,6 +12,11 @@ port's ``nn.Module``s and back:
 - LayerNorm ``scale`` / ``bias``  <->  ``weight`` / ``bias``
 - LayerNorm-GRU ``kernel [K, 3H]`` (rows ``concat(x, h)``, columns reset,
   candidate, update), ``bias``, ``ln_scale``, ``ln_bias``: kept as they are.
+- ``OptimizedLSTMCell``'s one dense per gate (``ii``/``if``/``ig``/``io``
+  kernels ``[in, H]`` without bias, ``hi``/``hf``/``hg``/``ho`` kernels
+  ``[H, H]`` with a bias)  <->  the port's ``LSTMCell``'s fused
+  ``input_kernel [in, 4H]``, ``hidden_kernel [H, 4H]`` and ``hidden_bias
+  [4H]``, the gates' columns in the order i, f, g, o.
 
 - a vmapped ensemble's stacked ``Dense`` (``kernel [n, in, out]``, ``bias
   [n, out]``) and ``LayerNorm`` (``scale``/``bias`` ``[n, h]``) leaves  <->
@@ -34,8 +39,10 @@ Plan2Explore agent (:func:`p2e_to_flax`, :func:`load_p2e_params`,
 shares (:func:`ppo_to_flax`, :func:`load_ppo_params`), the SAC agent,
 which DroQ shares (:func:`sac_to_flax`, :func:`load_sac_params`), and the
 SAC-AE agent (:func:`sac_ae_to_flax`, :func:`load_sac_ae_params`,
-:func:`sac_ae_group_to_torch`) are mapped whole; :func:`dv3_group_to_torch`, :func:`ppo_to_torch` and
-:func:`sac_group_to_torch` turn a tree shaped like a parameter group (an optax
+:func:`sac_ae_group_to_torch`) and the recurrent PPO agent
+(:func:`ppo_recurrent_to_flax`, :func:`load_ppo_recurrent_params`) are mapped
+whole; :func:`dv3_group_to_torch`, :func:`ppo_to_torch`,
+:func:`ppo_recurrent_to_torch` and :func:`sac_group_to_torch` turn a tree shaped like a parameter group (an optax
 moment) into the group's tensors.
 """
 
@@ -53,6 +60,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3 import agent as dv3
 from sheeprl_tpu_torch.algos.offline_dreamer import agent as odv3
 from sheeprl_tpu_torch.algos.p2e_dv3 import agent as p2e
 from sheeprl_tpu_torch.algos.ppo import agent as ppo
+from sheeprl_tpu_torch.algos.ppo_recurrent import agent as rppo
 from sheeprl_tpu_torch.algos.sac import agent as sac
 from sheeprl_tpu_torch.algos.sac_ae import agent as sac_ae
 from sheeprl_tpu_torch.models.models import MLP, EnsembleMLP, LayerNormGRUCell, NatureCNN
@@ -195,6 +203,30 @@ def ensemble_heads_from_flax(m: "p2e.EnsembleHeads", tree: Tree, what: str = "en
     _copy(m.head_bias, node["Dense_0"]["bias"], f"{what}/Dense_0.bias")
 
 
+_LSTM_GATES = ("i", "f", "g", "o")
+
+
+def lstm_to_flax(m: "rppo.LSTMCell") -> Tree:
+    H = m.hidden_size
+    w_i, w_h, b = _np(m.input_kernel), _np(m.hidden_kernel), _np(m.hidden_bias)
+    out = {}
+    for j, gate in enumerate(_LSTM_GATES):
+        cols = slice(j * H, (j + 1) * H)
+        out[f"i{gate}"] = {"kernel": w_i[:, cols].copy()}
+        out[f"h{gate}"] = {"kernel": w_h[:, cols].copy(), "bias": b[cols].copy()}
+    return out
+
+
+def lstm_from_flax(m: "rppo.LSTMCell", tree: Tree, what: str = "OptimizedLSTMCell") -> None:
+    names = sorted(f"{side}{gate}" for side in "ih" for gate in _LSTM_GATES)
+    if sorted(tree) != names:
+        raise ValueError(f"{what}: checkpoint children {sorted(tree)} do not match the cell's {names}")
+    cat = lambda side, leaf: np.concatenate([np.asarray(tree[f"{side}{g}"][leaf]) for g in _LSTM_GATES], axis=-1)
+    _copy(m.input_kernel, cat("i", "kernel"), what + ".input_kernel")
+    _copy(m.hidden_kernel, cat("h", "kernel"), what + ".hidden_kernel")
+    _copy(m.hidden_bias, cat("h", "bias"), what + ".hidden_bias")
+
+
 _LEAVES = (
     (nn.Linear, linear_to_flax, linear_from_flax),
     (sac.CriticEnsemble, critic_ensemble_to_flax, critic_ensemble_from_flax),
@@ -203,6 +235,7 @@ _LEAVES = (
     (nn.ConvTranspose2d, deconv_to_flax, deconv_from_flax),
     (nn.LayerNorm, layer_norm_to_flax, layer_norm_from_flax),
     (LayerNormGRUCell, gru_to_flax, gru_from_flax),
+    (rppo.LSTMCell, lstm_to_flax, lstm_from_flax),
 )
 
 
@@ -295,6 +328,11 @@ def _children(m: nn.Module) -> Dict[str, nn.Module]:
         out = {"MLP_0": m.mlp}
         out.update({f"Dense_{i}": head for i, head in enumerate(m.heads)})
         return out
+    if isinstance(m, rppo.RNNCore):
+        mlps = [mlp for mlp in (m.pre_mlp, m.post_mlp) if mlp is not None]
+        return {"OptimizedLSTMCell_0": m.cell, **{f"MLP_{i}": mlp for i, mlp in enumerate(mlps)}}
+    if isinstance(m, rppo.ActorHeads):
+        return {"MLP_0": m.backbone, **{f"Dense_{i}": head for i, head in enumerate(m.heads)}}
     if isinstance(m, sac.SACActor):
         return {"MLP_0": m.model, "Dense_0": m.fc_mean, "Dense_1": m.fc_logstd}
     if isinstance(m, odv3.CEM):
@@ -579,6 +617,42 @@ def ppo_to_torch(agent: "ppo.PPOAgent") -> Callable[[Tree], List[torch.Tensor]]:
     def convert(tree: Tree) -> List[torch.Tensor]:
         scratch = copy.deepcopy(agent)
         load_ppo_params(scratch, tree)
+        return [p.detach() for p in scratch.parameters()]
+
+    return convert
+
+
+# -- the recurrent PPO agent -------------------------------------------------------------
+def _ppo_recurrent_parts(agent: "rppo.RecurrentPPOAgent") -> Dict[str, nn.Module]:
+    return {"rnn": agent.rnn, "actor": agent.actor, "critic": agent.critic}
+
+
+def ppo_recurrent_to_flax(agent: "rppo.RecurrentPPOAgent") -> Tree:
+    """The agent's parameters as the JAX package's recurrent PPO params tree."""
+    out = {"feature_extractor": {k: module_to_flax(v) for k, v in _ppo_encoders(agent).items()}}
+    out.update({k: module_to_flax(v) for k, v in _ppo_recurrent_parts(agent).items()})
+    return out
+
+
+def load_ppo_recurrent_params(agent: "rppo.RecurrentPPOAgent", params: Tree) -> None:
+    """Copy a JAX-package recurrent PPO params tree into ``agent``."""
+    encoders, parts = _ppo_encoders(agent), _ppo_recurrent_parts(agent)
+    expected, found = sorted(["feature_extractor", *parts]), sorted(params)
+    if expected != found or sorted(params["feature_extractor"]) != sorted(encoders):
+        raise ValueError(f"recurrent PPO params: checkpoint children {found} do not match the agent's {expected}")
+    for name, module in encoders.items():
+        module_from_flax(module, params["feature_extractor"][name], f"feature_extractor/{name}")
+    for name, module in parts.items():
+        module_from_flax(module, params[name], name)
+
+
+def ppo_recurrent_to_torch(agent: "rppo.RecurrentPPOAgent") -> Callable[[Tree], List[torch.Tensor]]:
+    """A tree shaped like the JAX recurrent PPO params -> tensors in
+    ``agent.parameters()`` order."""
+
+    def convert(tree: Tree) -> List[torch.Tensor]:
+        scratch = copy.deepcopy(agent)
+        load_ppo_recurrent_params(scratch, tree)
         return [p.detach() for p in scratch.parameters()]
 
     return convert

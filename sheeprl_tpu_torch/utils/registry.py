@@ -33,6 +33,7 @@ ALGORITHMS: Dict[str, Tuple[str, str]] = {
     "p2e_dv2_finetuning": (f"{_P2E_DV2}.p2e_dv2_finetuning", "main"),
     "ppo": ("sheeprl_tpu_torch.algos.ppo.ppo", "main"),
     "a2c": ("sheeprl_tpu_torch.algos.a2c.a2c", "main"),
+    "ppo_recurrent": ("sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent", "main"),
     "sac": ("sheeprl_tpu_torch.algos.sac.sac", "main"),
     "droq": ("sheeprl_tpu_torch.algos.droq.droq", "main"),
     "sac_ae": ("sheeprl_tpu_torch.algos.sac_ae.sac_ae", "main"),
@@ -51,6 +52,7 @@ EVALUATIONS: Dict[str, Tuple[str, str]] = {
     **{name: (f"{_P2E_DV2}.evaluate", "evaluate") for name in ("p2e_dv2_exploration", "p2e_dv2_finetuning")},
     "ppo": ("sheeprl_tpu_torch.algos.ppo.evaluate", "evaluate"),
     "a2c": ("sheeprl_tpu_torch.algos.ppo.evaluate", "evaluate"),
+    "ppo_recurrent": ("sheeprl_tpu_torch.algos.ppo_recurrent.evaluate", "evaluate"),
     "sac": ("sheeprl_tpu_torch.algos.sac.evaluate", "evaluate"),
     "droq": ("sheeprl_tpu_torch.algos.droq.evaluate", "evaluate"),
     "sac_ae": ("sheeprl_tpu_torch.algos.sac_ae.evaluate", "evaluate"),
@@ -62,6 +64,7 @@ SERVE_POLICIES: Dict[str, Tuple[str, str]] = {
     "dreamer_v1": (f"{_DV1}.serve", "get_serve_policy"),
     # A2C checkpoints hold the PPO agent
     **{name: ("sheeprl_tpu_torch.algos.ppo.serve", "get_serve_policy") for name in ("ppo", "a2c")},
+    "ppo_recurrent": ("sheeprl_tpu_torch.algos.ppo_recurrent.serve", "get_serve_policy"),
     "sac": ("sheeprl_tpu_torch.algos.sac.serve", "get_serve_policy"),
     "droq": ("sheeprl_tpu_torch.algos.sac.serve", "get_serve_policy_droq"),
 }

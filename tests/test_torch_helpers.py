@@ -202,6 +202,21 @@ def optax_states_close(trainer, opt_state, atol):
         assert all(float(opt.state[p]["step"]) == int(adam.count) for p in params)
 
 
+def optax_links(opt_state) -> dict:
+    """Class name -> link state of an optax chain's (nested) state."""
+    found = {}
+
+    def walk(node):
+        if isinstance(node, (tuple, list)) and not hasattr(node, "_fields"):
+            for child in node:
+                walk(child)
+        else:
+            found[type(node).__name__] = node
+
+    walk(opt_state)
+    return found
+
+
 def unsaturated(params):
     """The params with the actor's mean and log-std heads scaled by 0.1, so
     that the pre-squash samples of a train phase stay near N(0, 1), where the
