@@ -105,7 +105,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    seconds per gradient step of each at its exp's batch;
 6. PPO (``exp=ppo``, CartPole-v1 at the exp's settings: 4 envs x 128 steps,
    minibatches of 64, 10 epochs, width 64) through the entry points on the
-   card: 65536 policy steps with the metric log and the test episode (its
+   card: 32768 policy steps with the metric log and the test episode (its
    reward must reach 100), a resume into version_1 for two more iterations,
    an evaluation; the event file must hold the losses, the episode reward
    and ``Time/sps_*``. A short ``exp=a2c`` run (finite losses, a
@@ -125,8 +125,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
    CPU (TF32 off, PPO's bars) and 4 greedy serve ticks likewise (the LSTM
    state within 1e-5, equal actions), the seconds per train phase and the ms
    of one host acting step for 16 envs;
+6c. the on-policy Anakin topology (envs on the card): ``exp=ppo_anakin``
+   (CartPole-v1, 64 envs x 128 steps, minibatches of 2048, 4 epochs, width
+   64) through the entry points for the exp's 1,048,576 policy steps with the
+   metric log and the test episode (its reward must reach 100), a resume into
+   version_1 for two more iterations, an evaluation, and the checkpoint
+   served through ``serve_main`` (4 slots, 4 sessions); ``exp=a2c_anakin``
+   for 200 iterations, a resume and an evaluation; no LN-GRU launch in any of
+   them. Then, card vs CPU with TF32 off: (a) 128 steps of 64 CartPole and
+   64 Pendulum envs, each from the CPU's state (within 1e-5, flags equal);
+   (b) one PPO and one A2C train phase from the same trajectory and round
+   keys (PPO's bars); (c) one whole iteration at the exp's shape, reporting
+   where the trajectories part (a finding). The host syncs of one iteration
+   by part (none in the rollout's step loop); one step of each flavor with
+   ``xla_deterministic_ops`` on; env steps/s at ``exp=ppo_anakin`` and at
+   ``exp=ppo_anakin_benchmarks``' 8192 envs x 128 steps, with the
+   rollout/train split;
 7. SAC (``exp=sac env.id=Pendulum-v1``, the exp's widths, batch and replay
-   ratio, 4 envs) through the entry points on the card: 12,000 policy steps
+   ratio, 4 envs) through the entry points on the card: 6,000 policy steps
    with the metric log and the test episode (its reward must reach -400), a
    resume into version_1, an evaluation; the checkpoint served through
    ``serve_main`` (4 slots, 4 sessions) and the batched greedy step held
@@ -142,8 +158,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    same, and its kernel count); a P2E step at the DOA++ widths in bf16; a
    DV2 step at 16 x 50 and a DV1 step at 50 x 50 in float32; a P2E-DV2
    step at 16 x 50, a P2E-DV1 step at 50 x 50 and a SAC-AE train phase of 4
-   steps at batch 128; a PPO, a recurrent PPO and a SAC train phase (busy
-   share, device operations);
+   steps at batch 128; a PPO, a recurrent PPO and a SAC train phase and an
+   Anakin iteration at both timed widths (busy share, device operations);
 9. print the ``kernels`` JSON line, the card line, and the final result line.
 
 The training phase launches with the config's defaults for video capture
@@ -2151,8 +2167,10 @@ def ppo_serve_path(ckpt: str, out_dir: str) -> dict:
 
 
 # PPO on CartPole-v1 at the exp's settings: 4 envs x 128 steps, minibatches
-# of 64, 10 epochs, width 64, 65536 policy steps (128 train phases)
-PPO_TOTAL_STEPS = 65536
+# of 64, 10 epochs, width 64, 32768 policy steps (64 train phases), cut from
+# 65,536 to keep the whole smoke inside its time limit: on the CPU runs of
+# 32,768 steps scored 500 with seeds 42, 7 and 123 (the bar is 100)
+PPO_TOTAL_STEPS = 32768
 PPO_STEPS_PER_ITER = 4 * 128
 PPO_RESUME_ITERS = 2
 PPO_TAGS = ("Loss/policy_loss", "Loss/value_loss", "Loss/entropy_loss", "Rewards/rew_avg",
@@ -2645,15 +2663,470 @@ def profile_rppo_train_phase(warm: tuple) -> dict:
     return out
 
 
+# -- the on-policy Anakin topology (phase 6c) -----------------------------------------------
+# exp=ppo_anakin at the exp's settings: CartPole-v1, 64 envs x 128 steps,
+# minibatches of 2048, 4 epochs (16 updates an iteration), width 64, the
+# exp's 1,048,576 policy steps (128 iterations; ~40-55 s of the loop on the
+# card); the bar is PPO's. The card's runs scored 500, 500 and 410 at
+# 1,048,576 steps and 119 at 524,288, so the phase is not cut
+ANAKIN_TOTAL_STEPS = 1048576
+ANAKIN_STEPS_PER_ITER = 64 * 128
+ANAKIN_RESUME_ITERS = 2
+ANAKIN_TAGS = ("Loss/policy_loss", "Loss/value_loss", "Loss/entropy_loss", "Rewards/rew_avg",
+               "Time/sps_env_interaction")
+# exp=a2c_anakin: 64 envs x 5 steps, 200 iterations, then 2 more resumed
+A2C_ANAKIN_STEPS_PER_ITER = 64 * 5
+A2C_ANAKIN_TOTAL_STEPS = 200 * A2C_ANAKIN_STEPS_PER_ITER
+# (a) the device env step on the card vs the CPU, each step from the CPU's
+# state: the same float32 expressions, where the card's sin/cos may round a
+# last ulp apart
+ANAKIN_ENV_ATOL = 1e-5
+ANAKIN_ENV_STEPS = 128
+ANAKIN_ENV_ENVS = 64
+
+
+def _anakin_programs(exp: str, devices, precision: str = "highest", overrides=()):
+    """The exp's Anakin program (agent, optimizer and envs) on each device,
+    the same weights from the exp's seed; and the cfg. ``precision`` None
+    takes the config's ``float32_matmul_precision``."""
+    from sheeprl_tpu_torch.algos.ppo.agent import build_agent
+    from sheeprl_tpu_torch.algos.ppo.anakin import AnakinProgram, _minibatch_plan, build_optimizer
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.envs.device import make_device_env
+    from sheeprl_tpu_torch.parallel.fabric import Fabric
+
+    cfg = compose([f"exp={exp}", *overrides])
+    E, T = int(cfg.env.num_envs), int(cfg.algo.rollout_steps)
+    programs = {}
+    for accel in devices:
+        fabric = Fabric(accelerator=accel, float32_matmul_precision=precision or cfg.float32_matmul_precision)
+        env = make_device_env(cfg, E, fabric.device)
+        spec = env.spec
+        space = spaces.Dict({"state": spec.to_obs_space()})
+        agent = build_agent(fabric, spec.action.actions_dim, spec.action.kind == "continuous", cfg, space, cfg.seed)
+        _, minibatches, epochs = _minibatch_plan(cfg, E)
+        optimizer, schedule = build_optimizer(cfg, agent, int(cfg.algo.total_steps) // (E * T), minibatches * epochs)
+        programs[accel] = AnakinProgram(agent, env, cfg, optimizer, schedule, "state")
+    return programs, cfg
+
+
+def _on(tree, device):
+    from sheeprl_tpu_torch.envs.device import AutoResetState
+
+    if isinstance(tree, AutoResetState):
+        return AutoResetState(*(x.to(device) for x in tree))
+    if isinstance(tree, dict):
+        return {k: _on(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_on(v, device) for v in tree]
+    return tree.to(device)
+
+
+def anakin_path(out_dir: str) -> dict:
+    """``exp=ppo_anakin`` through the entry points on the card: ANAKIN_TOTAL_STEPS
+    policy steps with the metric log and the test episode (its
+    reward must reach PPO_MIN_TEST_REWARD), a resume into version_1 for two
+    more iterations, an evaluation, and the checkpoint served through
+    ``serve_main`` (4 slots, 4 greedy sessions). ``exp=a2c_anakin``: 200
+    iterations (finite losses, a checkpoint), a resume, an evaluation. Anakin
+    reaches no TPU kernel: the launch counts are read to show that."""
+    from sheeprl_tpu_torch.cli import evaluation, run
+    from sheeprl_tpu_torch.serve.main import serve_main
+
+    out = {}
+    overrides = ["exp=ppo_anakin", f"hydra.run.dir={os.path.join(out_dir, 'ppo_anakin')}"]
+    _zero_launches()
+    first = run(overrides + [f"algo.total_steps={ANAKIN_TOTAL_STEPS}"])
+    out["train"] = {"summary": first, "launches": _launches()}
+    scalars = check_scalars("ppo_anakin first run", first["log_dir"], ANAKIN_TAGS)
+    out["train"]["scalars"] = {t: scalars[t][-1] for t in ANAKIN_TAGS}
+    phase_s = first["rollout_seconds"] + first["train_seconds"]
+    out["env_steps_per_s_in_the_loop"] = first["policy_steps"] / phase_s
+    print(f"[chip-smoke] ppo_anakin first run: {first['iterations']} iterations, {first['policy_steps']} policy steps "
+          f"in {first['wall_seconds']:.2f}s (rollout {first['rollout_seconds']:.2f}s, train "
+          f"{first['train_seconds']:.2f}s on the card's clock: {out['env_steps_per_s_in_the_loop']:.0f} env steps/s); "
+          f"test reward {first['test_reward']} (bar >= {PPO_MIN_TEST_REWARD}); losses {json.dumps(first['metrics'])}; "
+          f"last Rewards/rew_avg {scalars['Rewards/rew_avg'][-1][1]:.1f}, Time/sps_env_interaction "
+          f"{scalars['Time/sps_env_interaction'][-1][1]:.0f}", flush=True)
+    if first["iterations"] != ANAKIN_TOTAL_STEPS // ANAKIN_STEPS_PER_ITER or first["updates_per_iter"] != 16:
+        raise AssertionError(f"ppo_anakin took {first['iterations']} iterations of {first['updates_per_iter']} updates")
+    if not all(math.isfinite(v) for v in first["metrics"].values()):
+        raise AssertionError(f"ppo_anakin: non-finite losses {first['metrics']}")
+    if not (first["test_reward"] is not None and first["test_reward"] >= PPO_MIN_TEST_REWARD):
+        raise AssertionError(f"ppo_anakin: test reward {first['test_reward']} < {PPO_MIN_TEST_REWARD}")
+    _zero_launches()
+    resumed = run(overrides + [f"algo.total_steps={ANAKIN_TOTAL_STEPS + ANAKIN_RESUME_ITERS * ANAKIN_STEPS_PER_ITER}",
+                               f"checkpoint.resume_from={first['checkpoint']}"])
+    out["resume"] = {"summary": resumed, "launches": _launches()}
+    print(f"[chip-smoke] ppo_anakin resumed run: {resumed['iterations']} iterations into {resumed['log_dir']}, "
+          f"losses {json.dumps(resumed['metrics'])}", flush=True)
+    if not (resumed["log_dir"].endswith("version_1") and resumed["iterations"] == ANAKIN_RESUME_ITERS
+            and all(math.isfinite(v) for v in resumed["metrics"].values())):
+        raise AssertionError(f"ppo_anakin resume: {resumed}")
+    _zero_launches()
+    reward = evaluation([f"checkpoint_path={resumed['checkpoint']}"])
+    out["evaluation"] = {"reward": reward, "launches": _launches()}
+    print(f"[chip-smoke] ppo_anakin evaluation: reward {reward}", flush=True)
+    if not math.isfinite(reward):
+        raise AssertionError(f"ppo_anakin evaluation: reward {reward}")
+    log_dir = os.path.join(out_dir, "ppo_anakin_serve")
+    _zero_launches()
+    rc = serve_main([f"checkpoint_path={resumed['checkpoint']}", f"serve.slots={SLOTS}",
+                     f"serve.sessions={SESSIONS}", f"serve.log_dir={log_dir}"])
+    launches = _launches()
+    with open(os.path.join(log_dir, "summary.json")) as f:
+        summary = json.load(f)
+    print(f"[chip-smoke] ppo_anakin serve rc={rc} summary={json.dumps(summary)} launches={launches}", flush=True)
+    if rc != 0 or summary["sessions_completed"] != SESSIONS or summary["steps"] < SESSIONS:
+        raise AssertionError(f"ppo_anakin serving did not complete every session: rc {rc}, {summary}")
+    check_telemetry("ppo_anakin serve", log_dir)
+    out["serve"] = {"summary": summary, "launches": launches}
+
+    a2c_overrides = ["exp=a2c_anakin", f"hydra.run.dir={os.path.join(out_dir, 'a2c_anakin')}"]
+    _zero_launches()
+    a2c = run(a2c_overrides + [f"algo.total_steps={A2C_ANAKIN_TOTAL_STEPS}"])
+    out["a2c_train"] = {"summary": a2c, "launches": _launches()}
+    check_scalars("a2c_anakin run", a2c["log_dir"], ("Loss/policy_loss", "Loss/value_loss", "Rewards/rew_avg"))
+    _zero_launches()
+    a2c_resumed = run(a2c_overrides + [f"algo.total_steps={A2C_ANAKIN_TOTAL_STEPS + 2 * A2C_ANAKIN_STEPS_PER_ITER}",
+                                       f"checkpoint.resume_from={a2c['checkpoint']}"])
+    out["a2c_resume"] = {"summary": a2c_resumed, "launches": _launches()}
+    _zero_launches()
+    a2c_reward = evaluation([f"checkpoint_path={a2c_resumed['checkpoint']}"])
+    out["a2c_evaluation"] = {"reward": a2c_reward, "launches": _launches()}
+    print(f"[chip-smoke] a2c_anakin run: {a2c['iterations']} iterations in {a2c['wall_seconds']:.2f}s (rollout "
+          f"{a2c['rollout_seconds']:.2f}s, train {a2c['train_seconds']:.2f}s), test reward {a2c['test_reward']}, "
+          f"losses {json.dumps(a2c['metrics'])}; resumed {a2c_resumed['iterations']} iterations into "
+          f"{a2c_resumed['log_dir']}; evaluation reward {a2c_reward}", flush=True)
+    if not (a2c["checkpoint"] and os.path.isfile(a2c["checkpoint"])
+            and all(math.isfinite(v) for v in {**a2c["metrics"], **a2c_resumed["metrics"]}.values())
+            and a2c_resumed["log_dir"].endswith("version_1") and a2c_resumed["iterations"] == 2
+            and math.isfinite(a2c_reward)):
+        raise AssertionError(f"a2c_anakin: {a2c}, {a2c_resumed}, {a2c_reward}")
+    stray = {name: r["launches"] for name, r in out.items() if isinstance(r, dict) and any(r["launches"].values())}
+    if stray:
+        raise AssertionError(f"an Anakin path launched a kernel it does not reach: {stray}")
+    return out
+
+
+def anakin_env_parity() -> dict:
+    """(a) 128 steps of 64 CartPole envs and of 64 Pendulum envs on the card
+    vs on the CPU, each step fed the CPU's state, action and reset state:
+    observations and rewards within ANAKIN_ENV_ATOL, done and truncation
+    flags equal. Pendulum truncates at 100 steps here, so that a truncation
+    and its reset fall inside the 128 steps."""
+    from sheeprl_tpu_torch.envs.device import AutoReset, CartPole, Pendulum
+
+    res = {}
+    for name, bare, limit in (("CartPole-v1", CartPole(), 500), ("Pendulum-v1", Pendulum(), 100)):
+        envs = {dev: AutoReset(bare, ANAKIN_ENV_ENVS, dev, max_episode_steps=limit) for dev in ("cpu", "cuda")}
+        g = torch.Generator().manual_seed(31)
+        rng = np.random.default_rng(32)
+        state, _ = envs["cpu"].reset(g)
+        worst = {"obs": 0.0, "reward": 0.0, "terminal_observation": 0.0}
+        flags_equal, dones = True, 0
+        for _ in range(ANAKIN_ENV_STEPS):
+            if bare.spec.action.kind == "discrete":
+                action = torch.from_numpy(rng.integers(0, 2, ANAKIN_ENV_ENVS))
+            else:
+                action = torch.from_numpy(rng.uniform(-2.5, 2.5, (ANAKIN_ENV_ENVS, 1)).astype(np.float32))
+            reset = envs["cpu"].draw_resets(1, g)[0]
+            cpu = envs["cpu"].step(state, action, reset)
+            card = envs["cuda"].step(_on(state, "cuda"), action.cuda(), reset.cuda())
+            for key, a, b in (("obs", card[1], cpu[1]), ("reward", card[2], cpu[2]),
+                              ("terminal_observation", card[4]["terminal_observation"],
+                               cpu[4]["terminal_observation"])):
+                worst[key] = max(worst[key], float((a.cpu() - b).abs().max()))
+            flags_equal &= bool(torch.equal(card[3].cpu(), cpu[3]))
+            for key in ("terminated", "truncated", "episode_length"):
+                flags_equal &= bool(torch.equal(card[4][key].cpu(), cpu[4][key]))
+            dones += int(cpu[3].sum())
+            state = cpu[0]
+        res[name] = {"max_abs_err": worst, "flags_equal": flags_equal, "dones": dones}
+    print(f"[chip-smoke] device env step card vs CPU ({ANAKIN_ENV_STEPS} steps x {ANAKIN_ENV_ENVS} envs, each from "
+          f"the CPU's state): {json.dumps(res)} (bar {ANAKIN_ENV_ATOL}, flags equal)", flush=True)
+    for name, r in res.items():
+        if not (max(r["max_abs_err"].values()) <= ANAKIN_ENV_ATOL and r["flags_equal"] and r["dones"] > 0):
+            raise AssertionError(f"the {name} device env on the card disagrees with the CPU: {r}")
+    return res
+
+
+def anakin_train_parity() -> dict:
+    """(b) one PPO and one A2C Anakin train phase at the exps' shapes on the
+    card vs on the CPU (TF32 off), from the same weights, trajectory (a
+    rollout of the CPU program, its episodes truncated at 16 or 3 steps),
+    bootstrap observation and round keys: the truncation bootstrap, GAE and
+    every update. PPO's bars: the mean losses
+    within PPO_LOSS_RTOL relative, every parameter within PPO_PARAM_ATOL."""
+    res = {}
+    # step budgets shorter than the rollouts (128 and 5 steps), so that the
+    # truncation bootstrap has truncated rows
+    for exp, budget in (("ppo_anakin", 16), ("a2c_anakin", 3)):
+        programs, cfg = _anakin_programs(exp, ("gpu", "cpu"), overrides=[f"env.max_episode_steps={budget}"])
+        cpu = programs["cpu"]
+        g = torch.Generator().manual_seed(41)
+        inputs = cpu.draw_inputs(g)
+        env_state, obs = cpu.env.reset(g)
+        _, obs, traj, _ = cpu.rollout(env_state, obs, inputs["noise"], inputs["resets"])
+        out = {}
+        for accel, p in programs.items():
+            t, o = _on(traj, p.device), obs.to(p.device)
+            returns, advantages = p.returns(t, p.values(o))
+            losses = p.train(t, returns, advantages, _on(inputs["orders"], p.device), 0.2,
+                             float(cfg.algo.get("ent_coef", 0.0)))
+            out[accel] = (losses.cpu(), [q.detach().cpu() for q in p.params])
+        loss_gap = float(((out["gpu"][0] - out["cpu"][0]).abs() / out["cpu"][0].abs().clamp_min(1e-3)).max())
+        param_gap = max(float((a - b).abs().max()) for a, b in zip(out["gpu"][1], out["cpu"][1]))
+        res[exp] = {"losses_rel_gap": loss_gap, "param_max_abs_gap": param_gap, "card": out["gpu"][0].tolist(),
+                    "cpu": out["cpu"][0].tolist(), "updates": cpu.updates_per_iter,
+                    "truncated_rows": int(traj["truncated"].sum()), "rows": cpu.num_rows}
+    print(f"[chip-smoke] Anakin train phases card vs CPU (TF32 off): {json.dumps(res)} (bars: losses {PPO_LOSS_RTOL} "
+          f"relative, every parameter {PPO_PARAM_ATOL})", flush=True)
+    for exp, r in res.items():
+        if not (r["losses_rel_gap"] <= PPO_LOSS_RTOL and r["param_max_abs_gap"] <= PPO_PARAM_ATOL):
+            raise AssertionError(f"the {exp} train phase on the card disagrees with the CPU: {r}")
+    return res
+
+
+def anakin_step_parity() -> dict:
+    """(c) one whole ``exp=ppo_anakin`` iteration (64 envs x 128 steps, 16
+    updates) on the card vs on the CPU (TF32 off) from the same weights,
+    envs and draws. A finding, not a gate: CartPole's dynamics grow a one-ulp
+    ``sin``/``cos`` gap until an action flips. Reports the first step where
+    the trajectories part (``None`` when they do not), and the gaps after."""
+    programs, cfg = _anakin_programs("ppo_anakin", ("gpu", "cpu"))
+    cpu = programs["cpu"]
+    g = torch.Generator().manual_seed(51)
+    inputs = cpu.draw_inputs(g)
+    env_state, obs = cpu.env.reset(g)
+    outs = {accel: p.step(_on(env_state, p.device), obs.to(p.device), _on(inputs, p.device), 0.2, 0.0)
+            for accel, p in programs.items()}
+    card, host = outs["gpu"], outs["cpu"]
+    parted = (card.traj["actions"].cpu() != host.traj["actions"]).flatten(1).any(dim=1)
+    first = int(torch.nonzero(parted)[0]) if bool(parted.any()) else None
+    obs_gap = (card.traj["state"].cpu() - host.traj["state"]).abs().flatten(1).max(dim=1).values
+    res = {
+        "first_parted_step": first,
+        "steps": int(cfg.algo.rollout_steps),
+        "parted_steps": int(parted.sum()),
+        "obs_max_abs_gap_at_step": {str(t): float(obs_gap[t]) for t in (0, 15, 31, 63, 127)},
+        "losses_rel_gap": float(((card.losses.cpu() - host.losses).abs() / host.losses.abs().clamp_min(1e-3)).max()),
+        "param_max_abs_gap": max(float((a.detach().cpu() - b.detach()).abs().max())
+                                 for a, b in zip(programs["gpu"].params, cpu.params)),
+    }
+    print(f"[chip-smoke] ppo_anakin iteration card vs CPU (TF32 off, a finding): {json.dumps(res)}", flush=True)
+    return res
+
+
+def anakin_syncs() -> dict:
+    """Host syncs of one ``exp=ppo_anakin`` iteration on the card, counted
+    under ``torch.cuda.set_sync_debug_mode('warn')`` after a warm iteration:
+    the draws, the rollout's step loop (the bar is 0) and the train phase."""
+    import warnings
+
+    programs, _ = _anakin_programs("ppo_anakin", ("gpu",), precision=None)
+    p = programs["gpu"]
+    g = torch.Generator(device=p.device).manual_seed(61)
+    env_state, obs = p.env.reset(g)
+    out = p.step(env_state, obs, p.draw_inputs(g), 0.2, 0.0)
+    env_state, obs = out.env_state, out.obs
+    torch.cuda.synchronize()
+    counts = {}
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        def count(name, fn):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                result = fn()
+            counts[name] = sum("synchroniz" in str(w.message) for w in caught)
+            return result
+
+        inputs = count("draws", lambda: p.draw_inputs(g))
+        env_state, obs, traj, _ = count("rollout", lambda: p.rollout(env_state, obs, inputs["noise"],
+                                                                     inputs["resets"]))
+        count("train", lambda: p.train(traj, *p.returns(traj, p.values(obs)), inputs["orders"], 0.2, 0.0))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"[chip-smoke] ppo_anakin host syncs in one iteration: {json.dumps(counts)} (bar: 0 in the rollout)",
+          flush=True)
+    if counts["rollout"] != 0:
+        raise AssertionError(f"the Anakin rollout's step loop synchronised with the host: {counts}")
+    return counts
+
+
+def deterministic_step(kind: str) -> dict:
+    """One step of ``kind``'s family on the card with ``xla_deterministic_ops``
+    on (``Fabric(deterministic_ops=True)``'s switches), from its parity
+    builders; the switches are off again afterwards. Returns the step's
+    outcome: ``ok``, or the error an op with no deterministic kernel raised."""
+    from sheeprl_tpu_torch.parallel.fabric import apply_deterministic_ops
+
+    def dreamer():
+        T, B = 16, 4
+        if kind == "dv3":
+            trainers, batch = _s_trainers(("gpu",), T, B)
+        else:
+            trainers, batch = _family_trainers(kind, ("gpu",), T, B)
+        trainer = trainers["gpu"]
+        noise = trainer.draw_noise(T, B, torch.Generator(device=trainer.device).manual_seed(1))
+        apply_deterministic_ops(True)
+        return trainer.train_step({k: v.to(trainer.device) for k, v in batch.items()}, 0,
+                                  _noise_to(noise, trainer.device, trainer.agent.dtype))
+
+    def sac_family():
+        trainers, cfg = _sac_trainers(kind, ("gpu",))
+        trainer, B = trainers["gpu"], int(cfg.algo.per_rank_batch_size)
+        rng = np.random.default_rng(12)
+        block, actor_block = _replay_block(rng, (SAC_PARITY_G, B)), _replay_block(rng, (B,))
+        noise = trainer.draw_noise(SAC_PARITY_G, B, torch.Generator(device=trainer.device).manual_seed(13))
+        apply_deterministic_ops(True)
+        return _run_phase(kind, trainer, block, actor_block, noise)
+
+    def sac_ae():
+        trainers, cfg = _sac_ae_trainers(("gpu",))
+        trainer = trainers["gpu"]
+        block = _sac_ae_block(np.random.default_rng(17), 1, SAC_AE_PARITY_B)
+        data = _on({k: torch.from_numpy(v) for k, v in block.items()}, trainer.device)
+        noise = trainer.draw_noise(1, data, torch.Generator(device=trainer.device).manual_seed(18))
+        apply_deterministic_ops(True)
+        return trainer.train_phase(data, 0, _noise_to(noise, trainer.device, trainer.dtype))
+
+    def ppo():
+        agents, cfg = _on_policy_agents("ppo", ("gpu",))
+        trainer = _ppo_trainer(agents["gpu"], cfg)
+        data, next_values = _ppo_rollout(1)
+        perms = trainer.draw_permutations(torch.Generator().manual_seed(2))
+        apply_deterministic_ops(True)
+        return trainer.train_phase(_on({k: torch.from_numpy(v) for k, v in data.items()}, trainer.device),
+                                   torch.from_numpy(next_values).to(trainer.device), perms, 0.2, 0.0)
+
+    def a2c():
+        from sheeprl_tpu_torch.algos.a2c.a2c import A2CTrainer
+        from sheeprl_tpu_torch.config import instantiate
+
+        agents, cfg = _on_policy_agents("a2c", ("gpu",))
+        agent = agents["gpu"]
+        trainer = A2CTrainer(agent, instantiate(cfg.algo.optimizer, agent.parameters()), cfg)
+        data, next_values = _ppo_rollout(3, T=int(cfg.algo.rollout_steps))
+        data.pop("logprobs")
+        apply_deterministic_ops(True)
+        dev = next(agent.parameters()).device
+        return trainer.train_phase(_on({k: torch.from_numpy(v) for k, v in data.items()}, dev),
+                                   torch.from_numpy(next_values).to(dev))
+
+    def rppo():
+        trainers, cfg = _rppo_trainers(("gpu",))
+        trainer = trainers["gpu"]
+        seqs = _rppo_block(21)
+        perms = trainer.draw_permutations(seqs["mask"].shape[1], torch.Generator().manual_seed(22))
+        apply_deterministic_ops(True)
+        return trainer.train_phase(seqs, perms, 0.2, float(cfg.algo.ent_coef))
+
+    def anakin():
+        programs, cfg = _anakin_programs(kind, ("gpu",))
+        p = programs["gpu"]
+        g = torch.Generator(device=p.device).manual_seed(71)
+        env_state, obs = p.env.reset(g)
+        apply_deterministic_ops(True)
+        return p.step(env_state, obs, p.draw_inputs(g), 0.2, 0.0).losses
+
+    steps = {"sac": sac_family, "droq": sac_family, "sac_ae": sac_ae, "ppo": ppo, "a2c": a2c, "ppo_recurrent": rppo,
+             "ppo_anakin": anakin, "a2c_anakin": anakin}
+    try:
+        out = steps.get(kind, dreamer)()
+        enabled = torch.are_deterministic_algorithms_enabled()
+        torch.cuda.synchronize()
+        values = out.values() if isinstance(out, dict) else [out]
+        finite = all(bool(torch.isfinite(torch.as_tensor(v)).all()) for v in values)
+        res = {"ok": bool(enabled and finite), "deterministic": enabled, "finite": finite}
+    except RuntimeError as exc:
+        res = {"ok": False, "error": str(exc).splitlines()[0][:300]}
+    finally:
+        apply_deterministic_ops(False)
+    print(f"[chip-smoke] {kind} step with xla_deterministic_ops on: {json.dumps(res)}", flush=True)
+    return res
+
+
+def time_anakin(iters: int = 2) -> tuple:
+    """Env steps/s of the Anakin loop's iteration on the card, TF32 as the
+    config sets it: at ``exp=ppo_anakin`` (64 envs x 128 steps, 16 updates)
+    and at ``exp=ppo_anakin_benchmarks``' width (8192 envs x 128 steps =
+    1,048,576 rows, 64 minibatches of 16,384, 1 epoch); ``iters`` iterations
+    after a warm one, on the host's clock synchronised at both ends, with the
+    rollout/train split from the loop's CUDA events. Returns the timings and
+    the warm programs with their carries, for the profile."""
+    from sheeprl_tpu_torch.algos.ppo.anakin import PhaseClock
+
+    out, warm = {}, {}
+    for exp in ("ppo_anakin", "ppo_anakin_benchmarks"):
+        programs, cfg = _anakin_programs(exp, ("gpu",), precision=None)
+        p = programs["gpu"]
+        g = torch.Generator(device=p.device).manual_seed(81)
+        env_state, obs = p.env.reset(g)
+        clock = PhaseClock(p.device)
+        o = p.step(env_state, obs, p.draw_inputs(g), 0.2, 0.0)  # warm-up
+        env_state, obs = o.env_state, o.obs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            o = p.step(env_state, obs, p.draw_inputs(g), 0.2, 0.0, clock)
+            env_state, obs = o.env_state, o.obs
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rollout, train = clock.read()
+        steps = iters * p.num_rows
+        out[exp] = {"envs": p.num_envs, "steps_per_iter": p.num_rows, "updates_per_iter": p.updates_per_iter,
+                    "iterations": iters, "env_steps_per_s": steps / wall, "wall_s_per_iter": wall / iters,
+                    "rollout_s_per_iter": rollout / iters, "train_s_per_iter": train / iters,
+                    "peak_device_bytes": torch.cuda.max_memory_allocated()}
+        warm[exp] = (p, g, env_state, obs)
+    print(f"[chip-smoke] Anakin timing: {json.dumps(out)}", flush=True)
+    return out, warm
+
+
+def profile_anakin(warm: dict) -> dict:
+    """Under torch.profiler (last), one Anakin iteration at each timed width:
+    its device operations, device time and the card's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for exp, (p, g, env_state, obs) in warm.items():
+        inputs = p.draw_inputs(g)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            p.step(env_state, obs, inputs, 0.2, 0.0)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_kernel, count = {}, 0
+        for ev in device_events(prof):
+            by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+            count += 1
+        device_ms = sum(by_kernel.values())
+        out[exp] = {
+            "iteration_wall_ms": wall_ms,
+            "iteration_device_ms": device_ms if device_ms > 0 else None,
+            "device_busy_share": device_ms / wall_ms if device_ms > 0 else None,
+            "device_operations": count,
+            "top_device_ms": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8],
+        }
+    print(f"[chip-smoke] Anakin iteration profile: {json.dumps(out)}", flush=True)
+    return out
+
+
 # SAC on Pendulum-v1 at the exp's settings (hidden 256 for the actor and the
-# 2 critics, batch 256, replay ratio 1, learning_starts 100, 4 envs): 12,000
-# policy steps (3,000 iterations, ~12,000 gradient steps). On the CPU three
-# seeds' runs of 12,000 steps ended with test rewards of -3 to -122 and their
-# last episodes averaging -118 to -161 (-262 to -145 already at 6,000 steps);
-# random play scores about -1,200 and a solved policy about -150. The card's
+# 2 critics, batch 256, replay ratio 1, learning_starts 100, 4 envs): 6,000
+# policy steps (1,500 iterations, ~6,000 gradient steps), cut from 12,000 to
+# keep the whole smoke inside its time limit on a slow host. On the CPU
+# three seeds' runs of 12,000 steps ended with test rewards of -3 to -122,
+# and runs of 6,000 steps with -121, -3 and -120 (seeds 42, 1, 2); the card's
+# 12,000-step run averaged -142 over its episodes from step 5,000 to 10,000.
+# Random play scores about -1,200 and a solved policy about -150. The card's
 # float32 rounding takes another trajectory, so the bar sits well below the
 # CPU's results and well above random play
-SAC_TOTAL_STEPS = 12000
+SAC_TOTAL_STEPS = 6000
 SAC_STEPS_PER_ITER = 4
 SAC_RESUME_STEPS = 400  # 100 more iterations: 25 wait for learning_starts again, then training
 SAC_MIN_TEST_REWARD = -400.0
@@ -2681,7 +3154,7 @@ DROQ_TIMING_G = 20  # the per-phase critic updates of DroQ's replay ratio 20 at 
 
 def sac_path(out_dir: str) -> dict:
     """``exp=sac env.id=Pendulum-v1`` through the entry points on the card:
-    train 12,000 policy steps with the config's defaults (video warned,
+    train SAC_TOTAL_STEPS policy steps with the config's defaults (video warned,
     metric log, memmap buffer in the checkpoint), the test episode's reward
     over the bar; resume into version_1; evaluate. SAC reaches no TPU kernel:
     its launch counts are read to show that."""
@@ -3081,25 +3554,34 @@ def main() -> int:
     print(f"[chip-smoke] card: {card}; torch {torch.__version__} (CUDA {torch.version.cuda})", flush=True)
     device = torch.device("cuda", 0)
     torch.zeros(1, device=device)  # create the CUDA context before any library call
+    t_start = time.perf_counter()
+    stamps = {}
 
-    t0 = time.perf_counter()
+    def stamp(name: str) -> None:
+        """The seconds since the start at the end of a group of phases."""
+        stamps[name] = time.perf_counter() - t_start
+        print(f"[chip-smoke] {name} done at {stamps[name]:.1f}s", flush=True)
+
     paths = build(KERNELS)
-    print(f"[chip-smoke] built {len(paths)} kernel(s) in {time.perf_counter() - t0:.1f}s: "
+    print(f"[chip-smoke] built {len(paths)} kernel(s) in {time.perf_counter() - t_start:.1f}s: "
           f"{', '.join(p.name for p in paths.values())}", flush=True)
 
     gru = check_gru(device)
     gru_bf16 = check_gru(device, BF16)
+    stamp("phases 2-3")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         path = main_path(tmp)
         parity = serve_step_parity(path["ckpt"])
         train = train_path(tmp)
         train_parity = train_step_parity()
+        stamp("phases 4-5")
         # the serving planes: the first DV3 run's checkpoint (A) and the
         # resumed run's (B, the same run's version_1)
         ckpt_a, ckpt_b = (train[name]["summary"]["checkpoint"] for name in ("train", "resume"))
         planes = {"reload": reload_path(ckpt_a, ckpt_b, tmp), "torn_reload": torn_reload_path(ckpt_a, ckpt_b, tmp),
                   "swap": swap_parity(ckpt_a, ckpt_b, tmp), "supervisor": supervisor_path(path["ckpt"], tmp),
                   "telemetry_cost": telemetry_cost(path["ckpt"], tmp)}
+        stamp("phase 5a")
         # seconds per gradient step in float32, then in bf16, one after the other
         train_timing, warm = time_train_steps()
         bf16 = {}
@@ -3108,6 +3590,7 @@ def main() -> int:
         bf16["serve"] = serve_path_bf16(bf16["ckpt"], tmp)
         bf16["serve_parity"] = serve_step_parity(bf16["ckpt"], BF16_PRECISION)
         bf16["train_parity"] = train_step_parity(precision=BF16_PRECISION)
+        stamp("phase 5b")
         # the rest of the Dreamer-V3 family: Plan2Explore at the DOA++ widths
         # and Offline Dreamer at S, both bf16-mixed
         p2e = p2e_path(tmp)
@@ -3115,12 +3598,14 @@ def main() -> int:
         p2e["parity"] = family_step_parity("p2e")
         odv3["parity"] = family_step_parity("odv3")
         p2e["timing"], p2e_warm = time_family_steps("p2e")
+        stamp("phase 5c")
         # Dreamer-V2 and V1 in float32 at their exps' widths
         dv2, dv1 = dv_path("dreamer_v2", tmp), dv_path("dreamer_v1", tmp)
         dv2["parity"] = family_step_parity("dv2", actor_rtol=TRAIN_STEP_RTOL)
         dv1["parity"] = family_step_parity("dv1", actor_rtol=TRAIN_STEP_RTOL)
         dv2["timing"], dv2_warm = time_family_steps("dv2")
         dv1["timing"], dv1_warm = time_family_steps("dv1")
+        stamp("phase 5d")
         # Plan2Explore on Dreamer-V2 and V1, and SAC-AE, float32 at their exps' widths
         p2e_dv2, p2e_dv1, sac_ae = p2e_dv_path(2, tmp), p2e_dv_path(1, tmp), sac_ae_path(tmp)
         p2e_dv2["parity"] = family_step_parity("p2e_dv2", actor_rtol=TRAIN_STEP_RTOL)
@@ -3129,22 +3614,38 @@ def main() -> int:
         p2e_dv2["timing"], p2e_dv2_warm = time_family_steps("p2e_dv2")
         p2e_dv1["timing"], p2e_dv1_warm = time_family_steps("p2e_dv1")
         sac_ae["timing"], sac_ae_warm = time_sac_ae()
+        stamp("phase 5e")
         ppo = ppo_path(tmp)
         ppo["serve"] = ppo_serve_path(ppo["train"]["summary"]["checkpoint"], tmp)
         a2c = a2c_path(tmp)
         ppo["parity"] = ppo_train_phase_parity()
         a2c["rmsprop_parity"] = a2c_rmsprop_parity()
         ppo["timing"], ppo_warm = time_ppo()
+        stamp("phase 6")
         # recurrent PPO: train, resume, evaluate, serve; a phase and a serve step card vs CPU
         rppo = rppo_path(tmp)
         rppo["parity"] = rppo_parity()
         rppo["timing"], rppo_warm = time_rppo()
+        stamp("phase 6b")
+        # the on-policy Anakin topology: train, resume, evaluate, serve; the env
+        # step, the train phases and an iteration card vs CPU; host syncs; timing
+        anakin = anakin_path(tmp)
+        anakin["env_parity"] = anakin_env_parity()
+        anakin["train_parity"] = anakin_train_parity()
+        anakin["step_parity"] = anakin_step_parity()
+        anakin["syncs"] = anakin_syncs()
+        anakin["deterministic"] = {kind: deterministic_step(kind) for kind in ("ppo_anakin", "a2c_anakin")}
+        if not all(r["ok"] for r in anakin["deterministic"].values()):
+            raise AssertionError(f"an Anakin step failed with xla_deterministic_ops on: {anakin['deterministic']}")
+        anakin["timing"], anakin_warm = time_anakin()
+        stamp("phase 6c")
         sac = sac_path(tmp)
         sac["serve"] = sac_serve_path(sac["ckpt"], tmp)
         droq = droq_path(tmp)
         sac["parity"] = sac_train_phase_parity("sac")
         droq["parity"] = sac_train_phase_parity("droq")
         sac["timing"], sac_warm = time_sac()
+        stamp("phase 7")
         profile_gru(gru["rows"] + gru_bf16["rows"], device)
         profile = profile_ticks(path["ckpt"])
         train_timing["profile"] = profile_train_steps(warm)
@@ -3158,7 +3659,9 @@ def main() -> int:
         ppo["timing"]["profile"] = profile_ppo_train_phase(ppo_warm)
         rppo["timing"]["profile"] = profile_rppo_train_phase(rppo_warm)
         sac["timing"]["profile"] = profile_sac_train_phase(sac_warm)
-        del warm, warm_bf16, ppo_warm, rppo_warm, sac_warm, p2e_warm, dv2_warm, dv1_warm, p2e_dv2_warm, p2e_dv1_warm, sac_ae_warm
+        anakin["timing"]["profile"] = profile_anakin(anakin_warm)
+        stamp("phase 8")
+        del warm, warm_bf16, ppo_warm, rppo_warm, sac_warm, anakin_warm, p2e_warm, dv2_warm, dv1_warm, p2e_dv2_warm, p2e_dv1_warm, sac_ae_warm
 
     main_row = next(r for r in gru["rows"] if (r["preset"], r["B"], r["K"], r["H"]) == MAIN_SHAPE)
     train_rows = [r for r in gru["rows"] if (r["preset"], r["B"], r["K"], r["H"]) in TRAIN_SHAPES]
@@ -3186,6 +3689,11 @@ def main() -> int:
                 # recurrent PPO reaches no TPU kernel either (its cell is an LSTM)
                 **{f"rppo_{name}": rppo[name]["launches"][LN_GRU.name]
                    for name in ("train", "resume", "evaluation", "serve")},
+                # the Anakin topology reaches no TPU kernel either (its agent is an MLP)
+                **{f"ppo_anakin_{name}": anakin[name]["launches"][LN_GRU.name]
+                   for name in ("train", "resume", "evaluation", "serve")},
+                **{f"a2c_anakin_{name}": anakin[f"a2c_{name}"]["launches"][LN_GRU.name]
+                   for name in ("train", "resume", "evaluation")},
                 # SAC and DroQ reach no TPU kernel either
                 **{f"sac_{name}": sac[name]["launches"][LN_GRU.name]
                    for name in ("train", "resume", "evaluation", "serve")},
@@ -3257,7 +3765,8 @@ def main() -> int:
                  "gru_bf16": gru_bf16, "bf16": bf16, "serving_planes": planes,
                  "p2e": p2e, "odv3": odv3, "dv2": dv2, "dv1": dv1, "p2e_dv2": p2e_dv2, "p2e_dv1": p2e_dv1,
                  "sac_ae": sac_ae,
-                 "ppo": ppo, "rppo": rppo, "a2c": a2c, "sac": sac, "droq": droq, "kernels": kernels},
+                 "ppo": ppo, "rppo": rppo, "a2c": a2c, "anakin": anakin, "sac": sac, "droq": droq,
+                 "kernels": kernels, "phase_done_at_seconds": stamps},
                 f, indent=2,
             )
     print(json.dumps({"kernels": kernels}))

@@ -36,18 +36,36 @@ from sheeprl_tpu_torch.utils.utils import gae, normalize_tensor, polynomial_deca
 Batch = Dict[str, torch.Tensor]
 
 
-def build_optimizer(cfg, agent: PPOAgent, total_iters: int):
+def build_optimizer(cfg, agent: PPOAgent, total_iters: int, updates_per_iter: Optional[int] = None):
     """The optimizer of ``algo.optimizer`` over the agent's parameters, and the
     learning-rate schedule ``anneal_lr`` asks for (None otherwise): linear to 0
-    over every update of the run."""
-    num_minibatches = max(1, (cfg.algo.rollout_steps * cfg.env.num_envs) // cfg.algo.per_rank_batch_size)
+    over every update of the run, ``total_iters * updates_per_iter`` (PPO's
+    ``update_epochs`` x floor(rows / batch) updates an iteration by default,
+    as the JAX loop counts them)."""
+    if updates_per_iter is None:
+        num_minibatches = max(1, (cfg.algo.rollout_steps * cfg.env.num_envs) // cfg.algo.per_rank_batch_size)
+        updates_per_iter = cfg.algo.update_epochs * num_minibatches
     optimizer = instantiate(cfg.algo.optimizer, agent.parameters())
     schedule = None
-    if cfg.algo.anneal_lr:
-        schedule = linear_schedule(
-            float(cfg.algo.optimizer.lr), 0.0, total_iters * cfg.algo.update_epochs * num_minibatches
-        )
+    if cfg.algo.get("anneal_lr", False):
+        schedule = linear_schedule(float(cfg.algo.optimizer.lr), 0.0, total_iters * updates_per_iter)
     return optimizer, schedule
+
+
+def apply_update(optimizer: torch.optim.Optimizer, params: Sequence[torch.nn.Parameter], grads: Sequence[torch.Tensor],
+                 max_grad_norm: float, schedule=None) -> None:
+    """One optimizer update from ``grads`` (in parameter order): the global
+    norm clip (when ``max_grad_norm`` > 0), the scheduled learning rate, the
+    step."""
+    for p, g in zip(params, grads):
+        p.grad = g
+    if max_grad_norm > 0:
+        clip_grad_global_norm_(params, max_grad_norm)
+    if schedule is not None:
+        set_scheduled_lr(optimizer, schedule)
+    optimizer.step()
+    for p in params:
+        p.grad = None
 
 
 class PPOTrainer:
@@ -94,17 +112,7 @@ class PPOTrainer:
         self.apply(torch.autograd.grad(loss, self.params))
 
     def apply(self, grads: Sequence[torch.Tensor]) -> None:
-        """One optimizer update from ``grads`` (in parameter order): the global
-        norm clip, the scheduled learning rate, the step."""
-        for p, g in zip(self.params, grads):
-            p.grad = g
-        if self.max_grad_norm > 0:
-            clip_grad_global_norm_(self.params, self.max_grad_norm)
-        if self.schedule is not None:
-            set_scheduled_lr(self.optimizer, self.schedule)
-        self.optimizer.step()
-        for p in self.params:
-            p.grad = None
+        apply_update(self.optimizer, self.params, grads, self.max_grad_norm, self.schedule)
 
     def train_phase(
         self, data: Batch, next_values: torch.Tensor, perms: Sequence[torch.Tensor], clip_coef: float, ent_coef: float

@@ -107,7 +107,8 @@ def unported_settings(cfg) -> List[str]:
         ) >= 2,
         # the thread samples ahead for the replay loops; the on-policy loops do not read the key
         "buffer.prefetch.enabled (the prefetch thread)": bool((buffer.get("prefetch") or {}).get("enabled"))
-        and str((cfg.get("algo") or {}).get("name", "")) not in ("ppo", "a2c", "ppo_recurrent"),
+        and str((cfg.get("algo") or {}).get("name", "")) not in ("ppo", "a2c", "ppo_recurrent", "ppo_anakin",
+                                                                  "a2c_anakin"),
         "buffer.backend other than local": str(buffer.get("backend", "local")) != "local",
         "checkpoint.backend other than pickle": str(checkpoint.get("backend", "pickle")) != "pickle",
         "checkpoint.async_save": bool(checkpoint.get("async_save")),
@@ -155,6 +156,7 @@ def _fabric(cfg):
         accelerator=cfg.fabric.get("accelerator", "auto"),
         precision=cfg.fabric.get("precision", "32-true"),
         float32_matmul_precision=cfg.get("float32_matmul_precision", "high"),
+        deterministic_ops=bool(cfg.get("xla_deterministic_ops", False)),
     )
 
 
@@ -260,8 +262,9 @@ def run(args: Optional[Sequence[str]] = None) -> Any:
 
 def evaluation(args: Optional[Sequence[str]] = None) -> Any:
     """``python -m sheeprl_tpu_torch evaluation checkpoint_path=... [overrides]``:
-    ``seed``, ``fabric.accelerator`` and ``env.capture_video`` are taken from
-    the command line, everything else from the checkpoint's config.yaml.
+    ``seed``, ``fabric.accelerator``, ``env.capture_video`` and
+    ``xla_deterministic_ops`` are taken from the command line, everything else
+    from the checkpoint's config.yaml.
     Returns the test episode's reward."""
     import yaml
 
@@ -285,6 +288,8 @@ def evaluation(args: Optional[Sequence[str]] = None) -> Any:
     base["seed"] = int(kv.get("seed", base.get("seed", 42)))
     if "fabric.accelerator" in kv:
         base["fabric"]["accelerator"] = kv["fabric.accelerator"]
+    if "xla_deterministic_ops" in kv:
+        base["xla_deterministic_ops"] = bool(yaml.safe_load(kv["xla_deterministic_ops"]))
     cfg = dotdict(base)
     if cfg.get("float32_matmul_precision", "high") not in ("default", "high", "highest", "medium"):
         raise ValueError(f"float32_matmul_precision={cfg.float32_matmul_precision!r} is not a torch setting")

@@ -39,11 +39,22 @@ value              torch.backends.cuda.matmul.allow_tf32  torch.backends.cudnn.a
 TF32 keeps about three decimal digits of a float32 product. It reaches the
 cuBLAS matmuls and cuDNN convolutions of the encoders and heads; the
 LayerNorm-GRU kernel computes in full float32 whatever the setting.
+
+``xla_deterministic_ops`` (the root config key; the JAX package adds
+``--xla_gpu_deterministic_ops=true`` to ``XLA_FLAGS`` for it) maps onto
+PyTorch's deterministic mode, also for the whole process:
+``torch.use_deterministic_algorithms``, ``torch.backends.cudnn.deterministic``
+and, when on, ``torch.backends.cudnn.benchmark = False`` and
+``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (cuBLAS reads it when the process makes
+its first cuBLAS call, so a run sets it through its Fabric before that). An
+op with no deterministic kernel then raises instead of running.
 """
 
 from __future__ import annotations
 
+import os
 import random
+
 import numpy as np
 import torch
 
@@ -64,6 +75,29 @@ def apply_matmul_precision(value: str) -> None:
     torch.backends.cudnn.allow_tf32 = tf32
 
 
+# set when apply_deterministic_ops put CUBLAS_WORKSPACE_CONFIG into the
+# environment, so that turning the mode off takes it out again
+_workspace_set_here = False
+
+
+def apply_deterministic_ops(on: bool) -> None:
+    """Set PyTorch's deterministic mode from an ``xla_deterministic_ops`` value.
+    Off, it removes the ``CUBLAS_WORKSPACE_CONFIG`` it set when on (a value the
+    process was started with stays)."""
+    global _workspace_set_here
+    on = bool(on)
+    if on:
+        if "CUBLAS_WORKSPACE_CONFIG" not in os.environ:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+            _workspace_set_here = True
+        torch.backends.cudnn.benchmark = False
+    elif _workspace_set_here:
+        os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        _workspace_set_here = False
+    torch.use_deterministic_algorithms(on)
+    torch.backends.cudnn.deterministic = on
+
+
 class Fabric:
     def __init__(
         self,
@@ -73,6 +107,7 @@ class Fabric:
         accelerator: str = "auto",
         precision: str = "32-true",
         float32_matmul_precision: str = "high",
+        deterministic_ops: bool = False,
         **_: object,
     ) -> None:
         if int(devices) != 1 or int(num_nodes) != 1:
@@ -102,6 +137,8 @@ class Fabric:
         self.precision = precision
         self.float32_matmul_precision = str(float32_matmul_precision)
         apply_matmul_precision(self.float32_matmul_precision)
+        self.deterministic_ops = bool(deterministic_ops)
+        apply_deterministic_ops(self.deterministic_ops)
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
             if self.compute_dtype == torch.bfloat16:

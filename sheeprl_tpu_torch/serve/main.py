@@ -354,6 +354,7 @@ def serve_main(args: Optional[Sequence[str]] = None) -> int:
         accelerator=cfg.fabric.get("accelerator", "auto"),
         precision=cfg.fabric.get("precision", "32-true"),
         float32_matmul_precision=cfg.get("float32_matmul_precision", "high"),
+        deterministic_ops=bool(cfg.get("xla_deterministic_ops", False)),
     )
     fabric.seed_everything(int(cfg.seed))
 

@@ -1,5 +1,7 @@
 """Environment factory (port of ``sheeprl_tpu/utils/env.py::make_env`` for the
-environments the port supports: the dummy envs and ``CartPole-v1``).
+environments the port supports: the dummy envs, ``CartPole-v1`` and
+``Pendulum-v1``, and with ``env.backend=jax`` the device env plane's ids
+through its gym-style adapter).
 
 The pipeline is the JAX package's: instantiate ``cfg.env.wrapper``, action
 repeat, velocity masking, a vector observation as a one-key dict,
@@ -120,14 +122,27 @@ def make_env(
 
     def thunk() -> Any:
         backend = str(cfg.env.get("backend", "host") or "host").lower()
-        if backend != "host":
-            raise _not_ported(f"env.backend={backend}")
-        instantiate_kwargs = {}
-        if "seed" in cfg.env.wrapper:
-            instantiate_kwargs["seed"] = seed
-        if "rank" in cfg.env.wrapper:
-            instantiate_kwargs["rank"] = rank + vector_env_idx
-        env = instantiate(cfg.env.wrapper, **instantiate_kwargs)
+        if backend == "jax":
+            # the device env plane (envs/device) behind the same factory: one
+            # instance stepped on the CPU, so every wrapper below stacks on it;
+            # the adapter applies the id's step budget only where the config
+            # installs no TimeLimit of its own further down
+            from sheeprl_tpu_torch.envs.device import DeviceToGymEnv
+
+            env = DeviceToGymEnv(
+                str(cfg.env.id),
+                seed=seed if seed is not None else 0,
+                apply_default_time_limit=not (cfg.env.max_episode_steps and cfg.env.max_episode_steps > 0),
+            )
+        elif backend != "host":
+            raise ValueError(f"unknown env.backend {backend!r}; choose host or jax")
+        else:
+            instantiate_kwargs = {}
+            if "seed" in cfg.env.wrapper:
+                instantiate_kwargs["seed"] = seed
+            if "rank" in cfg.env.wrapper:
+                instantiate_kwargs["rank"] = rank + vector_env_idx
+            env = instantiate(cfg.env.wrapper, **instantiate_kwargs)
 
         if cfg.env.action_repeat > 1:
             env = ActionRepeat(env, cfg.env.action_repeat)

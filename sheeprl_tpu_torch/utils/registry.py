@@ -33,6 +33,8 @@ ALGORITHMS: Dict[str, Tuple[str, str]] = {
     "p2e_dv2_finetuning": (f"{_P2E_DV2}.p2e_dv2_finetuning", "main"),
     "ppo": ("sheeprl_tpu_torch.algos.ppo.ppo", "main"),
     "a2c": ("sheeprl_tpu_torch.algos.a2c.a2c", "main"),
+    "ppo_anakin": ("sheeprl_tpu_torch.algos.ppo.ppo_anakin", "main"),
+    "a2c_anakin": ("sheeprl_tpu_torch.algos.a2c.a2c_anakin", "main"),
     "ppo_recurrent": ("sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent", "main"),
     "sac": ("sheeprl_tpu_torch.algos.sac.sac", "main"),
     "droq": ("sheeprl_tpu_torch.algos.droq.droq", "main"),
@@ -52,6 +54,9 @@ EVALUATIONS: Dict[str, Tuple[str, str]] = {
     **{name: (f"{_P2E_DV2}.evaluate", "evaluate") for name in ("p2e_dv2_exploration", "p2e_dv2_finetuning")},
     "ppo": ("sheeprl_tpu_torch.algos.ppo.evaluate", "evaluate"),
     "a2c": ("sheeprl_tpu_torch.algos.ppo.evaluate", "evaluate"),
+    # the Anakin checkpoints hold the PPO agent
+    "ppo_anakin": ("sheeprl_tpu_torch.algos.ppo.evaluate", "evaluate"),
+    "a2c_anakin": ("sheeprl_tpu_torch.algos.ppo.evaluate", "evaluate"),
     "ppo_recurrent": ("sheeprl_tpu_torch.algos.ppo_recurrent.evaluate", "evaluate"),
     "sac": ("sheeprl_tpu_torch.algos.sac.evaluate", "evaluate"),
     "droq": ("sheeprl_tpu_torch.algos.droq.evaluate", "evaluate"),
@@ -62,8 +67,9 @@ SERVE_POLICIES: Dict[str, Tuple[str, str]] = {
     **{name: (f"{_DV3}.serve", "get_serve_policy") for name in _DV3_NAMES},
     "dreamer_v2": (f"{_DV2}.serve", "get_serve_policy"),
     "dreamer_v1": (f"{_DV1}.serve", "get_serve_policy"),
-    # A2C checkpoints hold the PPO agent
-    **{name: ("sheeprl_tpu_torch.algos.ppo.serve", "get_serve_policy") for name in ("ppo", "a2c")},
+    # A2C and the Anakin checkpoints hold the PPO agent
+    **{name: ("sheeprl_tpu_torch.algos.ppo.serve", "get_serve_policy")
+       for name in ("ppo", "a2c", "ppo_anakin", "a2c_anakin")},
     "ppo_recurrent": ("sheeprl_tpu_torch.algos.ppo_recurrent.serve", "get_serve_policy"),
     "sac": ("sheeprl_tpu_torch.algos.sac.serve", "get_serve_policy"),
     "droq": ("sheeprl_tpu_torch.algos.sac.serve", "get_serve_policy_droq"),

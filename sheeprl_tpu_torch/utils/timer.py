@@ -14,6 +14,8 @@ Dreamer-V3's ``Time/train_time``, the host copy of the step's metrics in
 updated weights into the host-side acting agent at the end of the train
 phase (the JAX loops block on the same copy, ``ActPlacement.view``).
 ``Time/env_interaction_time`` holds host work only (acting runs on the host).
+The Anakin loop's ``Time/rollout_time`` and ``Time/train_time`` are the card's
+own spans, read from CUDA events and counted with :meth:`timer.add`.
 """
 
 from __future__ import annotations
@@ -55,6 +57,13 @@ class timer(ContextDecorator):
             self._count += 1
             self._start = None
         return False
+
+    def add(self, seconds: float) -> None:
+        """Count a span measured elsewhere (the Anakin loop times its phases
+        with CUDA events)."""
+        if not timer.disabled:
+            self._total += float(seconds)
+            self._count += 1
 
     def compute(self) -> float:
         return self._total
