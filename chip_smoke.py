@@ -150,6 +150,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
    an evaluation). Then one SAC and one DroQ train phase on the card vs the
    CPU (TF32 off), the seconds per SAC gradient step and per DroQ train
    phase (G = 20) and the ms of one host acting step;
+7b. the off-policy Anakin topology (envs and replay ring on the card):
+   ``exp=sac_anakin`` (Pendulum-v1, 64 envs x 64 steps, hidden 256, batch
+   256, G = 256 gradient steps an iteration, a ring of 4096 rows x 64 envs)
+   through the entry points for 98,304 policy steps with the metric log and
+   the test episode (its reward must reach -400), the checkpoint's ring twin
+   at the iterations' cursor, a resume into version_1 for two more
+   iterations; no LN-GRU launch. The host syncs of one iteration by part (0
+   in the rollout, the ring write, the ring sample and the G steps). Card vs
+   CPU with TF32 off: (a) the ring's write and sample at the exp's shape
+   (65,536 draws of 262,144 slots), bitwise; (b) one iteration at 16 envs x
+   16 steps, G = 4 (SAC's train-phase bars); (c) one at the exp's shape (a
+   finding). One iteration with ``xla_deterministic_ops`` on; seconds per
+   iteration and env steps/s at ``exp=sac_anakin`` and at
+   ``exp=sac_anakin_benchmarks`` (512 envs x 64 steps, G = 8), with the
+   rollout/ring/train split;
 8. the profiles, under torch.profiler and only now (once it has run, later
    eager launches cost more host time): each phase-3 shape's device time by
    kernel name, with its kernel launches per call counted in a captured CUDA
@@ -159,7 +174,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    DV2 step at 16 x 50 and a DV1 step at 50 x 50 in float32; a P2E-DV2
    step at 16 x 50, a P2E-DV1 step at 50 x 50 and a SAC-AE train phase of 4
    steps at batch 128; a PPO, a recurrent PPO and a SAC train phase and an
-   Anakin iteration at both timed widths (busy share, device operations);
+   Anakin iteration at both timed widths (busy share, device operations); a
+   SAC Anakin iteration at both timed widths, whole and by part;
 9. print the ``kernels`` JSON line, the card line, and the final result line.
 
 The training phase launches with the config's defaults for video capture
@@ -3032,8 +3048,16 @@ def deterministic_step(kind: str) -> dict:
         apply_deterministic_ops(True)
         return p.step(env_state, obs, p.draw_inputs(g), 0.2, 0.0).losses
 
+    def sac_anakin():
+        programs, _ = _sac_anakin_programs("sac_anakin", ("gpu",), overrides=SAC_ANAKIN_SMALL)
+        p, ring = programs["gpu"]
+        g = torch.Generator(device=p.device).manual_seed(131)
+        env_state, obs = p.env.reset(g)
+        apply_deterministic_ops(True)
+        return p.step(env_state, obs, ring, p.draw_inputs(g), 1).losses
+
     steps = {"sac": sac_family, "droq": sac_family, "sac_ae": sac_ae, "ppo": ppo, "a2c": a2c, "ppo_recurrent": rppo,
-             "ppo_anakin": anakin, "a2c_anakin": anakin}
+             "ppo_anakin": anakin, "a2c_anakin": anakin, "sac_anakin": sac_anakin}
     try:
         out = steps.get(kind, dreamer)()
         enabled = torch.are_deterministic_algorithms_enabled()
@@ -3429,6 +3453,361 @@ def profile_sac_train_phase(warm: tuple) -> dict:
     return out
 
 
+# -- the off-policy Anakin topology (phase 7b) ----------------------------------------------
+# exp=sac_anakin at the exp's widths: Pendulum-v1, 64 envs x 64 steps, hidden
+# 256, batch 256, G = 256 gradient steps an iteration, a ring of 4096 rows x 64
+# envs (buffer.size 262,144). Cut from the exp's 262,144 policy steps (64
+# iterations) to 98,304 (24 iterations, 6,144 gradient steps), to keep the
+# smoke inside its time limit. On the CPU (sac_anakin_step_cut.py, seeds 42 and
+# 1-5) every seed's greedy test reached -400 at every checkpoint from 90,112
+# steps to 131,072 (the worst -347.6); before that, seed 2's fell back to -916
+# at 81,920 after passing at 49,152 and 73,728 (PERF.md §4). The bar is phase 7's
+SAC_ANAKIN_TOTAL_STEPS = 98304
+SAC_ANAKIN_STEPS_PER_ITER = 64 * 64
+SAC_ANAKIN_GRAD_STEPS = 256
+SAC_ANAKIN_RING_ROWS = 4096
+SAC_ANAKIN_RESUME_ITERS = 2
+SAC_ANAKIN_TAGS = ("Loss/value_loss", "Loss/policy_loss", "Loss/alpha_loss", "Rewards/rew_avg",
+                   "Time/sps_env_interaction")
+# (b)'s small shape at the exp's widths: 16 envs x 16 steps, G = 4 (as
+# sac_train_phase_parity's), a ring of 256 rows; episodes truncated at 10
+# steps, so that the iteration ends some
+SAC_ANAKIN_SMALL = ("env.num_envs=16", "algo.rollout_steps=16", "algo.replay_ratio=0.015625", "buffer.size=4096",
+                    "env.max_episode_steps=10")
+
+
+def _sac_anakin_programs(exp: str, devices, precision: str = "highest", overrides=(), scale_heads: bool = True):
+    """The exp's SAC Anakin program and an empty ring on each device, the same
+    weights from the exp's seed (the actor's heads scaled by 0.1 for the
+    parity phases, as in ``_sac_trainers``); and the cfg. ``precision`` None
+    takes the config's ``float32_matmul_precision``."""
+    from sheeprl_tpu_torch.algos.sac.agent import build_agent
+    from sheeprl_tpu_torch.algos.sac.anakin import SACAnakinProgram, ring_row_specs
+    from sheeprl_tpu_torch.algos.sac.sac import SACTrainer, build_optimizers
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.data.device_ring import ring_capacity, ring_init
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.envs.device import make_device_env
+    from sheeprl_tpu_torch.parallel.fabric import Fabric
+
+    cfg = compose([f"exp={exp}", *overrides])
+    E, T = int(cfg.env.num_envs), int(cfg.algo.rollout_steps)
+    capacity = ring_capacity(int(cfg.buffer.size), E)
+    programs = {}
+    for accel in devices:
+        fabric = Fabric(accelerator=accel, float32_matmul_precision=precision or cfg.float32_matmul_precision)
+        env = make_device_env(cfg, E, fabric.device)
+        spec = env.spec
+        agent = build_agent(fabric, cfg, spaces.Dict({"state": spec.to_obs_space()}), spec.action.to_space(), cfg.seed)
+        if scale_heads:
+            with torch.no_grad():
+                agent.actor.fc_mean.weight.mul_(0.1)
+                agent.actor.fc_logstd.weight.mul_(0.1)
+        trainer = SACTrainer(agent, build_optimizers(cfg, agent), cfg, -1.0, T * E)
+        program = SACAnakinProgram(trainer, env, cfg, int(cfg.algo.per_rank_batch_size))
+        programs[accel] = (program, ring_init(capacity, E, ring_row_specs(3, 1), fabric.device))
+    return programs, cfg
+
+
+def sac_anakin_path(out_dir: str) -> dict:
+    """``exp=sac_anakin`` through the entry points on the card:
+    SAC_ANAKIN_TOTAL_STEPS policy steps with the metric log and the test
+    episode (its reward must reach SAC_MIN_TEST_REWARD), the checkpoint's ring
+    twin at the cursor and fill of the iterations run, and a resume into
+    version_1 for two more iterations with the ring. The JAX package
+    registers no evaluation or serving for sac_anakin, so there is none. The
+    path reaches no TPU kernel: the launch counts are read to show that."""
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
+
+    out = {}
+    overrides = ["exp=sac_anakin", f"hydra.run.dir={os.path.join(out_dir, 'sac_anakin')}"]
+    _zero_launches()
+    first = run(overrides + [f"algo.total_steps={SAC_ANAKIN_TOTAL_STEPS}"])
+    out["train"] = {"summary": first, "launches": _launches()}
+    scalars = check_scalars("sac_anakin first run", first["log_dir"], SAC_ANAKIN_TAGS)
+    out["train"]["scalars"] = {t: scalars[t][-1] for t in SAC_ANAKIN_TAGS}
+    out["train"]["rew_avg_curve"] = scalars["Rewards/rew_avg"]
+    phase_s = first["rollout_seconds"] + first["ring_seconds"] + first["train_seconds"]
+    out["env_steps_per_s_in_the_loop"] = first["policy_steps"] / phase_s
+    out["seconds_per_gradient_step_in_the_loop"] = first["train_seconds"] / first["gradient_steps"]
+    print(f"[chip-smoke] sac_anakin first run: {first['iterations']} iterations of {first['grad_steps_per_iter']} "
+          f"gradient steps, {first['policy_steps']} policy steps in {first['wall_seconds']:.2f}s (rollout "
+          f"{first['rollout_seconds']:.2f}s, ring {first['ring_seconds']:.2f}s, train {first['train_seconds']:.2f}s "
+          f"on the card's clock: {out['env_steps_per_s_in_the_loop']:.0f} env steps/s); test reward "
+          f"{first['test_reward']} (bar >= {SAC_MIN_TEST_REWARD}); losses {json.dumps(first['metrics'])}; "
+          f"Rewards/rew_avg {[(s, round(v, 1)) for s, v in scalars['Rewards/rew_avg']]}", flush=True)
+    iterations = SAC_ANAKIN_TOTAL_STEPS // SAC_ANAKIN_STEPS_PER_ITER
+    if first["iterations"] != iterations or first["grad_steps_per_iter"] != SAC_ANAKIN_GRAD_STEPS:
+        raise AssertionError(f"sac_anakin took {first['iterations']} iterations of {first['grad_steps_per_iter']} steps")
+    if not all(math.isfinite(v) for v in first["metrics"].values()):
+        raise AssertionError(f"sac_anakin: non-finite losses {first['metrics']}")
+    if not (first["test_reward"] is not None and first["test_reward"] >= SAC_MIN_TEST_REWARD):
+        raise AssertionError(f"sac_anakin: test reward {first['test_reward']} < {SAC_MIN_TEST_REWARD}")
+    # the ring's twin in the last checkpoint: 64 rows an iteration
+    rb = load_checkpoint(first["checkpoint"])["rb"]
+    rows = iterations * 64
+    twin = {"pos": rb._pos, "full": rb.full, "rows": rb.buffer_size, "envs": rb.n_envs}
+    out["train"]["twin"] = twin
+    expected = {"pos": rows % SAC_ANAKIN_RING_ROWS, "full": rows >= SAC_ANAKIN_RING_ROWS,
+                "rows": SAC_ANAKIN_RING_ROWS, "envs": 64}
+    if twin != expected or (first["ring_pos"], first["ring_fill"]) != (rows % SAC_ANAKIN_RING_ROWS,
+                                                                       min(rows, SAC_ANAKIN_RING_ROWS)):
+        raise AssertionError(f"sac_anakin: the checkpoint's ring twin {twin} != {expected}, ring {first['ring_pos']}, "
+                             f"{first['ring_fill']}")
+    _zero_launches()
+    resumed = run(overrides + [
+        f"algo.total_steps={SAC_ANAKIN_TOTAL_STEPS + SAC_ANAKIN_RESUME_ITERS * SAC_ANAKIN_STEPS_PER_ITER}",
+        f"checkpoint.resume_from={first['checkpoint']}"])
+    out["resume"] = {"summary": resumed, "launches": _launches()}
+    rows += SAC_ANAKIN_RESUME_ITERS * 64
+    print(f"[chip-smoke] sac_anakin resumed run: {resumed['iterations']} iterations into {resumed['log_dir']}, ring "
+          f"at {resumed['ring_pos']} (fill {resumed['ring_fill']}), test reward {resumed['test_reward']}, losses "
+          f"{json.dumps(resumed['metrics'])}", flush=True)
+    if not (resumed["log_dir"].endswith("version_1") and resumed["iterations"] == SAC_ANAKIN_RESUME_ITERS
+            and resumed["ring_pos"] == rows % SAC_ANAKIN_RING_ROWS
+            and all(math.isfinite(v) for v in resumed["metrics"].values())):
+        raise AssertionError(f"sac_anakin resume: {resumed}")
+    stray = {name: out[name]["launches"] for name in ("train", "resume") if any(out[name]["launches"].values())}
+    if stray:
+        raise AssertionError(f"the sac_anakin path launched a kernel it does not reach: {stray}")
+    return out
+
+
+def sac_anakin_ring_parity() -> dict:
+    """(a) the ring's write and sample at the exp's shape on the card vs on the
+    CPU: 64-row blocks of 64 envs written into a ring of 4096 rows x 64 envs
+    (262,144 slots), then 65,536 draws (G x batch) from the same round keys,
+    on the fill ramp (3 blocks) and after a wrap (71 blocks). Every row
+    carries its own slot number, so equal draws mean equal indices; the rings,
+    cursors, fills and draws must be bitwise equal. Also the card's ms of one
+    write and of one sample (CUDA events, 20 calls)."""
+    from sheeprl_tpu_torch.algos.sac.anakin import ring_row_specs
+    from sheeprl_tpu_torch.data.device_ring import ring_init, ring_sample, ring_write
+    from sheeprl_tpu_torch.utils.prp import draw_round_keys
+
+    T, E, B, G = 64, 64, 256, SAC_ANAKIN_GRAD_STEPS
+    specs = {**ring_row_specs(3, 1), "slot": ((1,), torch.float32)}
+    devices = {"card": "cuda", "cpu": "cpu"}
+    rings = {side: ring_init(SAC_ANAKIN_RING_ROWS, E, specs, dev) for side, dev in devices.items()}
+    rng = np.random.default_rng(91)
+    g = torch.Generator().manual_seed(92)
+    res, written = {}, 0
+    for label, blocks in (("fill_ramp", 3), ("wrapped", 68)):
+        for _ in range(blocks):
+            rows = {k: torch.from_numpy(rng.standard_normal((T, E, *shape)).astype(np.float32))
+                    for k, (shape, _) in ring_row_specs(3, 1).items()}
+            # the slot numbers stay below 2^24, exact in float32
+            rows["slot"] = torch.arange(written * E, (written + T) * E, dtype=torch.float32).reshape(T, E, 1)
+            written += T
+            for side, ring in rings.items():
+                ring_write(ring, {k: v.to(devices[side]) for k, v in rows.items()})
+        keys = draw_round_keys(1, g, "cpu")[0]
+        draws = {side: ring_sample(ring, keys.to(devices[side]), B, G) for side, ring in rings.items()}
+        slots = draws["cpu"]["slot"].reshape(-1)
+        res[label] = {
+            "rows_written": written, "pos": rings["card"]["pos"], "fill": rings["card"]["fill"],
+            "ring_equal": all(torch.equal(rings["card"]["data"][k].cpu(), rings["cpu"]["data"][k]) for k in specs)
+            and (rings["card"]["pos"], rings["card"]["fill"]) == (rings["cpu"]["pos"], rings["cpu"]["fill"]),
+            "indices_equal": torch.equal(draws["card"]["slot"].cpu(), draws["cpu"]["slot"]),
+            "draws_equal": all(torch.equal(draws["card"][k].cpu(), draws["cpu"][k]) for k in specs),
+            "draws": int(slots.numel()), "distinct_slots": int(torch.unique(slots).numel()),
+            "oldest_slot_drawn": float(slots.min()), "newest_slot_drawn": float(slots.max()),
+        }
+    ring = rings["card"]
+    rows = {k: v.to(devices["card"]) for k, v in rows.items()}
+    keys = keys.to(devices["card"])
+    timing = {}
+    for name, fn in (("write", lambda: ring_write(ring, rows)), ("sample", lambda: ring_sample(ring, keys, B, G))):
+        fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            fn()
+        end.record()
+        end.synchronize()
+        timing[f"{name}_ms"] = start.elapsed_time(end) / 20
+    res["card_timing"] = timing
+    print(f"[chip-smoke] device ring card vs CPU (4096 rows x 64 envs, {B * G} draws): {json.dumps(res)} "
+          "(bar: bitwise equal)", flush=True)
+    for label in ("fill_ramp", "wrapped"):
+        r = res[label]
+        if not (r["ring_equal"] and r["indices_equal"] and r["draws_equal"]):
+            raise AssertionError(f"the device ring on the card disagrees with the CPU ({label}): {r}")
+    return res
+
+
+def sac_anakin_step_parity(overrides=SAC_ANAKIN_SMALL, gate: bool = True) -> dict:
+    """One whole SAC Anakin iteration (rollout, ring write and sample, G
+    gradient steps) on the card vs on the CPU (TF32 off), from the same
+    weights (the actor's heads scaled by 0.1), env state, empty ring and
+    draws. (b) at SAC_ANAKIN_SMALL's shape, within SAC's train-phase bars
+    (the mean losses within SAC_LOSS_RTOL relative, every parameter within
+    SAC_PARAM_ATOL); (c) with no overrides, at the exp's shape, a finding:
+    where the rollouts part (the largest action gap by step) and the gaps
+    after the G steps."""
+    programs, cfg = _sac_anakin_programs("sac_anakin", ("gpu", "cpu"), overrides=overrides)
+    cpu = programs["cpu"][0]
+    g = torch.Generator().manual_seed(101)
+    inputs = cpu.draw_inputs(g)
+    env_state, obs = cpu.env.reset(g)
+    outs = {accel: p.step(_on(env_state, p.device), obs.to(p.device), ring, _on(inputs, p.device), 1)
+            for accel, (p, ring) in programs.items()}
+    card, host = outs["gpu"], outs["cpu"]
+    action_gap = (card.traj["actions"].cpu() - host.traj["actions"]).abs().flatten(1).max(dim=1).values
+    T = int(cfg.algo.rollout_steps)
+    res = {
+        "envs": cpu.num_envs, "steps": T, "grad_steps": cpu.grad_steps, "batch": cpu.batch_size,
+        "action_max_abs_gap_at_step": {str(t): float(action_gap[t]) for t in sorted({0, T // 4, T // 2, T - 1})},
+        "ring_max_abs_gap": max(float((card.ring["data"][k].cpu() - host.ring["data"][k]).abs().max())
+                                for k in host.ring["data"]),
+        "flags_equal": all(torch.equal(card.traj[k].cpu(), host.traj[k]) for k in ("terminated", "truncated")),
+        "batch_max_abs_gap": max(float((card.batch[k].cpu() - host.batch[k]).abs().max()) for k in host.batch),
+        "ep_stats_card": card.ep_stats.tolist(), "ep_stats_cpu": host.ep_stats.tolist(),
+        "losses_rel_gap": float(((card.losses.cpu() - host.losses).abs() / host.losses.abs().clamp_min(1e-3)).max()),
+        "param_max_abs_gap": max(float((a.detach().cpu() - b.detach()).abs().max())
+                                 for a, b in zip(programs["gpu"][0].trainer.agent.parameters(),
+                                                 cpu.trainer.agent.parameters())),
+        "card": card.losses.tolist(), "cpu": host.losses.tolist(),
+    }
+    what = "(b), bars: losses {} relative, every parameter {}".format(SAC_LOSS_RTOL, SAC_PARAM_ATOL) if gate \
+        else "(c), a finding"
+    print(f"[chip-smoke] sac_anakin iteration card vs CPU (TF32 off) {what}: {json.dumps(res)}", flush=True)
+    if gate and not (res["losses_rel_gap"] <= SAC_LOSS_RTOL and res["param_max_abs_gap"] <= SAC_PARAM_ATOL
+                     and res["flags_equal"]):
+        raise AssertionError(f"the sac_anakin iteration on the card disagrees with the CPU: {res}")
+    return res
+
+
+def sac_anakin_syncs() -> dict:
+    """Host syncs of one ``exp=sac_anakin`` iteration on the card by part,
+    counted under ``torch.cuda.set_sync_debug_mode('warn')`` after a warm
+    iteration: the draws, the rollout, the ring write, the ring sample and
+    the G gradient steps (the bar is 0 in all but the draws)."""
+    import warnings
+
+    from sheeprl_tpu_torch.data.device_ring import ring_sample, ring_write
+
+    programs, _ = _sac_anakin_programs("sac_anakin", ("gpu",), precision=None, scale_heads=False)
+    p, ring = programs["gpu"]
+    g = torch.Generator(device=p.device).manual_seed(111)
+    env_state, obs = p.env.reset(g)
+    out = p.step(env_state, obs, ring, p.draw_inputs(g), 1)
+    env_state, obs = out.env_state, out.obs
+    torch.cuda.synchronize()
+    counts = {}
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        def count(name, fn):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                result = fn()
+            counts[name] = sum("synchroniz" in str(w.message) for w in caught)
+            return result
+
+        inputs = count("draws", lambda: p.draw_inputs(g))
+        env_state, obs, traj, _ = count("rollout", lambda: p.rollout(env_state, obs, inputs["noise"],
+                                                                     inputs["resets"]))
+        count("ring_write", lambda: ring_write(ring, traj))
+        batch = count("ring_sample", lambda: ring_sample(ring, inputs["round_keys"], p.batch_size, p.grad_steps))
+        count("train", lambda: p.trainer.train_phase(batch, 2, inputs["train"]))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"[chip-smoke] sac_anakin host syncs in one iteration: {json.dumps(counts)} (bar: 0 in the rollout, the "
+          "ring write, the ring sample and the train phase)", flush=True)
+    if any(counts[k] for k in ("rollout", "ring_write", "ring_sample", "train")):
+        raise AssertionError(f"the sac_anakin iteration synchronised with the host: {counts}")
+    return counts
+
+
+def time_sac_anakin(iters: int = 2) -> tuple:
+    """Seconds per iteration and env steps/s of the SAC Anakin loop's
+    iteration on the card, TF32 as the config sets it: at ``exp=sac_anakin``
+    (64 envs x 64 steps, G = 256, batch 256) and at
+    ``exp=sac_anakin_benchmarks`` (512 envs x 64 steps, G = 8, a ring of 512 x
+    512); ``iters`` iterations after a warm one, on the host's clock
+    synchronised at both ends, with the rollout/ring/train split from the
+    loop's CUDA events. Returns the timings and the warm programs with their
+    carries, for the profile."""
+    from sheeprl_tpu_torch.algos.ppo.anakin import PhaseClock
+
+    out, warm = {}, {}
+    for exp in ("sac_anakin", "sac_anakin_benchmarks"):
+        programs, cfg = _sac_anakin_programs(exp, ("gpu",), precision=None, scale_heads=False)
+        p, ring = programs["gpu"]
+        g = torch.Generator(device=p.device).manual_seed(121)
+        env_state, obs = p.env.reset(g)
+        clock = PhaseClock(p.device, parts=3)
+        o = p.step(env_state, obs, ring, p.draw_inputs(g), 1)  # warm-up
+        env_state, obs = o.env_state, o.obs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(iters):
+            o = p.step(env_state, obs, ring, p.draw_inputs(g), 2 + i, clock)
+            env_state, obs = o.env_state, o.obs
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rollout, ring_s, train = clock.read()
+        out[exp] = {"envs": p.num_envs, "steps_per_iter": p.num_rows, "grad_steps_per_iter": p.grad_steps,
+                    "batch": p.batch_size, "ring_rows": int(ring["data"]["rewards"].shape[0]), "iterations": iters,
+                    "env_steps_per_s": iters * p.num_rows / wall, "wall_s_per_iter": wall / iters,
+                    "rollout_s_per_iter": rollout / iters, "ring_s_per_iter": ring_s / iters,
+                    "train_s_per_iter": train / iters, "s_per_gradient_step": train / (iters * p.grad_steps),
+                    "peak_device_bytes": torch.cuda.max_memory_allocated()}
+        warm[exp] = (p, ring, g, env_state, obs)
+    print(f"[chip-smoke] sac_anakin timing: {json.dumps(out)}", flush=True)
+    return out, warm
+
+
+def _profile_call(fn) -> dict:
+    """``fn()`` under torch.profiler, tracing the card only (an iteration of
+    ``exp=sac_anakin`` launches ~60,000 device operations, and host events
+    would multiply the trace): wall ms, device ms, device operations, the
+    card's busy share and the top kernels by device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel, count = {}, 0
+    for ev in device_events(prof):
+        by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+        count += 1
+    device_ms = sum(by_kernel.values())
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "device_busy_share": device_ms / wall_ms,
+            "device_operations": count, "top_device_ms": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]}
+
+
+def profile_sac_anakin(warm: dict) -> dict:
+    """Under torch.profiler (last), one SAC Anakin iteration at each timed
+    width (busy share, device operations), then its rollout alone and its
+    ring write and sample alone from the same carries; the G gradient steps
+    are the rest of the iteration."""
+    from sheeprl_tpu_torch.data.device_ring import ring_sample, ring_write
+
+    out = {}
+    for exp, (p, ring, g, env_state, obs) in warm.items():
+        inputs = p.draw_inputs(g)
+        res = {"iteration": _profile_call(lambda: p.step(env_state, obs, ring, inputs, 4))}
+        parts = {}
+        res["rollout"] = _profile_call(lambda: parts.update(
+            traj=p.rollout(env_state, obs, inputs["noise"], inputs["resets"])[2]))
+        res["ring"] = _profile_call(lambda: ring_sample(ring_write(ring, parts["traj"]), inputs["round_keys"],
+                                                        p.batch_size, p.grad_steps))
+        train_ops = res["iteration"]["device_operations"] - res["rollout"]["device_operations"] \
+            - res["ring"]["device_operations"]
+        res["train"] = {"device_operations": train_ops, "device_operations_per_gradient_step": train_ops / p.grad_steps,
+                        "device_ms": res["iteration"]["device_ms"] - res["rollout"]["device_ms"]
+                        - res["ring"]["device_ms"]}
+        out[exp] = res
+    print(f"[chip-smoke] sac_anakin iteration profile: {json.dumps(out)}", flush=True)
+    return out
+
+
 def serve_step_parity(ckpt: str, precision: str = "32-true") -> dict:
     """The batched DV3 serve step on the card vs on the CPU at ``precision``,
     same weights, observations and noise (in the policy's dtype), 8 ticks.
@@ -3646,6 +4025,18 @@ def main() -> int:
         droq["parity"] = sac_train_phase_parity("droq")
         sac["timing"], sac_warm = time_sac()
         stamp("phase 7")
+        # the off-policy Anakin topology: train and resume with the ring; host
+        # syncs; the ring and an iteration card vs CPU; deterministic mode; timing
+        sac_anakin = sac_anakin_path(tmp)
+        sac_anakin["syncs"] = sac_anakin_syncs()
+        sac_anakin["ring_parity"] = sac_anakin_ring_parity()
+        sac_anakin["step_parity"] = sac_anakin_step_parity()
+        sac_anakin["exp_step_parity"] = sac_anakin_step_parity((), gate=False)
+        sac_anakin["deterministic"] = deterministic_step("sac_anakin")
+        if not sac_anakin["deterministic"]["ok"]:
+            raise AssertionError(f"the sac_anakin step failed with xla_deterministic_ops on: {sac_anakin['deterministic']}")
+        sac_anakin["timing"], sac_anakin_warm = time_sac_anakin()
+        stamp("phase 7b")
         profile_gru(gru["rows"] + gru_bf16["rows"], device)
         profile = profile_ticks(path["ckpt"])
         train_timing["profile"] = profile_train_steps(warm)
@@ -3660,8 +4051,9 @@ def main() -> int:
         rppo["timing"]["profile"] = profile_rppo_train_phase(rppo_warm)
         sac["timing"]["profile"] = profile_sac_train_phase(sac_warm)
         anakin["timing"]["profile"] = profile_anakin(anakin_warm)
+        sac_anakin["timing"]["profile"] = profile_sac_anakin(sac_anakin_warm)
         stamp("phase 8")
-        del warm, warm_bf16, ppo_warm, rppo_warm, sac_warm, anakin_warm, p2e_warm, dv2_warm, dv1_warm, p2e_dv2_warm, p2e_dv1_warm, sac_ae_warm
+        del warm, warm_bf16, ppo_warm, rppo_warm, sac_warm, anakin_warm, sac_anakin_warm, p2e_warm, dv2_warm, dv1_warm, p2e_dv2_warm, p2e_dv1_warm, sac_ae_warm
 
     main_row = next(r for r in gru["rows"] if (r["preset"], r["B"], r["K"], r["H"]) == MAIN_SHAPE)
     train_rows = [r for r in gru["rows"] if (r["preset"], r["B"], r["K"], r["H"]) in TRAIN_SHAPES]
@@ -3698,6 +4090,8 @@ def main() -> int:
                 **{f"sac_{name}": sac[name]["launches"][LN_GRU.name]
                    for name in ("train", "resume", "evaluation", "serve")},
                 "droq": droq["launches"][LN_GRU.name],
+                # the off-policy Anakin topology reaches no TPU kernel either
+                **{f"sac_anakin_{name}": sac_anakin[name]["launches"][LN_GRU.name] for name in ("train", "resume")},
                 "droq_evaluation": droq["evaluation"]["launches"][LN_GRU.name],
                 # DV3 S at fabric.precision=bf16-mixed: every launch with bf16 operands
                 **{f"bf16_{name}": bf16[name]["launches"][LN_GRU.name]
@@ -3766,6 +4160,7 @@ def main() -> int:
                  "p2e": p2e, "odv3": odv3, "dv2": dv2, "dv1": dv1, "p2e_dv2": p2e_dv2, "p2e_dv1": p2e_dv1,
                  "sac_ae": sac_ae,
                  "ppo": ppo, "rppo": rppo, "a2c": a2c, "anakin": anakin, "sac": sac, "droq": droq,
+                 "sac_anakin": sac_anakin,
                  "kernels": kernels, "phase_done_at_seconds": stamps},
                 f, indent=2,
             )

@@ -103,13 +103,15 @@ class StepOutput:
 
 
 class PhaseClock:
-    """The rollout and train phases' seconds: CUDA events on a card, read
-    (and waited for) only in :meth:`read`; the host clock on the CPU, where
-    every op has finished when it returns."""
+    """The seconds of an iteration's ``parts`` phases (the rollout and the
+    train phase by default), from the ``parts + 1`` marks between them: CUDA
+    events on a card, read (and waited for) only in :meth:`read`; the host
+    clock on the CPU, where every op has finished when it returns."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, parts: int = 2):
         self.cuda = device.type == "cuda"
-        self._marks: List[list] = []
+        self.parts = int(parts)
+        self._marks: List[tuple] = []
 
     def mark(self) -> Any:
         if self.cuda:
@@ -118,23 +120,21 @@ class PhaseClock:
             return event
         return time.perf_counter()
 
-    def add(self, start, mid, end) -> None:
-        self._marks.append([start, mid, end])
+    def add(self, *marks) -> None:
+        if len(marks) != self.parts + 1:
+            raise ValueError(f"a clock of {self.parts} phases takes {self.parts + 1} marks, got {len(marks)}")
+        self._marks.append(marks)
 
-    def read(self) -> Tuple[float, float]:
-        """(rollout, train) seconds since the last read."""
-        rollout = train = 0.0
+    def read(self) -> Tuple[float, ...]:
+        """Each phase's seconds since the last read."""
+        seconds = [0.0] * self.parts
         if self.cuda and self._marks:
-            self._marks[-1][2].synchronize()
-        for start, mid, end in self._marks:
-            if self.cuda:
-                rollout += start.elapsed_time(mid) / 1e3
-                train += mid.elapsed_time(end) / 1e3
-            else:
-                rollout += mid - start
-                train += end - mid
+            self._marks[-1][-1].synchronize()
+        for marks in self._marks:
+            for i, (a, b) in enumerate(zip(marks, marks[1:])):
+                seconds[i] += a.elapsed_time(b) / 1e3 if self.cuda else b - a
         self._marks = []
-        return rollout, train
+        return tuple(seconds)
 
 
 class AnakinProgram:
@@ -312,9 +312,9 @@ class AnakinProgram:
         return StepOutput(env_state, obs, ep_stats, losses, traj, returns, advantages)
 
 
-def _check_anakin_config(cfg) -> str:
-    """The JAX loop's refusals; returns the one mlp key."""
-    _flavor(cfg)
+def anakin_mlp_key(cfg) -> str:
+    """The JAX loops' refusals of what cannot live in an Anakin iteration
+    (host envs, cnn keys, several mlp keys); returns the one mlp key."""
     backend = str(cfg.env.get("backend", "host") or "host").lower()
     if backend != "jax":
         raise ValueError(
@@ -341,7 +341,8 @@ def run_anakin(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
     from sheeprl_tpu_torch.utils.metric import MetricAggregator
 
     t_start = time.perf_counter()
-    mlp_key = _check_anakin_config(cfg)
+    _flavor(cfg)
+    mlp_key = anakin_mlp_key(cfg)
     initial_ent_coef = float(cfg.algo.get("ent_coef", 0.0))
     initial_clip_coef = float(cfg.algo.get("clip_coef", 0.2))
     device = fabric.device

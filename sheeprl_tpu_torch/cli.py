@@ -21,7 +21,8 @@ exploration run's environment settings from the config.yaml beside it.
 Config keys the port keeps but does not act on yet accept only their off
 values: telemetry, the profiler, the supervisor, fault injection, the
 watchdog, gangs, the replay prefetch thread and service backend, sharded and
-asynchronous checkpoints.
+asynchronous checkpoints. ``buffer.backend=device`` (the replay ring on the
+card) is for ``sac_anakin`` only, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -88,6 +89,25 @@ def resume_from_checkpoint(cfg, overrides: Optional[Sequence[str]] = None):
     return result
 
 
+def check_buffer_backend(cfg) -> None:
+    """The JAX CLI's checks of ``buffer.backend``: a known backend, and the
+    device ring for ``sac_anakin`` only."""
+    backend = str((cfg.get("buffer") or {}).get("backend", "local"))
+    if backend not in ("local", "service", "device"):
+        raise ValueError(
+            f"unknown buffer.backend {backend!r}; available: local (in-process replay, "
+            "the default), service (standalone experience data plane for the "
+            "decoupled topologies — see howto/fleet.md) and device (on-mesh replay "
+            "ring for the fused off-policy topology — see howto/device_replay.md)"
+        )
+    if backend == "device" and cfg.algo.name != "sac_anakin":
+        raise ValueError(
+            f"buffer.backend=device is wired for the fused off-policy topology "
+            f"(sac_anakin), not {cfg.algo.name!r} — host loops would round-trip the "
+            "ring every step, losing exactly what it buys (howto/device_replay.md)"
+        )
+
+
 def unported_settings(cfg) -> List[str]:
     """The settings of ``cfg`` that ask for something not yet ported."""
     metric = cfg.get("metric") or {}
@@ -108,8 +128,8 @@ def unported_settings(cfg) -> List[str]:
         # the thread samples ahead for the replay loops; the on-policy loops do not read the key
         "buffer.prefetch.enabled (the prefetch thread)": bool((buffer.get("prefetch") or {}).get("enabled"))
         and str((cfg.get("algo") or {}).get("name", "")) not in ("ppo", "a2c", "ppo_recurrent", "ppo_anakin",
-                                                                  "a2c_anakin"),
-        "buffer.backend other than local": str(buffer.get("backend", "local")) != "local",
+                                                                  "a2c_anakin", "sac_anakin"),
+        "buffer.backend=service": str(buffer.get("backend", "local")) == "service",
         "checkpoint.backend other than pickle": str(checkpoint.get("backend", "pickle")) != "pickle",
         "checkpoint.async_save": bool(checkpoint.get("async_save")),
     }
@@ -138,6 +158,7 @@ def check_configs(cfg) -> Callable:
     from sheeprl_tpu_torch.utils.registry import ALGORITHMS, load_entrypoint
 
     main = load_entrypoint(ALGORITHMS, cfg.algo.name, "training loop")
+    check_buffer_backend(cfg)
     unported_precision(cfg)
     unported = unported_settings(cfg)
     if unported:

@@ -15,7 +15,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["draw_round_keys", "prp_permutation"]
+__all__ = ["draw_round_keys", "prp_map", "prp_permutation"]
 
 _MASK32 = 0xFFFFFFFF
 ROUNDS = 8
@@ -42,19 +42,25 @@ def draw_round_keys(count: int, generator: Optional[torch.Generator], device) ->
     return torch.randint(0, 2**31 - 1, (count, ROUNDS), generator=generator, device=device)
 
 
-def prp_permutation(n: int, round_keys: torch.Tensor) -> torch.Tensor:
-    """A pseudorandom permutation of ``[0, n)`` for a power-of-two ``n`` >= 2,
-    on ``round_keys``' device: an unbalanced Feistel network over the index
-    bits, one round per key (a bijection by construction)."""
+def prp_map(n: int, indices: torch.Tensor, round_keys: torch.Tensor) -> torch.Tensor:
+    """``prp_permutation(n, round_keys)[indices]`` for int64 ``indices`` in
+    ``[0, n)``, computed for those indices alone: the network maps each index
+    on its own, so a draw of fewer than ``n`` entries costs only its own."""
     if n & (n - 1) or n < 2:
         raise ValueError(f"prp_permutation needs a power-of-two size >= 2, got {n}")
     bits = int(n).bit_length() - 1
     half_b = bits // 2
-    idx = torch.arange(n, dtype=torch.int64, device=round_keys.device)
-    left, right = idx >> half_b, idx & ((1 << half_b) - 1)
+    left, right = indices >> half_b, indices & ((1 << half_b) - 1)
     width_l, width_r = bits - half_b, half_b
     keys = round_keys.to(torch.int64)
     for i in range(keys.shape[0]):
         f = _mix32(right ^ keys[i])
         left, right, width_l, width_r = right, left ^ (f & ((1 << width_l) - 1)), width_r, width_l
     return (left << width_r) | right
+
+
+def prp_permutation(n: int, round_keys: torch.Tensor) -> torch.Tensor:
+    """A pseudorandom permutation of ``[0, n)`` for a power-of-two ``n`` >= 2,
+    on ``round_keys``' device: an unbalanced Feistel network over the index
+    bits, one round per key (a bijection by construction)."""
+    return prp_map(n, torch.arange(n, dtype=torch.int64, device=round_keys.device), round_keys)

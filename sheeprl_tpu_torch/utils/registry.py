@@ -37,6 +37,7 @@ ALGORITHMS: Dict[str, Tuple[str, str]] = {
     "a2c_anakin": ("sheeprl_tpu_torch.algos.a2c.a2c_anakin", "main"),
     "ppo_recurrent": ("sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent", "main"),
     "sac": ("sheeprl_tpu_torch.algos.sac.sac", "main"),
+    "sac_anakin": ("sheeprl_tpu_torch.algos.sac.sac_anakin", "main"),
     "droq": ("sheeprl_tpu_torch.algos.droq.droq", "main"),
     "sac_ae": ("sheeprl_tpu_torch.algos.sac_ae.sac_ae", "main"),
 }

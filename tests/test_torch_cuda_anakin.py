@@ -35,7 +35,7 @@ pytestmark = pytest.mark.cuda
 
 REPO = Path(__file__).resolve().parent.parent
 FAMILIES = ["dv3", "p2e", "odv3", "dv2", "dv1", "p2e_dv2", "p2e_dv1", "sac_ae", "sac", "droq", "ppo", "a2c",
-            "ppo_recurrent", "ppo_anakin", "a2c_anakin"]
+            "ppo_recurrent", "ppo_anakin", "a2c_anakin", "sac_anakin"]
 
 
 @pytest.fixture
