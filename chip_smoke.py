@@ -165,8 +165,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
    iteration and env steps/s at ``exp=sac_anakin`` and at
    ``exp=sac_anakin_benchmarks`` (512 envs x 64 steps, G = 8), with the
    rollout/ring/train split;
-8. the profiles, under torch.profiler and only now (once it has run, later
-   eager launches cost more host time): each phase-3 shape's device time by
+7c. the decoupled topology in one process (the player loop in the main
+   thread, the learner in its own, two depth-1 queues): ``exp=dreamer_v3_decoupled``
+   at S (4 envs, batch 16 x 64, 80 prefill iterations, then 4 training
+   iterations of 4 gradient steps) through ``run``, its checkpoint due during
+   the prefill deferred to the first round; ``exp=dreamer_v3`` at the same
+   config beside it (the LN-GRU launches of both, exactly 79 a gradient step
+   plus one a policy step, and their parameters after the same rounds); a
+   resume into version_1 and an evaluation. ``exp=ppo_decoupled`` (CartPole-v1,
+   32,768 steps, the test reward over phase 6's 100) and ``exp=sac_decoupled``
+   (Pendulum-v1, 6,000 steps, the test reward over phase 7's -400) at their
+   exps' widths: train, resume, evaluate,
+   no LN-GRU launch. One learner round
+   of each, driven through its thread, card vs CPU with TF32 off at the
+   coupled families' bars; the seconds a round takes at each exp's shape and
+   the share of it spent in the handoff copy;
+8. the profiles, under torch.profiler tracing the card only (host events
+   would multiply the traces' processing and slow the profiled steps) and
+   only now (once it has run, later eager launches cost more host time): each phase-3 shape's device time by
    kernel name, with its kernel launches per call counted in a captured CUDA
    graph; serving ticks (device time by kernel, the LN-GRU kernel's launches
    by name, busy share); a training step in float32 and one in bf16 (the
@@ -416,7 +432,7 @@ def device_ms_by_kernel(fn, weights, calls: int = 8) -> dict:
     mean over the launches the trace holds."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
         for _ in range(2):  # warm-up step, then the traced step
             for i in range(calls):
@@ -925,7 +941,7 @@ def profile_train_steps(warm: tuple, steps: int = 3) -> dict:
 
     trainer, batch, generator = warm
     T, B = batch["rewards"].shape[:2]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for cum in range(10, 10 + steps):
             trainer.train_step(batch, cum, trainer.draw_noise(T, B, generator))
@@ -1765,7 +1781,7 @@ def profile_sac_ae_phase(warm: tuple) -> dict:
     G = data["rewards"].shape[0]
     noise = trainer.draw_noise(G, data, generator)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         trainer.train_phase(data, 100, noise)
         torch.cuda.synchronize()
@@ -2405,7 +2421,7 @@ def profile_ppo_train_phase(warm: tuple) -> dict:
     trainer, inputs, generator = warm
     perms = trainer.draw_permutations(generator)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         trainer.train_phase(*inputs, perms, 0.2, 0.0)
         torch.cuda.synchronize()
@@ -2656,7 +2672,7 @@ def profile_rppo_train_phase(warm: tuple) -> dict:
     trainer, seqs, generator, ent = warm
     perms = trainer.draw_permutations(seqs["mask"].shape[1], generator)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         trainer.train_phase(seqs, perms, 0.2, ent)
         torch.cuda.synchronize()
@@ -3119,7 +3135,7 @@ def profile_anakin(warm: dict) -> dict:
     for exp, (p, g, env_state, obs) in warm.items():
         inputs = p.draw_inputs(g)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             p.step(env_state, obs, inputs, 0.2, 0.0)
             torch.cuda.synchronize()
@@ -3430,7 +3446,7 @@ def profile_sac_train_phase(warm: tuple) -> dict:
     B = part["rewards"].shape[1]
     noise = sac.draw_noise(G, B, generator)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _run_phase("sac", sac, part, {}, noise)
         torch.cuda.synchronize()
@@ -3808,6 +3824,315 @@ def profile_sac_anakin(warm: dict) -> dict:
     return out
 
 
+# -- the decoupled topology in one process (phase 7c) ---------------------------------------
+# DV3 S decoupled through the entry points, the player loop and the learner
+# thread on the card: learning_starts of 80 iterations of 4 envs (each env 80
+# rows, more than a 64-step sequence), then 4 training iterations of 4
+# gradient steps. checkpoint.every = 200 policy steps falls in the prefill
+# (iteration 50), when the learner has shipped no state: the checkpoint waits
+# for the first round (iteration 80, step 320); the last is at step 336. The
+# coupled run of the same config writes at 200 and 336. A resumed run waits
+# the 80 iterations again, its governor skips the first training iteration,
+# and the next 3 take 4 gradient steps each.
+DEC_LEARNING_STARTS_ITERS = 80
+DEC_FIRST_ITERS = DEC_LEARNING_STARTS_ITERS + 4
+DEC_RESUME_ITERS = DEC_FIRST_ITERS + DEC_LEARNING_STARTS_ITERS + 4
+DEC_CKPT_EVERY = 200
+# PPO and SAC decoupled at phase 6's and phase 7's cuts and bars: a decoupled
+# run trains as the coupled one (the learner's generator is seeded as the
+# coupled loop's train generator; on the CPU a SAC run is the coupled run bit
+# for bit, tests/test_torch_sac_decoupled.py)
+# one DV3 learner round card vs CPU: G = 2 gradient steps at train_step_parity's
+# T = 16, B = 4 and bars; PPO's and SAC's rounds at their train-phase bars
+DEC_DV3_G = 2
+
+
+def _leaves(tree, prefix: str = "") -> dict:
+    """path -> array of a nested dict (a checkpoint's agent)."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in _leaves(sub, f"{prefix}/{key}").items()}
+    return {prefix: np.asarray(tree)}
+
+
+def _dec_overrides(exp: str, run_dir: str) -> list:
+    return [
+        f"exp={exp}", "env=dummy", "algo.cnn_keys.encoder=[rgb]", "algo.mlp_keys.encoder=[state]",
+        f"env.num_envs={TRAIN_ENVS}", "algo.per_rank_batch_size=16", "algo.per_rank_sequence_length=64",
+        f"algo.learning_starts={TRAIN_ENVS * DEC_LEARNING_STARTS_ITERS}", f"checkpoint.every={DEC_CKPT_EVERY}",
+        "buffer.memmap=False", "env.capture_video=False", f"hydra.run.dir={run_dir}",
+    ]
+
+
+def _dec_run(name: str, overrides: list) -> dict:
+    """One DV3 run through ``run``, its LN-GRU launches counted exactly: 79 a
+    gradient step, one a policy step of the loop and of its test episode."""
+    from sheeprl_tpu_torch.cli import run
+
+    _zero_launches()
+    summary = run(overrides)
+    need = GRU_CALLS_PER_GRAD_STEP * summary["gradient_steps"] + summary["player_calls"] + summary["test_player_calls"]
+    by_dtype = _f32_launches(name, need)
+    print(f"[chip-smoke] {name}: {summary['gradient_steps']} gradient steps, {summary['player_calls']} player calls, "
+          f"{summary['policy_steps']} policy steps in {summary['wall_seconds']:.2f}s (train "
+          f"{summary['train_seconds']:.2f}s); metrics {json.dumps(summary['metrics'])}", flush=True)
+    if summary["gradient_steps"] < 1 or not all(math.isfinite(v) for v in summary["metrics"].values()):
+        raise AssertionError(f"{name}: {summary['gradient_steps']} gradient steps, metrics {summary['metrics']}")
+    ckpts = sorted(c for c in os.listdir(os.path.join(summary["log_dir"], "checkpoint")) if c.endswith(".ckpt"))
+    return {"summary": summary, "launches": _launches(), "by_dtype": by_dtype, "need": need, "checkpoints": ckpts}
+
+
+def dv3_decoupled_path(out_dir: str) -> dict:
+    """``exp=dreamer_v3_decoupled`` at S through the entry points on the card:
+    train with a checkpoint deferred past the prefill, the same config under
+    ``exp=dreamer_v3`` beside it (the LN-GRU launches of both, and their
+    parameters after the same rounds: a finding, not a gate), resume from the
+    last checkpoint, evaluate it."""
+    from sheeprl_tpu_torch.cli import evaluation
+    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
+
+    dec = _dec_overrides("dreamer_v3_decoupled", os.path.join(out_dir, "dv3_dec"))
+    cpl = _dec_overrides("dreamer_v3", os.path.join(out_dir, "dv3_cpl"))
+    first = f"algo.total_steps={TRAIN_ENVS * DEC_FIRST_ITERS}"
+    out = {"train": _dec_run("dreamer_v3_decoupled run", dec + [first])}
+    out["coupled"] = _dec_run("dreamer_v3 run at the same config", cpl + [first])
+    last = f"ckpt_{TRAIN_ENVS * DEC_FIRST_ITERS}_0.ckpt"
+    deferred = f"ckpt_{TRAIN_ENVS * DEC_LEARNING_STARTS_ITERS}_0.ckpt"
+    if out["train"]["checkpoints"] != sorted([deferred, last]) or \
+            out["coupled"]["checkpoints"] != sorted([f"ckpt_{DEC_CKPT_EVERY}_0.ckpt", last]):
+        raise AssertionError(f"checkpoints: decoupled {out['train']['checkpoints']} (want {deferred}, deferred from "
+                             f"step {DEC_CKPT_EVERY}, and {last}), coupled {out['coupled']['checkpoints']}")
+    ours, theirs = (_leaves(load_checkpoint(os.path.join(r["summary"]["log_dir"], "checkpoint", last))["agent"])
+                    for r in (out["train"], out["coupled"]))
+    out["vs_coupled"] = {
+        "launches": {"decoupled": out["train"]["launches"][LN_GRU.name],
+                     "coupled": out["coupled"]["launches"][LN_GRU.name]},
+        "param_max_abs_gap": max(float(np.abs(ours[k] - theirs[k]).max()) for k in theirs),
+        "metrics_equal": out["train"]["summary"]["metrics"] == out["coupled"]["summary"]["metrics"],
+    }
+    print(f"[chip-smoke] dreamer_v3_decoupled vs dreamer_v3 at the same config on the card: "
+          f"{json.dumps(out['vs_coupled'])}", flush=True)
+    ckpt = os.path.join(out["train"]["summary"]["log_dir"], "checkpoint", last)
+    out["resume"] = _dec_run("dreamer_v3_decoupled resumed run",
+                             dec + [f"algo.total_steps={TRAIN_ENVS * DEC_RESUME_ITERS}", f"checkpoint.resume_from={ckpt}"])
+    if not out["resume"]["summary"]["log_dir"].endswith("version_1"):
+        raise AssertionError(f"the resumed run wrote {out['resume']['summary']['log_dir']}, not version_1")
+    _zero_launches()
+    reward = evaluation([f"checkpoint_path={out['resume']['summary']['checkpoint']}", "env.capture_video=False"])
+    out["evaluation"] = {"reward": reward, "launches": _launches()}
+    print(f"[chip-smoke] dreamer_v3_decoupled evaluation: reward {reward}, LN-GRU launches {LN_GRU.launches}",
+          flush=True)
+    if not (math.isfinite(reward) and LN_GRU.launches >= 1):
+        raise AssertionError(f"dreamer_v3_decoupled evaluation: reward {reward}, {LN_GRU.launches} launches")
+    return out
+
+
+def _model_free_decoupled(name: str, overrides: list, total: int, resume_total: int, min_reward=None) -> dict:
+    """A model-free decoupled exp through the entry points on the card: train
+    (its test reward over ``min_reward`` when given), resume from the last
+    checkpoint into version_1, evaluate; no LN-GRU launch (the agents are
+    MLPs)."""
+    from sheeprl_tpu_torch.cli import evaluation, run
+
+    out = {}
+    _zero_launches()
+    first = run(overrides + [f"algo.total_steps={total}"])
+    out["train"] = {"summary": first, "launches": _launches()}
+    _zero_launches()
+    resumed = run(overrides + [f"algo.total_steps={resume_total}", f"checkpoint.resume_from={first['checkpoint']}"])
+    out["resume"] = {"summary": resumed, "launches": _launches()}
+    _zero_launches()
+    reward = evaluation([f"checkpoint_path={resumed['checkpoint']}", "env.capture_video=False"])
+    out["evaluation"] = {"reward": reward, "launches": _launches()}
+    print(f"[chip-smoke] {name}: {first['train_phases']} rounds, {first['policy_steps']} policy steps in "
+          f"{first['wall_seconds']:.2f}s (train {first['train_seconds']:.2f}s, env {first['env_seconds']:.2f}s), "
+          f"test reward {first['test_reward']}, losses {json.dumps(first['metrics'])}; resumed "
+          f"{resumed['train_phases']} rounds into {resumed['log_dir']}; evaluation reward {reward}; LN-GRU launches "
+          f"{[out[k]['launches'][LN_GRU.name] for k in ('train', 'resume', 'evaluation')]}", flush=True)
+    for part in ("train", "resume"):
+        s = out[part]["summary"]
+        if s["train_phases"] < 1 or not all(math.isfinite(v) for v in s["metrics"].values()):
+            raise AssertionError(f"{name} {part}: {s['train_phases']} rounds, losses {s['metrics']}")
+    if not (resumed["log_dir"].endswith("version_1") and math.isfinite(reward)):
+        raise AssertionError(f"{name}: resumed into {resumed['log_dir']}, evaluation reward {reward}")
+    if min_reward is not None and not (first["test_reward"] is not None and first["test_reward"] >= min_reward):
+        raise AssertionError(f"{name}: test reward {first['test_reward']} < {min_reward}")
+    if any(out[k]["launches"][LN_GRU.name] for k in out):
+        raise AssertionError(f"{name} launched the LN-GRU kernel: its agent has no LN-GRU cell")
+    return out
+
+
+def decoupled_paths(out_dir: str) -> dict:
+    """Phase 7c's runs: DV3 S, PPO on CartPole-v1 and SAC on Pendulum-v1."""
+    return {
+        "dv3": dv3_decoupled_path(out_dir),
+        "ppo": _model_free_decoupled("ppo_decoupled", ["exp=ppo_decoupled", "env.capture_video=False",
+                                                        f"hydra.run.dir={os.path.join(out_dir, 'ppo_dec')}"],
+                                     PPO_TOTAL_STEPS, PPO_TOTAL_STEPS + PPO_RESUME_ITERS * PPO_STEPS_PER_ITER,
+                                     min_reward=PPO_MIN_TEST_REWARD),
+        "sac": _model_free_decoupled("sac_decoupled", ["exp=sac_decoupled", "env.id=Pendulum-v1",
+                                                        "env.capture_video=False",
+                                                        f"hydra.run.dir={os.path.join(out_dir, 'sac_dec')}"],
+                                     SAC_TOTAL_STEPS, SAC_TOTAL_STEPS + SAC_RESUME_STEPS,
+                                     min_reward=SAC_MIN_TEST_REWARD),
+    }
+
+
+def _dec_learners(kind: str, devices):
+    """The exp's learner on each device (the same weights from a seed, TF32
+    off), with the round's block and its draws, made once on the host."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3_decoupled import DV3Learner
+    from sheeprl_tpu_torch.algos.ppo.ppo_decoupled import PPOLearner
+    from sheeprl_tpu_torch.algos.sac.sac_decoupled import SACLearner
+    from sheeprl_tpu_torch.utils.utils import gae
+
+    if kind == "ppo":
+        agents, cfg = _on_policy_agents("ppo_decoupled", devices)
+        data, next_values = _ppo_rollout(1)
+        tensors = {k: torch.from_numpy(v) for k, v in data.items()}
+        returns, advantages = gae(tensors["rewards"], tensors["values"], tensors["dones"],
+                                  torch.from_numpy(next_values), 128, float(cfg.algo.gamma), float(cfg.algo.gae_lambda))
+        block = {k: v.reshape(-1, *v.shape[2:]) for k, v in tensors.items()}
+        block.update(returns=returns.reshape(-1, 1), advantages=advantages.reshape(-1, 1))
+        learners = {a: PPOLearner(cfg, agent, PPO_TOTAL_STEPS // PPO_STEPS_PER_ITER) for a, agent in agents.items()}
+        perms = next(iter(learners.values())).trainer.draw_permutations(torch.Generator().manual_seed(2))
+        for learner in learners.values():
+            learner.draw = lambda: perms
+        return learners, (block, 0.2, 0.0, True)
+    if kind == "sac":
+        trainers, cfg = _sac_trainers("sac_decoupled", devices)
+        B = int(cfg.algo.per_rank_batch_size)
+        block = {k: torch.from_numpy(v) for k, v in _replay_block(np.random.default_rng(12), (SAC_PARITY_G, B)).items()}
+        noise = trainers["cpu"].draw_noise(SAC_PARITY_G, B, torch.Generator().manual_seed(13))
+        learners = {}
+        for accel, trainer in trainers.items():
+            learner = SACLearner(trainer, int(cfg.seed))
+            learner.draw = lambda G, B_, dev=trainer.device: {k: v.to(dev) for k, v in noise.items()}
+            learners[accel] = learner
+        return learners, (block, 1, True)
+    T, B = 16, 4
+    trainers, batch = _s_trainers(devices, T, B)
+    block = {k: torch.stack([v] * DEC_DV3_G) for k, v in batch.items()}
+    noise = [trainers["cpu"].draw_noise(T, B, torch.Generator().manual_seed(1 + g)) for g in range(DEC_DV3_G)]
+    learners = {}
+    for accel, trainer in trainers.items():
+        draws = iter(noise)
+        trainer.draw_noise = lambda T_, B_, generator, dev=trainer.device, draws=draws: {
+            k: v.to(dev) for k, v in next(draws).items()}
+        learners[accel] = DV3Learner(trainer)
+    # the generator state is each learner's own (its draws are the ones above)
+    return learners, (block, 0, None, True)
+
+
+def decoupled_round_parity(kind: str) -> dict:
+    """One learner round of ``kind`` (``ppo``, ``sac`` or ``dv3``) on the card
+    vs on the CPU (TF32 off), driven through the learner's own thread as the
+    player drives it: the same weights, block and draws. The bars are the
+    coupled families' (``ppo_train_phase_parity``, ``sac_train_phase_parity``,
+    ``train_step_parity``)."""
+    from sheeprl_tpu_torch.parallel.decoupled import LearnerThread
+
+    learners, message = _dec_learners(kind, ("gpu", "cpu"))
+    replies = {}
+    for accel, learner in learners.items():
+        dev = learner.trainer.device
+        msg = ({k: v.to(dev) for k, v in message[0].items()}, *message[1:])
+        if kind == "dv3":
+            msg = (*msg[:2], learner.generator.get_state(), *msg[3:])
+        with LearnerThread(learner, f"{kind}-learner-parity") as channel:
+            replies[accel] = channel.exchange(*msg)
+            channel.close()
+    if kind == "dv3":
+        card, cpu = (learners[a].trainer for a in ("gpu", "cpu"))
+        metrics = {a: replies[a][2] for a in replies}
+        worst = max(abs(metrics["gpu"][k] - v) / max(abs(v), 1e-3) for k, v in metrics["cpu"].items())
+        state = _state_gap(card, cpu)
+        lr = max(group["lr"] for opt in cpu.optimizers.values() for group in opt.param_groups)
+        res = {"worst_rel_err": worst, "state": state, "G": DEC_DV3_G, "T": 16, "B": 4}
+        ok = (worst <= TRAIN_STEP_RTOL and state["param_max_abs_gap"] <= DEC_DV3_G * 2 * lr
+              and state["param_share_within_atol"] >= TRAIN_PARAM_SHARE and state["moments_rel_gap"] <= TRAIN_STEP_RTOL)
+        bars = (f"metrics {TRAIN_STEP_RTOL} relative, every parameter {DEC_DV3_G * 2 * lr:.1e}, a share >= "
+                f"{TRAIN_PARAM_SHARE} within {TRAIN_PARAM_ATOL}")
+    else:
+        losses = {a: replies[a][2] for a in replies}
+        params = {a: replies[a][0] for a in replies}
+        loss_gap = float(((losses["gpu"] - losses["cpu"]).abs() / losses["cpu"].abs().clamp_min(1e-3)).max())
+        param_gap = max(float((params["gpu"][k] - v).abs().max()) for k, v in params["cpu"].items())
+        loss_bar, param_bar = (PPO_LOSS_RTOL, PPO_PARAM_ATOL) if kind == "ppo" else (SAC_LOSS_RTOL, SAC_PARAM_ATOL)
+        res = {"losses_rel_gap": loss_gap, "param_max_abs_gap": param_gap, "card": losses["gpu"].tolist(),
+               "cpu": losses["cpu"].tolist()}
+        ok = loss_gap <= loss_bar and param_gap <= param_bar
+        bars = f"losses {loss_bar} relative, every parameter {param_bar}"
+    res["opt_state_shipped"] = all(r[1] is not None for r in replies.values())
+    print(f"[chip-smoke] {kind}_decoupled learner round card vs CPU (TF32 off): {json.dumps(res)} (bars: {bars})",
+          flush=True)
+    if not (ok and res["opt_state_shipped"]):
+        raise AssertionError(f"the {kind}_decoupled learner round on the card disagrees with the CPU: {res}")
+    return res
+
+
+def time_decoupled_rounds(rounds: int = 3) -> dict:
+    """Seconds a learner round takes on the card at each exp's shape (DV3 S:
+    4 gradient steps of 16 x 64, the exp's replay ratio over 4 envs; PPO: 4
+    envs x 128 steps, 10 epochs of 8 minibatches; SAC: 4 gradient steps of
+    256), TF32 as the configs set it, synchronized. The handoff is the copy
+    the learner ships (DV3's act view on the card; PPO's and SAC's agent
+    state on the host) and the player's load of it; its share is of the round
+    as the player waits for it (the round, which takes the copy, and the
+    load)."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3_decoupled import DV3Learner, act_view, load_act_view
+    from sheeprl_tpu_torch.algos.ppo.ppo_decoupled import PPOLearner
+    from sheeprl_tpu_torch.algos.sac.sac_decoupled import SACLearner
+    from sheeprl_tpu_torch.parallel.decoupled import snapshot
+    from sheeprl_tpu_torch.parallel.fabric import apply_matmul_precision
+
+    trainers, batch = _s_trainers(("gpu",), 64, 16)
+    dv3 = DV3Learner(trainers["gpu"])
+    dv3_player = copy.deepcopy(dv3.trainer.agent)
+    dv3_block = {k: torch.stack([v] * 4).to(dv3.trainer.device) for k, v in batch.items()}
+    agents, cfg = _on_policy_agents("ppo_decoupled", ("gpu",))
+    ppo = PPOLearner(cfg, agents["gpu"], PPO_TOTAL_STEPS // PPO_STEPS_PER_ITER)
+    ppo_player = copy.deepcopy(agents["gpu"]).to("cpu")
+    data, _ = _ppo_rollout(3)
+    flat = {k: torch.from_numpy(v.reshape(-1, *v.shape[2:])) for k, v in data.items()}
+    rng = np.random.default_rng(4)
+    flat.update(returns=torch.from_numpy(rng.standard_normal((512, 1)).astype(np.float32)),
+                advantages=torch.from_numpy(rng.standard_normal((512, 1)).astype(np.float32)))
+    sac_trainers, sac_cfg = _sac_trainers("sac_decoupled", ("gpu",), scale_heads=False)
+    sac = SACLearner(sac_trainers["gpu"], int(sac_cfg.seed))
+    sac_player = copy.deepcopy(sac.trainer.agent).to("cpu")
+    sac_block = {k: torch.from_numpy(v).to(sac.trainer.device) for k, v in
+                 _replay_block(np.random.default_rng(5), (4, int(sac_cfg.algo.per_rank_batch_size))).items()}
+    apply_matmul_precision("high")  # the configs' float32_matmul_precision
+    cases = {  # round, the learner's copy, the player's load of it
+        "dv3": (lambda r: dv3.round(dv3_block, 4 * r, dv3.generator.get_state(), False),
+                lambda: act_view(dv3.trainer.agent), lambda view: load_act_view(dv3_player, view)),
+        "ppo": (lambda r: ppo.round(flat, 0.2, 0.0, False),
+                lambda: snapshot(ppo.trainer.agent.state_dict(), "cpu"), ppo_player.load_state_dict),
+        "sac": (lambda r: sac.round(sac_block, r + 1, False),
+                lambda: snapshot(sac.trainer.agent.state_dict(), "cpu"), sac_player.load_state_dict),
+    }
+    out = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    for kind, (round_fn, copy_fn, load_fn) in cases.items():
+        times = {"round_s": [], "copy_s": [], "load_s": []}
+        for r in range(rounds):
+            times["round_s"].append(timed(lambda: round_fn(r))[1])
+            shipped, t_copy = timed(copy_fn)
+            times["copy_s"].append(t_copy)
+            times["load_s"].append(timed(lambda: load_fn(shipped))[1])
+        warm = {k: min(v[1:]) for k, v in times.items()}  # the first round is cold
+        out[kind] = {**times, "handoff_share": (warm["copy_s"] + warm["load_s"]) / (warm["round_s"] + warm["load_s"])}
+    print(f"[chip-smoke] decoupled learner rounds on the card (s, synchronized): {json.dumps(out)}", flush=True)
+    return out
+
+
 def serve_step_parity(ckpt: str, precision: str = "32-true") -> dict:
     """The batched DV3 serve step on the card vs on the CPU at ``precision``,
     same weights, observations and noise (in the policy's dtype), 8 ticks.
@@ -3895,7 +4220,7 @@ def profile_ticks(ckpt: str, ticks: int = 32) -> dict:
     for _ in range(3):
         table.step(obs, mask)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(ticks):
             table.step(obs, mask)
@@ -4037,7 +4362,14 @@ def main() -> int:
             raise AssertionError(f"the sac_anakin step failed with xla_deterministic_ops on: {sac_anakin['deterministic']}")
         sac_anakin["timing"], sac_anakin_warm = time_sac_anakin()
         stamp("phase 7b")
+        # the decoupled topology in one process: DV3 S, PPO and SAC through the
+        # entry points; one learner round of each card vs CPU; round seconds
+        decoupled = decoupled_paths(tmp)
+        decoupled["round_parity"] = {kind: decoupled_round_parity(kind) for kind in ("ppo", "sac", "dv3")}
+        decoupled["rounds"] = time_decoupled_rounds()
+        stamp("phase 7c")
         profile_gru(gru["rows"] + gru_bf16["rows"], device)
+        stamp("phase 8, the kernel's profiles")
         profile = profile_ticks(path["ckpt"])
         train_timing["profile"] = profile_train_steps(warm)
         bf16["timing"]["profile"] = profile_train_steps(warm_bf16)
@@ -4046,6 +4378,7 @@ def main() -> int:
         dv1["timing"]["profile"] = profile_train_steps(dv1_warm, steps=2)
         p2e_dv2["timing"]["profile"] = profile_train_steps(p2e_dv2_warm, steps=2)
         p2e_dv1["timing"]["profile"] = profile_train_steps(p2e_dv1_warm, steps=2)
+        stamp("phase 8, the Dreamer steps' profiles")
         sac_ae["timing"]["profile"] = profile_sac_ae_phase(sac_ae_warm)
         ppo["timing"]["profile"] = profile_ppo_train_phase(ppo_warm)
         rppo["timing"]["profile"] = profile_rppo_train_phase(rppo_warm)
@@ -4115,6 +4448,14 @@ def main() -> int:
                    for fam, res in (("p2e_dv2", p2e_dv2), ("p2e_dv1", p2e_dv1))
                    for name in ("train", "resume", "evaluation", "finetune", "finetune_evaluation")},
                 **{f"sac_ae_{name}": sac_ae[name]["launches"][LN_GRU.name] for name in ("train", "resume", "evaluation")},
+                # the decoupled topology: DV3 S's player and learner threads (79 a
+                # gradient step plus one a policy step, as the coupled run of the
+                # same config beside it); PPO's and SAC's none
+                **{f"dv3_decoupled_{name}": decoupled["dv3"][name]["launches"][LN_GRU.name]
+                   for name in ("train", "resume", "evaluation")},
+                "dv3_coupled_same_config": decoupled["dv3"]["coupled"]["launches"][LN_GRU.name],
+                **{f"{fam}_decoupled_{name}": decoupled[fam][name]["launches"][LN_GRU.name]
+                   for fam in ("ppo", "sac") for name in ("train", "resume", "evaluation")},
             },
             "launches_needed_by_path": {
                 **{f"p2e_{name}": p2e[name]["need"] for name in ("train", "resume", "finetune")},
@@ -4123,6 +4464,8 @@ def main() -> int:
                    for fam, res in (("dv2", dv2), ("dv1", dv1)) for name in ("train", "resume", "serve")},
                 **{f"{fam}_{name}": res[name]["need"]
                    for fam, res in (("p2e_dv2", p2e_dv2), ("p2e_dv1", p2e_dv1)) for name in ("train", "resume", "finetune")},
+                **{f"dv3_decoupled_{name}": decoupled["dv3"][name]["need"] for name in ("train", "resume")},
+                "dv3_coupled_same_config": decoupled["dv3"]["coupled"]["need"],
             },
             "launches_by_dtype": {
                 **{name: bf16[name]["by_dtype"] for name in ("train", "resume", "evaluation", "serve")},
@@ -4160,7 +4503,7 @@ def main() -> int:
                  "p2e": p2e, "odv3": odv3, "dv2": dv2, "dv1": dv1, "p2e_dv2": p2e_dv2, "p2e_dv1": p2e_dv1,
                  "sac_ae": sac_ae,
                  "ppo": ppo, "rppo": rppo, "a2c": a2c, "anakin": anakin, "sac": sac, "droq": droq,
-                 "sac_anakin": sac_anakin,
+                 "sac_anakin": sac_anakin, "decoupled": decoupled,
                  "kernels": kernels, "phase_done_at_seconds": stamps},
                 f, indent=2,
             )

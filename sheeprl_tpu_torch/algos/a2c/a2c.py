@@ -52,6 +52,9 @@ class A2CTrainer:
         self.apply(torch.autograd.grad(pg + vl, self.params))
         return torch.stack([pg.detach(), vl.detach()])
 
+    def optimizer_state(self) -> Dict[str, Any]:
+        return self.optimizer.state_dict()
+
     def apply(self, grads: Sequence[torch.Tensor]) -> None:
         """One optimizer update from ``grads`` (in parameter order): the global
         norm clip, then the step."""

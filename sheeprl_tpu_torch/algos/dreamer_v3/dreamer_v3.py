@@ -91,10 +91,25 @@ class DreamerTrainer:
     optimizer states in and out of checkpoints. A subclass defines
     ``draw_noise``, ``train_step``, ``agent_state`` and ``group_to_torch``."""
 
+    # a trainer that holds the whole training state only at its train rounds
+    # (the decoupled topology's channel) has run_dreamer postpone a checkpoint
+    # due between rounds to the next round, or to close()
+    defers_checkpoints = False
+
     def extra_state(self) -> Dict[str, Any]:
         """What the trainer adds to a checkpoint besides the agent and the
         optimizer states."""
         return {}
+
+    def checkpoint_state(self) -> Dict[str, Any]:
+        """The checkpoint's agent, optimizer states and extras."""
+        return {"agent": self.agent_state(), "opt_state": self.opt_state(), **self.extra_state()}
+
+    def close(self) -> Optional[Dict[str, Any]]:
+        """The end of the run: a trainer that defers checkpoints returns its
+        final :meth:`checkpoint_state` for a checkpoint still due; this one
+        has nothing deferred."""
+        return None
 
     def _apply(self, name: str, loss: torch.Tensor) -> torch.Tensor:
         """Gradients of ``loss`` for one group only, then :meth:`apply_grads`."""
@@ -112,9 +127,12 @@ class DreamerTrainer:
             p.grad = None
         return norm
 
-    def train(self, data: Batch, cum_steps: int, generator: Optional[torch.Generator]) -> Dict[str, float]:
+    def train(self, data: Batch, cum_steps: int, generator: Optional[torch.Generator],
+              want_full_state: bool = False) -> Dict[str, float]:
         """``G`` gradient steps over a [G, T, B, ...] block; returns the mean of
-        each metric over them."""
+        each metric over them. ``want_full_state`` (a checkpoint is due) is
+        for a trainer that defers checkpoints: this one always holds its
+        whole state."""
         G, T, B = data["rewards"].shape[:3]
         all_metrics = []
         for g in range(G):
@@ -423,7 +441,11 @@ def run_dreamer(
     JAX package's ``run_dreamer``: ``build_agent_fn`` (``build_agent``'s
     signature), ``player_cls(agent, num_envs, cnn_keys, mlp_keys)`` and
     ``make_trainer(agent, cfg)`` (a :class:`DV3Trainer` or a subclass; the
-    trainer also writes the checkpoint's agent and Moments). ``finetuning``
+    trainer also writes the checkpoint's agent and Moments; a trainer that
+    ``defers_checkpoints``, as the decoupled topology's does, holds the whole
+    training state only at its train rounds, so a checkpoint due between
+    rounds waits for the next one, or for the final state ``close()``
+    returns). ``finetuning``
     (Plan2Explore's second phase) has the player act from the first iteration,
     with no random prefill, and switch to ``agent.actor`` (the task actor) once
     learning starts; ``exploration_state`` is the exploration checkpoint the
@@ -496,13 +518,14 @@ def run_dreamer(
     agent = (build_agent_fn or build_agent)(
         fabric, actions_dim, is_continuous, cfg, observation_space, cfg.seed, source["agent"] if source else None
     )
-    player = (player_cls or PlayerDV3)(agent, num_envs, cnn_keys, mlp_keys)
-    if prefill_actor is not None and not isinstance(prefill_actor, torch.nn.Module):
-        prefill_actor = prefill_actor(agent)
     if make_trainer is None:
         trainer = DV3Trainer(agent, cfg, build_optimizers(cfg, agent))
     else:
         trainer = make_trainer(agent, cfg)
+    # a decoupled trainer hands the player its own copy of the agent
+    player = (player_cls or PlayerDV3)(getattr(trainer, "act_agent", agent), num_envs, cnn_keys, mlp_keys)
+    if prefill_actor is not None and not isinstance(prefill_actor, torch.nn.Module):
+        prefill_actor = prefill_actor(agent)
     if state is not None and "opt_state" in state:
         trainer.load_opt_state(state["opt_state"])
     if state is not None and "moments" in state:
@@ -603,7 +626,7 @@ def run_dreamer(
             else:
                 jobs = prepare_obs(obs, cnn_keys=cnn_keys, mlp_keys=mlp_keys, num_envs=num_envs, device=device)
                 if prefill_actor is not None:
-                    player.actor = prefill_actor if iter_num <= learning_starts else agent.actor
+                    player.actor = prefill_actor if iter_num <= learning_starts else player.agent.actor
                 kwargs = {} if expl_amount is None else {"expl_amount": expl_amount(policy_step)}
                 actions = player.get_actions(jobs, generator=generator, **kwargs).cpu().numpy()
                 player_calls += 1
@@ -657,16 +680,19 @@ def run_dreamer(
         env_seconds += time.perf_counter() - t0
 
         preempted = signals.preemption_requested()
+        # computed before the train round, so that a trainer that defers
+        # checkpoints ships its whole state with the round
         pending_ckpt = pending_ckpt or preempted or (
             (cfg.checkpoint.every > 0 and policy_step - last_checkpoint >= cfg.checkpoint.every)
             or cfg.dry_run
             or (iter_num == total_iters and cfg.checkpoint.save_last)
         )
+        trained_this_iter = False
 
         if iter_num >= learning_starts:
-            if finetuning and player.actor is not agent.actor:
+            if finetuning and player.actor is not player.agent.actor:
                 # the prefill over, the player acts with the task actor
-                player.actor = agent.actor
+                player.actor = player.agent.actor
                 actor_switch = {"iteration": iter_num, "player_calls_before": player_calls}
             per_rank_gradient_steps = ratio(policy_step - prefill_steps * policy_steps_per_iter)
             if per_rank_gradient_steps > 0:
@@ -682,7 +708,9 @@ def run_dreamer(
                         uint8_keys=cnn_keys,
                         device=device,
                     )
-                    metrics = trainer.train(data, cumulative_per_rank_gradient_steps, generator)
+                    metrics = trainer.train(data, cumulative_per_rank_gradient_steps, generator,
+                                            want_full_state=pending_ckpt)
+                    trained_this_iter = True
                     cumulative_per_rank_gradient_steps += per_rank_gradient_steps
                     train_step += per_rank_gradient_steps
                     if aggregator is not None:
@@ -722,13 +750,11 @@ def run_dreamer(
             last_log = policy_step
             last_train = train_step
 
-        if pending_ckpt:
+        if pending_ckpt and (not trainer.defers_checkpoints or trained_this_iter):
             last_checkpoint = policy_step
             pending_ckpt = False
             ckpt_state = {
-                "agent": trainer.agent_state(),
-                "opt_state": trainer.opt_state(),
-                **trainer.extra_state(),
+                **trainer.checkpoint_state(),
                 "ratio": ratio.state_dict(),
                 "iter_num": iter_num,
                 "batch_size": cfg.algo.per_rank_batch_size,
@@ -749,6 +775,25 @@ def run_dreamer(
             break
 
     window_seconds = time.perf_counter() - window_t0 - window_ckpt_seconds if window_t0 is not None else 0.0
+    final_state = trainer.close()
+    if pending_ckpt and final_state is not None:
+        # the deferred last checkpoint, from the state the trainer ended with
+        ckpt_state = {
+            **final_state,
+            "ratio": ratio.state_dict(),
+            # iter_num, not total_iters: a preempted run flushes here before its end
+            "iter_num": iter_num,
+            "batch_size": cfg.algo.per_rank_batch_size,
+            "last_log": last_log,
+            "last_checkpoint": policy_step,
+        }
+        ckpt_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
+        save_run_checkpoint(
+            ckpt_path,
+            ckpt_state,
+            replay_buffer=rb if cfg.buffer.checkpoint else None,
+            keep_last=int(cfg.checkpoint.get("keep_last") or 0),
+        )
     envs.close()
     test_reward = None
     calls_before_test = player.calls

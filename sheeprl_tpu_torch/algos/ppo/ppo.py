@@ -111,6 +111,9 @@ class PPOTrainer:
     def step(self, loss: torch.Tensor) -> None:
         self.apply(torch.autograd.grad(loss, self.params))
 
+    def optimizer_state(self) -> Dict[str, Any]:
+        return self.optimizer.state_dict()
+
     def apply(self, grads: Sequence[torch.Tensor]) -> None:
         apply_update(self.optimizer, self.params, grads, self.max_grad_norm, self.schedule)
 
@@ -128,6 +131,12 @@ class PPOTrainer:
         flat = {k: v.transpose(0, 1).reshape(-1, *v.shape[2:]) for k, v in data.items()}
         flat["returns"] = returns.transpose(0, 1).reshape(-1, 1)
         flat["advantages"] = advantages.transpose(0, 1).reshape(-1, 1)
+        return self.train_rows(flat, perms, clip_coef, ent_coef)
+
+    def train_rows(self, flat: Batch, perms: Sequence[torch.Tensor], clip_coef: float, ent_coef: float) -> torch.Tensor:
+        """The epochs over ``num_rows`` flat rows (the returns and advantages
+        among them): one permutation per epoch, each cut into minibatches.
+        Returns the mean policy, value and entropy losses, [3], on the device."""
         pad = self.num_minibatches * self.batch_size - self.num_rows
         losses = []
         for perm in perms:
@@ -148,10 +157,13 @@ def to_device(arrays: Dict[str, np.ndarray], device) -> Batch:
     return {k: torch.as_tensor(np.asarray(v)).to(device).float() for k, v in arrays.items()}
 
 
-def run_on_policy(fabric, cfg: Dict[str, Any], algo: str) -> Dict[str, Any]:
+def run_on_policy(fabric, cfg: Dict[str, Any], algo: str, make_trainer=None) -> Dict[str, Any]:
     """The PPO (``algo="ppo"``) and A2C (``"a2c"``) training loop: rollouts of
     ``rollout_steps`` vector steps acted on the host, then one train phase on
-    the device. Returns a summary of the run."""
+    the device. ``make_trainer(agent, cfg, total_iters)`` builds PPO's trainer
+    in place of :class:`PPOTrainer`, as the decoupled topology's
+    ``run_player`` does: its ``agent`` is the one the loop acts with,
+    checkpoints and tests. Returns a summary of the run."""
     from sheeprl_tpu_torch.envs import spaces
     from sheeprl_tpu_torch.envs.spaces import action_space_dims, env_actions
     from sheeprl_tpu_torch.envs.vector import SyncVectorEnv, episode_stats
@@ -216,7 +228,9 @@ def run_on_policy(fabric, cfg: Dict[str, Any], algo: str) -> Dict[str, Any]:
     if state is not None:
         cfg.algo.per_rank_batch_size = state["batch_size"]
 
-    if is_ppo:
+    if make_trainer is not None:
+        trainer = make_trainer(agent, cfg, total_iters)
+    elif is_ppo:
         optimizer, schedule = build_optimizer(cfg, agent, total_iters)
         trainer = PPOTrainer(agent, optimizer, cfg, schedule)
     else:
@@ -251,8 +265,10 @@ def run_on_policy(fabric, cfg: Dict[str, Any], algo: str) -> Dict[str, Any]:
             f"policy_steps_per_iter value ({policy_steps_per_iter})."
         )
 
-    # the acting agent: a host copy (see the module docstring)
-    act_agent = agent if device.type == "cpu" else copy.deepcopy(agent).to("cpu")
+    # from here on the agent is the trainer's (the decoupled player's own copy,
+    # on the host); the acting agent a host copy of it (see the module docstring)
+    agent = trainer.agent
+    act_agent = agent if next(agent.parameters()).device.type == "cpu" else copy.deepcopy(agent).to("cpu")
     act_generator = torch.Generator().manual_seed(int(cfg.seed))
     train_generator = torch.Generator().manual_seed(int(cfg.seed) + 1)
 
@@ -385,7 +401,7 @@ def run_on_policy(fabric, cfg: Dict[str, Any], algo: str) -> Dict[str, Any]:
             last_checkpoint = policy_step
             ckpt_state = {
                 "agent": ppo_to_flax(agent),
-                "optimizer": trainer.optimizer.state_dict(),
+                "optimizer": trainer.optimizer_state(),
                 "iter_num": iter_num,
                 "batch_size": cfg.algo.per_rank_batch_size,
                 "last_log": last_log,

@@ -234,10 +234,13 @@ class SACTrainer:
             load_optimizer_state(opt, opt_state[name], sac_group_to_torch(self.agent, name))
 
 
-def run_off_policy(fabric, cfg: Dict[str, Any], name: str, build_agent, trainer_cls) -> Dict[str, Any]:
+def run_off_policy(fabric, cfg: Dict[str, Any], name: str, build_agent, trainer_cls,
+                   make_trainer=None) -> Dict[str, Any]:
     """The training loop of SAC, DroQ and SAC-AE (``name`` in messages), with
     the algorithm's ``build_agent`` and trainer class (its checks, optimizers,
-    replay rows, acting, checkpoint agent and test). Returns a summary of the
+    replay rows, acting, checkpoint agent and test); ``make_trainer`` (the
+    class's signature) builds the trainer in its place, as the decoupled
+    topology's ``run_player`` does. Returns a summary of the
     run: policy and gradient steps, train phases, seconds spent stepping envs
     and training, the steady-state window (from the first iteration after
     learning starts to the loop's end, without checkpoint writes), the last
@@ -281,7 +284,9 @@ def run_off_policy(fabric, cfg: Dict[str, Any], name: str, build_agent, trainer_
     agent = build_agent(fabric, cfg, observation_space, action_space, int(cfg.seed), state["agent"] if state else None)
     act_dim = int(np.prod(action_space.shape))
     policy_steps_per_iter = num_envs
-    trainer = trainer_cls(agent, trainer_cls.build_optimizers(cfg, agent), cfg, -float(act_dim), policy_steps_per_iter)
+    trainer = (make_trainer or trainer_cls)(
+        agent, trainer_cls.build_optimizers(cfg, agent), cfg, -float(act_dim), policy_steps_per_iter
+    )
     if state is not None:
         trainer.load_opt_state(state["opt_state"])
     save_configs(cfg, log_dir)

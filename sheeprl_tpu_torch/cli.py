@@ -23,10 +23,15 @@ values: telemetry, the profiler, the supervisor, fault injection, the
 watchdog, gangs, the replay prefetch thread and service backend, sharded and
 asynchronous checkpoints. ``buffer.backend=device`` (the replay ring on the
 card) is for ``sac_anakin`` only, as in the JAX CLI.
+
+The port runs in one process: a launch of more than one is refused. The
+decoupled algorithms (a player loop and a learner thread) take the JAX CLI's
+checks of their topology (``check_topology``).
 """
 
 from __future__ import annotations
 
+import os
 import sys
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Sequence
@@ -128,7 +133,7 @@ def unported_settings(cfg) -> List[str]:
         # the thread samples ahead for the replay loops; the on-policy loops do not read the key
         "buffer.prefetch.enabled (the prefetch thread)": bool((buffer.get("prefetch") or {}).get("enabled"))
         and str((cfg.get("algo") or {}).get("name", "")) not in ("ppo", "a2c", "ppo_recurrent", "ppo_anakin",
-                                                                  "a2c_anakin", "sac_anakin"),
+                                                                  "a2c_anakin", "sac_anakin", "ppo_decoupled"),
         "buffer.backend=service": str(buffer.get("backend", "local")) == "service",
         "checkpoint.backend other than pickle": str(checkpoint.get("backend", "pickle")) != "pickle",
         "checkpoint.async_save": bool(checkpoint.get("async_save")),
@@ -152,12 +157,53 @@ def unported_precision(cfg) -> None:
         )
 
 
+def launch_processes() -> int:
+    """The processes this launch says it has: ``torchrun``'s ``WORLD_SIZE`` or
+    the JAX package's gang (``SHEEPRL_GANG_PROCESSES``)."""
+    return max(int(os.environ.get(var) or 1) for var in ("WORLD_SIZE", "SHEEPRL_GANG_PROCESSES"))
+
+
+def check_topology(cfg) -> None:
+    """The JAX CLI's checks of a decoupled algorithm's topology (at least one
+    actor, no ``single_device`` strategy, ``devices >= 1``, a 1-D mesh), and
+    the port's own: one process."""
+    from sheeprl_tpu_torch.utils.registry import DECOUPLED
+
+    processes = launch_processes()
+    if processes > 1:
+        raise NotImplementedError(
+            f"a launch with {processes} processes: the port runs in one process (it has no counterpart of "
+            "jax.distributed yet); launch one process, where the decoupled algorithms run their learner in a thread"
+        )
+    if cfg.algo.name not in DECOUPLED:
+        return
+    if int(os.environ.get("SHEEPRL_NUM_ACTORS", "1")) < 1:
+        raise ValueError("decoupled algorithms need at least one actor process")
+    fabric = cfg.get("fabric") or {}
+    if str(fabric.get("strategy", "auto")) == "single_device":
+        raise ValueError(
+            f"{cfg.algo.name} is decoupled and is not supported by the single_device "
+            "strategy; launch with 'fabric.strategy=dp' or 'fabric.strategy=auto'"
+        )
+    devices = int(fabric.get("devices", 1))
+    if devices < 1:
+        raise ValueError(f"decoupled algorithms need fabric.devices >= 1, got {devices}")
+    mesh_shape = fabric.get("mesh_shape")
+    if mesh_shape is not None and not isinstance(mesh_shape, int) and len(mesh_shape) > 1:
+        raise ValueError(
+            f"{cfg.algo.name} is decoupled: its player and learner run 1-D data meshes (a multi-axis "
+            f"fabric.mesh_shape={list(mesh_shape)} is only supported by the coupled topologies)"
+        )
+
+
 def check_configs(cfg) -> Callable:
-    """The training loop of ``cfg.algo.name``; raises for an unknown algorithm
-    or a setting that is not yet ported."""
+    """The training loop of ``cfg.algo.name``; raises for an unknown algorithm,
+    a topology the algorithm does not take, or a setting that is not yet
+    ported."""
     from sheeprl_tpu_torch.utils.registry import ALGORITHMS, load_entrypoint
 
     main = load_entrypoint(ALGORITHMS, cfg.algo.name, "training loop")
+    check_topology(cfg)
     check_buffer_backend(cfg)
     unported_precision(cfg)
     unported = unported_settings(cfg)

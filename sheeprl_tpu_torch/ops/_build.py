@@ -38,6 +38,8 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 # nvcc builds and library loads of this process, and their seconds
 _lock_events = threading.Lock()
 _events = {"builds": 0, "loads": 0, "seconds": 0.0}
+# launch counts: the decoupled topology's player and learner threads both launch
+_lock_launches = threading.Lock()
 
 
 @dataclass
@@ -55,12 +57,14 @@ class KernelSpec:
     launches_by_dtype: Dict[str, int] = field(default_factory=dict)
 
     def count_launch(self, dtype: str) -> None:
-        self.launches += 1
-        self.launches_by_dtype[dtype] = self.launches_by_dtype.get(dtype, 0) + 1
+        with _lock_launches:
+            self.launches += 1
+            self.launches_by_dtype[dtype] = self.launches_by_dtype.get(dtype, 0) + 1
 
     def zero_launches(self) -> None:
-        self.launches = 0
-        self.launches_by_dtype.clear()
+        with _lock_launches:
+            self.launches = 0
+            self.launches_by_dtype.clear()
 
     @property
     def source_path(self) -> Path:

@@ -40,7 +40,12 @@ ALGORITHMS: Dict[str, Tuple[str, str]] = {
     "sac_anakin": ("sheeprl_tpu_torch.algos.sac.sac_anakin", "main"),
     "droq": ("sheeprl_tpu_torch.algos.droq.droq", "main"),
     "sac_ae": ("sheeprl_tpu_torch.algos.sac_ae.sac_ae", "main"),
+    "ppo_decoupled": ("sheeprl_tpu_torch.algos.ppo.ppo_decoupled", "main"),
+    "sac_decoupled": ("sheeprl_tpu_torch.algos.sac.sac_decoupled", "main"),
+    "dreamer_v3_decoupled": (f"{_DV3}.dreamer_v3_decoupled", "main"),
 }
+# the JAX registry's ``decoupled`` flag: a player loop and a learner thread
+DECOUPLED = frozenset({"ppo_decoupled", "sac_decoupled", "dreamer_v3_decoupled"})
 # ``evaluate(fabric, cfg, state)``
 EVALUATIONS: Dict[str, Tuple[str, str]] = {
     **{name: (f"{_DV3}.evaluate", "evaluate") for name in _DV3_NAMES},
@@ -54,12 +59,14 @@ EVALUATIONS: Dict[str, Tuple[str, str]] = {
     **{name: (f"{_P2E_DV1}.evaluate", "evaluate") for name in ("p2e_dv1_exploration", "p2e_dv1_finetuning")},
     **{name: (f"{_P2E_DV2}.evaluate", "evaluate") for name in ("p2e_dv2_exploration", "p2e_dv2_finetuning")},
     "ppo": ("sheeprl_tpu_torch.algos.ppo.evaluate", "evaluate"),
+    "ppo_decoupled": ("sheeprl_tpu_torch.algos.ppo.evaluate", "evaluate"),
     "a2c": ("sheeprl_tpu_torch.algos.ppo.evaluate", "evaluate"),
     # the Anakin checkpoints hold the PPO agent
     "ppo_anakin": ("sheeprl_tpu_torch.algos.ppo.evaluate", "evaluate"),
     "a2c_anakin": ("sheeprl_tpu_torch.algos.ppo.evaluate", "evaluate"),
     "ppo_recurrent": ("sheeprl_tpu_torch.algos.ppo_recurrent.evaluate", "evaluate"),
     "sac": ("sheeprl_tpu_torch.algos.sac.evaluate", "evaluate"),
+    "sac_decoupled": ("sheeprl_tpu_torch.algos.sac.evaluate", "evaluate"),
     "droq": ("sheeprl_tpu_torch.algos.droq.evaluate", "evaluate"),
     "sac_ae": ("sheeprl_tpu_torch.algos.sac_ae.evaluate", "evaluate"),
 }
@@ -70,9 +77,10 @@ SERVE_POLICIES: Dict[str, Tuple[str, str]] = {
     "dreamer_v1": (f"{_DV1}.serve", "get_serve_policy"),
     # A2C and the Anakin checkpoints hold the PPO agent
     **{name: ("sheeprl_tpu_torch.algos.ppo.serve", "get_serve_policy")
-       for name in ("ppo", "a2c", "ppo_anakin", "a2c_anakin")},
+       for name in ("ppo", "ppo_decoupled", "a2c", "ppo_anakin", "a2c_anakin")},
     "ppo_recurrent": ("sheeprl_tpu_torch.algos.ppo_recurrent.serve", "get_serve_policy"),
     "sac": ("sheeprl_tpu_torch.algos.sac.serve", "get_serve_policy"),
+    "sac_decoupled": ("sheeprl_tpu_torch.algos.sac.serve", "get_serve_policy"),
     "droq": ("sheeprl_tpu_torch.algos.sac.serve", "get_serve_policy_droq"),
 }
 

@@ -222,6 +222,8 @@ def _get(url: str):
             return resp.status, json.loads(resp.read())
     except urllib.error.HTTPError as exc:
         return exc.code, json.loads(exc.read())
+    except (urllib.error.URLError, ConnectionError):
+        return None, {}  # no answer (the endpoint is not up, or closed): the caller polls on
 
 
 def _wait_health(url: str, status: str, timeout: float = 120.0):
@@ -245,7 +247,7 @@ def test_healthz_moves_through_readiness_states(tmp_path):
     boot = _write_run(tmp_path / "run")
     cfg = build_serve_cfg([f"checkpoint_path={boot}", "fabric.accelerator=cpu", "serve.sessions=1",
                            "serve.slots=1", "serve.max_session_steps=1000000", "env.wrapper.n_steps=1000000",
-                           "serve.drain_grace_s=0.2", "metric.telemetry.http_port=0"])
+                           "serve.drain_grace_s=5", "metric.telemetry.http_port=0"])
     attempt = _ServeAttempt(cfg, Fabric(accelerator="cpu"), str(tmp_path / "log"))
     port = attempt.telemetry.metrics_endpoint.port
     url = f"http://127.0.0.1:{port}/healthz"
@@ -259,6 +261,8 @@ def test_healthz_moves_through_readiness_states(tmp_path):
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=5) as resp:
             assert resp.status == 200
         signals.request_preemption()
+        # the session never ends by itself, so the drain waits out its whole
+        # grace: /healthz says "draining" for 5 s, far longer than a poll
         code, body = _wait_health(url, "draining")
         assert code == 503 and body["ready"] is False
         runner.join(timeout=120)
