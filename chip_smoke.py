@@ -2,7 +2,13 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py [--out results.json]
 
-Phases, in order; any failure exits non-zero and prints no result line:
+Phases, in order; any failure exits non-zero and prints no result line.
+Phases 6-7b and their profiles reach no kernel and share nothing with the
+Dreamer phases: once phase 3's timings are done, a child of this script
+(``--model-free-out``) runs them on the same card beside phases 4-7d, so
+their times are measured beside that work. This process waits for the child
+before phase 8's kernel profiles and fails when the child fails (its log's
+tail printed) or outlives ``MODEL_FREE_TIMEOUT_S``.
 
 1. report the card (nvidia-smi name and power limit) and the torch build;
    without CUDA, exit 1;
@@ -180,6 +186,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
    of each, driven through its thread, card vs CPU with TF32 off at the
    coupled families' bars; the seconds a round takes at each exp's shape and
    the share of it spent in the handoff copy;
+7d. the decoupled topology as two processes: each of ``exp=dreamer_v3_decoupled``
+   (phase 7c's S config), ``exp=ppo_decoupled`` (CartPole-v1, 4 rounds) and
+   ``exp=sac_decoupled`` (Pendulum-v1, 300 steps) launched through
+   ``python -m sheeprl_tpu_torch`` as a player (rank 0, which opens the
+   store on a free port) and a learner (rank 1) on the card, beside its
+   thread mode at the same config in this process, both with
+   ``xla_deterministic_ops`` on (the three two-process runs start together,
+   and this process runs the thread modes beside them): every checkpoint bitwise
+   equal; DV3's LN-GRU launches, player plus learner, equal to the thread
+   run's and to 79 a gradient step plus one a policy step; the seconds a
+   round takes as the player sees it, the learner's share and the handoff's
+   (host copies, pickling and the store, both ways);
 8. the profiles, under torch.profiler tracing the card only (host events
    would multiply the traces' processing and slow the profiled steps) and
    only now (once it has run, later eager launches cost more host time): each phase-3 shape's device time by
@@ -191,7 +209,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    step at 16 x 50, a P2E-DV1 step at 50 x 50 and a SAC-AE train phase of 4
    steps at batch 128; a PPO, a recurrent PPO and a SAC train phase and an
    Anakin iteration at both timed widths (busy share, device operations); a
-   SAC Anakin iteration at both timed widths, whole and by part;
+   SAC Anakin iteration at both timed widths, whole and by part (these last
+   five at the end of the child's phases);
 9. print the ``kernels`` JSON line, the card line, and the final result line.
 
 The training phase launches with the config's defaults for video capture
@@ -4133,6 +4152,265 @@ def time_decoupled_rounds(rounds: int = 3) -> dict:
     return out
 
 
+# -- the decoupled topology as two processes (phase 7d) -----------------------------------
+# Each entry through ``python -m sheeprl_tpu_torch`` as two processes on the card
+# (the player, rank 0, opens the store; the learner, rank 1), beside its thread
+# mode at the same config in this process, both with xla_deterministic_ops on,
+# so the two write the same checkpoints bit for bit. DV3 takes phase 7c's S
+# config (80 prefill iterations, 4 training iterations of 4 gradient steps, the
+# checkpoint deferred to step 320 and the last at 336); PPO and SAC cut their
+# exps' steps (no learning gate here: phases 6, 7 and 7c hold the rewards).
+# A two-process run spends ~25-35 s starting its processes: the six runs one
+# after the other took 257 s, and with PPO's and SAC's two processes beside
+# the thread-mode runs and DV3's alone after them 114 s, which brought the
+# smoke to 1187 s on a slow host (both NVIDIA H100 80GB HBM3, 700 W). So the
+# three two-process runs start together, and this process runs the three
+# thread-mode runs beside them: their round times are measured beside each
+# other's work.
+DEC2_PPO_STEPS = 4 * PPO_STEPS_PER_ITER  # 4 rounds of 80 updates, 2 checkpoints
+DEC2_SAC_STEPS = 300  # 25 iterations before learning starts, then 50 rounds of 4 gradient steps
+DEC2_TIMEOUT_S = 300.0
+
+
+def _start_two_processes(name: str, overrides: list, log_path: str) -> dict:
+    """``python -m sheeprl_tpu_torch *overrides`` as a player and a learner
+    process from the checkout's root, the learner started on the port the
+    player printed. Returns the handle :func:`_finish_two_processes` waits on."""
+    import re
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root, "SHEEPRL_GANG_PROCESSES": "2"}
+    run = {"name": name, "root": root, "logs": [f"{log_path}.rank{rank}.log" for rank in range(2)], "procs": [],
+           "t0": time.perf_counter()}
+
+    def start(rank: int, coordinator: str) -> None:
+        with open(run["logs"][rank], "w") as log:
+            run["procs"].append(subprocess.Popen(
+                [sys.executable, "-m", "sheeprl_tpu_torch", *overrides], cwd=root, stdout=log,
+                stderr=subprocess.STDOUT, env={**env, "SHEEPRL_COORDINATOR": coordinator, "SHEEPRL_GANG_RANK": str(rank)},
+            ))
+
+    try:
+        start(0, "127.0.0.1:0")
+        port = None
+        while port is None:
+            found = re.search(r"coordinator listening on \S+:(\d+)", open(run["logs"][0]).read())
+            port = found and found.group(1)
+            if port is None and (run["procs"][0].poll() is not None or time.perf_counter() - run["t0"] > DEC2_TIMEOUT_S):
+                raise AssertionError(f"{name}: the player opened no store")
+            time.sleep(0.05)
+        start(1, f"127.0.0.1:{port}")
+    except BaseException as exc:
+        _kill_two_processes(run)
+        raise AssertionError(f"{name}: {exc!r}\n{_two_process_tails(run)}") from exc
+    return run
+
+
+def _two_process_tails(run: dict) -> str:
+    return "\n".join(f"--- {run['name']} rank {i}:\n{open(p).read()[-4000:]}" for i, p in enumerate(run["logs"])
+                     if os.path.exists(p))
+
+
+def _kill_two_processes(run: dict) -> None:
+    for p in run["procs"]:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+
+
+def _finish_two_processes(run: dict) -> dict:
+    """Wait for both processes (both killed past ``DEC2_TIMEOUT_S``). Returns
+    the player's ``learner process`` report, its log dir and the wall seconds."""
+    import re
+
+    try:
+        rcs = [p.wait(timeout=max(1.0, DEC2_TIMEOUT_S - (time.perf_counter() - run["t0"]))) for p in run["procs"]]
+    except BaseException as exc:
+        _kill_two_processes(run)
+        raise AssertionError(f"{run['name']}: {exc!r}\n{_two_process_tails(run)}") from exc
+    seconds = time.perf_counter() - run["t0"]
+    if rcs != [0, 0]:
+        raise AssertionError(f"{run['name']}: exit codes {rcs}\n{_two_process_tails(run)}")
+    player = open(run["logs"][0]).read()
+    report = re.search(r"^\[sheeprl\] learner process: (\{.*\})$", player, re.MULTILINE)
+    log_dir = re.search(r"^Log dir: (.*)$", player, re.MULTILINE)
+    if not (report and log_dir):
+        raise AssertionError(f"{run['name']}: the player printed no report or log dir\n{_two_process_tails(run)}")
+    return {"report": json.loads(report.group(1)), "log_dir": os.path.join(run["root"], log_dir.group(1)),
+            "seconds": seconds}
+
+
+def _checkpoint_gaps(ours: str, theirs: str) -> list:
+    """The leaves (all but the replay buffer) where two checkpoints differ in
+    any bit."""
+    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                yield from walk(v, f"{prefix}/{k}")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                yield from walk(v, f"{prefix}/{i}")
+        else:
+            yield prefix, node
+
+    a, b = ({k: v for k, v in walk({n: x for n, x in load_checkpoint(path).items() if n != "rb"}, "")}
+            for path in (ours, theirs))
+    gaps = sorted(set(a) ^ set(b))
+    for key in set(a) & set(b):
+        x, y = a[key], b[key]
+        if isinstance(x, (torch.Tensor, np.ndarray)) or isinstance(y, (torch.Tensor, np.ndarray)):
+            x, y = np.asarray(x), np.asarray(y)
+            if x.dtype != y.dtype or x.shape != y.shape or x.tobytes() != y.tobytes():
+                gaps.append(key)
+        elif x != y:
+            gaps.append(key)
+    return sorted(gaps)
+
+
+def _thread_mode_run(overrides: list, run_dir: str) -> dict:
+    """The thread mode of an entry in this process, deterministic, with its
+    LN-GRU launches."""
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.parallel.fabric import apply_deterministic_ops
+
+    _zero_launches()
+    try:
+        summary = run(overrides + [f"hydra.run.dir={run_dir}"])
+    finally:
+        apply_deterministic_ops(False)
+    return {"summary": summary, "launches": _launches()[LN_GRU.name]}
+
+
+def _compare_modes(name: str, thread: dict, procs: dict, dv3: bool = False) -> dict:
+    """The two-process run against the thread mode: the same checkpoints bit
+    for bit; DV3's LN-GRU launches, player plus learner, the thread run's and
+    its count (79 a gradient step, one a policy step)."""
+    summary = thread["summary"]
+    names = {d: sorted(c for c in os.listdir(os.path.join(d, "checkpoint")) if c.endswith(".ckpt"))
+             for d in (summary["log_dir"], procs["log_dir"])}
+    if names[summary["log_dir"]] != names[procs["log_dir"]] or not names[summary["log_dir"]]:
+        raise AssertionError(f"{name}: checkpoints {names}")
+    gaps = {c: _checkpoint_gaps(os.path.join(procs["log_dir"], "checkpoint", c),
+                                os.path.join(summary["log_dir"], "checkpoint", c)) for c in names[summary["log_dir"]]}
+    report = procs["report"]
+    by_role = {role: report["launches"][role][LN_GRU.name] for role in ("player", "learner")}
+    out = {"checkpoints": names[summary["log_dir"]], "gaps": gaps,
+           "launches": {**by_role, "thread": thread["launches"]}, "report": report, "seconds": procs["seconds"],
+           "thread_seconds": summary["wall_seconds"]}
+    if dv3:
+        out["need"] = (GRU_CALLS_PER_GRAD_STEP * summary["gradient_steps"] + summary["player_calls"]
+                       + summary["test_player_calls"])
+    print(f"[chip-smoke] {name} as two processes on the card (beside the other runs of phase 7d): "
+          f"{report['rounds']} rounds of {report['round_seconds']:.4f}s (learner {report['learner_round_seconds']:.4f}s, "
+          f"handoff share {report['handoff_share']:.4f}; first round {report['first_round_seconds']:.2f}s), run "
+          f"{procs['seconds']:.1f}s (thread mode {summary['wall_seconds']:.1f}s); checkpoints {out['checkpoints']} "
+          f"bitwise equal to the thread mode's: {not any(gaps.values())}; LN-GRU launches {json.dumps(out['launches'])}"
+          + (f", need {out['need']}" if dv3 else ""), flush=True)
+    if any(gaps.values()):
+        raise AssertionError(f"{name}: the two-process checkpoints differ from the thread mode's at {gaps}")
+    total = by_role["player"] + by_role["learner"]
+    if dv3 and not (total == thread["launches"] == out["need"] and by_role["learner"] > 0 and by_role["player"] > 0):
+        raise AssertionError(f"{name}: LN-GRU launches {out['launches']}, need {out['need']}")
+    if not dv3 and (total or thread["launches"]):
+        raise AssertionError(f"{name} launched the LN-GRU kernel: its agent has no LN-GRU cell")
+    return out
+
+
+def two_process_paths(out_dir: str) -> dict:
+    """Phase 7d: DV3 S, PPO on CartPole-v1 and SAC on Pendulum-v1, each as two
+    processes, all started together, while this process runs the three
+    entries' thread mode; each held to its thread mode."""
+    os.makedirs(out_dir, exist_ok=True)
+    dv3 = [o for o in _dec_overrides("dreamer_v3_decoupled", "") if not o.startswith("hydra.run.dir=")]
+    entries = {
+        "dv3": ("dreamer_v3_decoupled", dv3 + [f"algo.total_steps={TRAIN_ENVS * DEC_FIRST_ITERS}"]),
+        "ppo": ("ppo_decoupled", ["exp=ppo_decoupled", f"algo.total_steps={DEC2_PPO_STEPS}",
+                                  f"checkpoint.every={DEC2_PPO_STEPS // 2}"]),
+        "sac": ("sac_decoupled", ["exp=sac_decoupled", "env.id=Pendulum-v1", f"algo.total_steps={DEC2_SAC_STEPS}",
+                                  f"checkpoint.every={DEC2_SAC_STEPS // 2}"]),
+    }
+    args = {fam: overrides + ["xla_deterministic_ops=True", "env.capture_video=False"]
+            for fam, (_, overrides) in entries.items()}
+
+    def start(fam: str) -> dict:
+        name = entries[fam][0]
+        return _start_two_processes(name, args[fam] + [f"hydra.run.dir={os.path.join(out_dir, name, 'processes')}"],
+                                    os.path.join(out_dir, name))
+
+    running = {}
+    try:
+        for fam in entries:
+            running[fam] = start(fam)
+        threads = {fam: _thread_mode_run(args[fam], os.path.join(out_dir, entries[fam][0], "thread"))
+                   for fam in entries}
+        procs = {fam: _finish_two_processes(running.pop(fam)) for fam in entries}
+    finally:
+        for run in running.values():
+            _kill_two_processes(run)
+    return {fam: _compare_modes(entries[fam][0], threads[fam], procs[fam], dv3=fam == "dv3") for fam in entries}
+
+
+def model_free_phases(tmp: str, stamp) -> dict:
+    """Phases 6-7b and the model-free part of phase 8: PPO and A2C, recurrent
+    PPO, the on-policy Anakin topology, SAC and DroQ, the off-policy Anakin
+    topology, then their profiles (last: once the profiler has run, later eager
+    launches cost more host time). None of them reaches the LN-GRU kernel;
+    :func:`main` runs them in a child process beside the Dreamer phases."""
+    ppo = ppo_path(tmp)
+    ppo["serve"] = ppo_serve_path(ppo["train"]["summary"]["checkpoint"], tmp)
+    a2c = a2c_path(tmp)
+    ppo["parity"] = ppo_train_phase_parity()
+    a2c["rmsprop_parity"] = a2c_rmsprop_parity()
+    ppo["timing"], ppo_warm = time_ppo()
+    stamp("phase 6")
+    # recurrent PPO: train, resume, evaluate, serve; a phase and a serve step card vs CPU
+    rppo = rppo_path(tmp)
+    rppo["parity"] = rppo_parity()
+    rppo["timing"], rppo_warm = time_rppo()
+    stamp("phase 6b")
+    # the on-policy Anakin topology: train, resume, evaluate, serve; the env
+    # step, the train phases and an iteration card vs CPU; host syncs; timing
+    anakin = anakin_path(tmp)
+    anakin["env_parity"] = anakin_env_parity()
+    anakin["train_parity"] = anakin_train_parity()
+    anakin["step_parity"] = anakin_step_parity()
+    anakin["syncs"] = anakin_syncs()
+    anakin["deterministic"] = {kind: deterministic_step(kind) for kind in ("ppo_anakin", "a2c_anakin")}
+    if not all(r["ok"] for r in anakin["deterministic"].values()):
+        raise AssertionError(f"an Anakin step failed with xla_deterministic_ops on: {anakin['deterministic']}")
+    anakin["timing"], anakin_warm = time_anakin()
+    stamp("phase 6c")
+    sac = sac_path(tmp)
+    sac["serve"] = sac_serve_path(sac["ckpt"], tmp)
+    droq = droq_path(tmp)
+    sac["parity"] = sac_train_phase_parity("sac")
+    droq["parity"] = sac_train_phase_parity("droq")
+    sac["timing"], sac_warm = time_sac()
+    stamp("phase 7")
+    # the off-policy Anakin topology: train and resume with the ring; host
+    # syncs; the ring and an iteration card vs CPU; deterministic mode; timing
+    sac_anakin = sac_anakin_path(tmp)
+    sac_anakin["syncs"] = sac_anakin_syncs()
+    sac_anakin["ring_parity"] = sac_anakin_ring_parity()
+    sac_anakin["step_parity"] = sac_anakin_step_parity()
+    sac_anakin["exp_step_parity"] = sac_anakin_step_parity((), gate=False)
+    sac_anakin["deterministic"] = deterministic_step("sac_anakin")
+    if not sac_anakin["deterministic"]["ok"]:
+        raise AssertionError(f"the sac_anakin step failed with xla_deterministic_ops on: {sac_anakin['deterministic']}")
+    sac_anakin["timing"], sac_anakin_warm = time_sac_anakin()
+    stamp("phase 7b")
+    ppo["timing"]["profile"] = profile_ppo_train_phase(ppo_warm)
+    rppo["timing"]["profile"] = profile_rppo_train_phase(rppo_warm)
+    sac["timing"]["profile"] = profile_sac_train_phase(sac_warm)
+    anakin["timing"]["profile"] = profile_anakin(anakin_warm)
+    sac_anakin["timing"]["profile"] = profile_sac_anakin(sac_anakin_warm)
+    stamp("phase 8, the model-free profiles")
+    return {"ppo": ppo, "a2c": a2c, "rppo": rppo, "anakin": anakin, "sac": sac, "droq": droq,
+            "sac_anakin": sac_anakin}
+
+
 def serve_step_parity(ckpt: str, precision: str = "32-true") -> dict:
     """The batched DV3 serve step on the card vs on the CPU at ``precision``,
     same weights, observations and noise (in the policy's dtype), 8 ticks.
@@ -4246,10 +4524,66 @@ def profile_ticks(ckpt: str, ticks: int = 32) -> dict:
     return out
 
 
+MODEL_FREE_TIMEOUT_S = 900.0  # the child's phases took 400-460 s on the slowest host seen
+
+
+def _start_model_free(tmp: str) -> dict:
+    """This script as a child (``--model-free-out``) running
+    :func:`model_free_phases` on the same card, its output in a log."""
+    out, log_path = os.path.join(tmp, "model_free.json"), os.path.join(tmp, "model_free.log")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--model-free-out", out],
+                                cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log, stderr=subprocess.STDOUT)
+    return {"proc": proc, "out": out, "log": log_path, "t0": time.perf_counter()}
+
+
+def _finish_model_free(child: dict) -> dict:
+    """Wait for the child (killed past ``MODEL_FREE_TIMEOUT_S`` from its start),
+    print its phase stamps, and return its results; raise with its log's tail
+    when it failed."""
+    proc = child["proc"]
+    try:
+        rc = proc.wait(timeout=max(1.0, MODEL_FREE_TIMEOUT_S - (time.perf_counter() - child["t0"])))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    log = open(child["log"]).read()
+    for line in log.splitlines():
+        if line.startswith("[chip-smoke]") and " done at " in line:
+            print(line.replace("[chip-smoke]", "[chip-smoke] (model-free child)", 1), flush=True)
+    if rc != 0 or not os.path.exists(child["out"]):
+        raise AssertionError(f"the model-free phases' child exited {rc}:\n{log[-8000:]}")
+    with open(child["out"]) as f:
+        return json.load(f)
+
+
+def model_free_main(out: str) -> int:
+    """The child's side: phases 6-7b and their profiles, the results to ``out``."""
+    if not torch.cuda.is_available():
+        print("[chip-smoke] torch.cuda.is_available() is false: this smoke needs a CUDA card", file=sys.stderr)
+        return 1
+    torch.zeros(1, device="cuda")
+    t_start = time.perf_counter()
+
+    def stamp(name: str) -> None:
+        print(f"[chip-smoke] {name} done at {time.perf_counter() - t_start:.1f}s (the child's clock)", flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_model_free_") as tmp:
+        results = model_free_phases(tmp, stamp)
+    with open(out + ".tmp", "w") as f:
+        json.dump(results, f)
+    os.replace(out + ".tmp", out)
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None, help="also write every measurement to this JSON file")
+    parser.add_argument("--model-free-out", default=None,
+                        help="run phases 6-7b alone and write their results to this JSON file (the smoke's child)")
     args = parser.parse_args()
+    if args.model_free_out:
+        return model_free_main(args.model_free_out)
 
     if not torch.cuda.is_available():
         print("[chip-smoke] torch.cuda.is_available() is false: this smoke needs a CUDA card", file=sys.stderr)
@@ -4274,119 +4608,88 @@ def main() -> int:
     gru_bf16 = check_gru(device, BF16)
     stamp("phases 2-3")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        path = main_path(tmp)
-        parity = serve_step_parity(path["ckpt"])
-        train = train_path(tmp)
-        train_parity = train_step_parity()
-        stamp("phases 4-5")
-        # the serving planes: the first DV3 run's checkpoint (A) and the
-        # resumed run's (B, the same run's version_1)
-        ckpt_a, ckpt_b = (train[name]["summary"]["checkpoint"] for name in ("train", "resume"))
-        planes = {"reload": reload_path(ckpt_a, ckpt_b, tmp), "torn_reload": torn_reload_path(ckpt_a, ckpt_b, tmp),
-                  "swap": swap_parity(ckpt_a, ckpt_b, tmp), "supervisor": supervisor_path(path["ckpt"], tmp),
-                  "telemetry_cost": telemetry_cost(path["ckpt"], tmp)}
-        stamp("phase 5a")
-        # seconds per gradient step in float32, then in bf16, one after the other
-        train_timing, warm = time_train_steps()
-        bf16 = {}
-        bf16["timing"], warm_bf16 = time_train_steps(precision=BF16_PRECISION)
-        bf16.update(train_path_bf16(tmp))
-        bf16["serve"] = serve_path_bf16(bf16["ckpt"], tmp)
-        bf16["serve_parity"] = serve_step_parity(bf16["ckpt"], BF16_PRECISION)
-        bf16["train_parity"] = train_step_parity(precision=BF16_PRECISION)
-        stamp("phase 5b")
-        # the rest of the Dreamer-V3 family: Plan2Explore at the DOA++ widths
-        # and Offline Dreamer at S, both bf16-mixed
-        p2e = p2e_path(tmp)
-        odv3 = odv3_path(tmp)
-        p2e["parity"] = family_step_parity("p2e")
-        odv3["parity"] = family_step_parity("odv3")
-        p2e["timing"], p2e_warm = time_family_steps("p2e")
-        stamp("phase 5c")
-        # Dreamer-V2 and V1 in float32 at their exps' widths
-        dv2, dv1 = dv_path("dreamer_v2", tmp), dv_path("dreamer_v1", tmp)
-        dv2["parity"] = family_step_parity("dv2", actor_rtol=TRAIN_STEP_RTOL)
-        dv1["parity"] = family_step_parity("dv1", actor_rtol=TRAIN_STEP_RTOL)
-        dv2["timing"], dv2_warm = time_family_steps("dv2")
-        dv1["timing"], dv1_warm = time_family_steps("dv1")
-        stamp("phase 5d")
-        # Plan2Explore on Dreamer-V2 and V1, and SAC-AE, float32 at their exps' widths
-        p2e_dv2, p2e_dv1, sac_ae = p2e_dv_path(2, tmp), p2e_dv_path(1, tmp), sac_ae_path(tmp)
-        p2e_dv2["parity"] = family_step_parity("p2e_dv2", actor_rtol=TRAIN_STEP_RTOL)
-        p2e_dv1["parity"] = family_step_parity("p2e_dv1", actor_rtol=TRAIN_STEP_RTOL)
-        sac_ae["parity"] = sac_ae_step_parity()
-        p2e_dv2["timing"], p2e_dv2_warm = time_family_steps("p2e_dv2")
-        p2e_dv1["timing"], p2e_dv1_warm = time_family_steps("p2e_dv1")
-        sac_ae["timing"], sac_ae_warm = time_sac_ae()
-        stamp("phase 5e")
-        ppo = ppo_path(tmp)
-        ppo["serve"] = ppo_serve_path(ppo["train"]["summary"]["checkpoint"], tmp)
-        a2c = a2c_path(tmp)
-        ppo["parity"] = ppo_train_phase_parity()
-        a2c["rmsprop_parity"] = a2c_rmsprop_parity()
-        ppo["timing"], ppo_warm = time_ppo()
-        stamp("phase 6")
-        # recurrent PPO: train, resume, evaluate, serve; a phase and a serve step card vs CPU
-        rppo = rppo_path(tmp)
-        rppo["parity"] = rppo_parity()
-        rppo["timing"], rppo_warm = time_rppo()
-        stamp("phase 6b")
-        # the on-policy Anakin topology: train, resume, evaluate, serve; the env
-        # step, the train phases and an iteration card vs CPU; host syncs; timing
-        anakin = anakin_path(tmp)
-        anakin["env_parity"] = anakin_env_parity()
-        anakin["train_parity"] = anakin_train_parity()
-        anakin["step_parity"] = anakin_step_parity()
-        anakin["syncs"] = anakin_syncs()
-        anakin["deterministic"] = {kind: deterministic_step(kind) for kind in ("ppo_anakin", "a2c_anakin")}
-        if not all(r["ok"] for r in anakin["deterministic"].values()):
-            raise AssertionError(f"an Anakin step failed with xla_deterministic_ops on: {anakin['deterministic']}")
-        anakin["timing"], anakin_warm = time_anakin()
-        stamp("phase 6c")
-        sac = sac_path(tmp)
-        sac["serve"] = sac_serve_path(sac["ckpt"], tmp)
-        droq = droq_path(tmp)
-        sac["parity"] = sac_train_phase_parity("sac")
-        droq["parity"] = sac_train_phase_parity("droq")
-        sac["timing"], sac_warm = time_sac()
-        stamp("phase 7")
-        # the off-policy Anakin topology: train and resume with the ring; host
-        # syncs; the ring and an iteration card vs CPU; deterministic mode; timing
-        sac_anakin = sac_anakin_path(tmp)
-        sac_anakin["syncs"] = sac_anakin_syncs()
-        sac_anakin["ring_parity"] = sac_anakin_ring_parity()
-        sac_anakin["step_parity"] = sac_anakin_step_parity()
-        sac_anakin["exp_step_parity"] = sac_anakin_step_parity((), gate=False)
-        sac_anakin["deterministic"] = deterministic_step("sac_anakin")
-        if not sac_anakin["deterministic"]["ok"]:
-            raise AssertionError(f"the sac_anakin step failed with xla_deterministic_ops on: {sac_anakin['deterministic']}")
-        sac_anakin["timing"], sac_anakin_warm = time_sac_anakin()
-        stamp("phase 7b")
-        # the decoupled topology in one process: DV3 S, PPO and SAC through the
-        # entry points; one learner round of each card vs CPU; round seconds
-        decoupled = decoupled_paths(tmp)
-        decoupled["round_parity"] = {kind: decoupled_round_parity(kind) for kind in ("ppo", "sac", "dv3")}
-        decoupled["rounds"] = time_decoupled_rounds()
-        stamp("phase 7c")
-        profile_gru(gru["rows"] + gru_bf16["rows"], device)
-        stamp("phase 8, the kernel's profiles")
-        profile = profile_ticks(path["ckpt"])
-        train_timing["profile"] = profile_train_steps(warm)
-        bf16["timing"]["profile"] = profile_train_steps(warm_bf16)
-        p2e["timing"]["profile"] = profile_train_steps(p2e_warm, steps=2)
-        dv2["timing"]["profile"] = profile_train_steps(dv2_warm, steps=2)
-        dv1["timing"]["profile"] = profile_train_steps(dv1_warm, steps=2)
-        p2e_dv2["timing"]["profile"] = profile_train_steps(p2e_dv2_warm, steps=2)
-        p2e_dv1["timing"]["profile"] = profile_train_steps(p2e_dv1_warm, steps=2)
-        stamp("phase 8, the Dreamer steps' profiles")
-        sac_ae["timing"]["profile"] = profile_sac_ae_phase(sac_ae_warm)
-        ppo["timing"]["profile"] = profile_ppo_train_phase(ppo_warm)
-        rppo["timing"]["profile"] = profile_rppo_train_phase(rppo_warm)
-        sac["timing"]["profile"] = profile_sac_train_phase(sac_warm)
-        anakin["timing"]["profile"] = profile_anakin(anakin_warm)
-        sac_anakin["timing"]["profile"] = profile_sac_anakin(sac_anakin_warm)
-        stamp("phase 8")
-        del warm, warm_bf16, ppo_warm, rppo_warm, sac_warm, anakin_warm, sac_anakin_warm, p2e_warm, dv2_warm, dv1_warm, p2e_dv2_warm, p2e_dv1_warm, sac_ae_warm
+        # phases 6-7b reach no kernel and share nothing with the Dreamer
+        # phases: a child runs them on the card beside this process, which
+        # waits for it before phase 8's kernel profiles
+        model_free_child = _start_model_free(tmp)
+        try:
+            path = main_path(tmp)
+            parity = serve_step_parity(path["ckpt"])
+            train = train_path(tmp)
+            train_parity = train_step_parity()
+            stamp("phases 4-5")
+            # the serving planes: the first DV3 run's checkpoint (A) and the
+            # resumed run's (B, the same run's version_1)
+            ckpt_a, ckpt_b = (train[name]["summary"]["checkpoint"] for name in ("train", "resume"))
+            planes = {"reload": reload_path(ckpt_a, ckpt_b, tmp), "torn_reload": torn_reload_path(ckpt_a, ckpt_b, tmp),
+                      "swap": swap_parity(ckpt_a, ckpt_b, tmp), "supervisor": supervisor_path(path["ckpt"], tmp),
+                      "telemetry_cost": telemetry_cost(path["ckpt"], tmp)}
+            stamp("phase 5a")
+            # seconds per gradient step in float32, then in bf16, one after the other
+            train_timing, warm = time_train_steps()
+            bf16 = {}
+            bf16["timing"], warm_bf16 = time_train_steps(precision=BF16_PRECISION)
+            bf16.update(train_path_bf16(tmp))
+            bf16["serve"] = serve_path_bf16(bf16["ckpt"], tmp)
+            bf16["serve_parity"] = serve_step_parity(bf16["ckpt"], BF16_PRECISION)
+            bf16["train_parity"] = train_step_parity(precision=BF16_PRECISION)
+            stamp("phase 5b")
+            # the rest of the Dreamer-V3 family: Plan2Explore at the DOA++ widths
+            # and Offline Dreamer at S, both bf16-mixed
+            p2e = p2e_path(tmp)
+            odv3 = odv3_path(tmp)
+            p2e["parity"] = family_step_parity("p2e")
+            odv3["parity"] = family_step_parity("odv3")
+            p2e["timing"], p2e_warm = time_family_steps("p2e")
+            stamp("phase 5c")
+            # Dreamer-V2 and V1 in float32 at their exps' widths
+            dv2, dv1 = dv_path("dreamer_v2", tmp), dv_path("dreamer_v1", tmp)
+            dv2["parity"] = family_step_parity("dv2", actor_rtol=TRAIN_STEP_RTOL)
+            dv1["parity"] = family_step_parity("dv1", actor_rtol=TRAIN_STEP_RTOL)
+            dv2["timing"], dv2_warm = time_family_steps("dv2")
+            dv1["timing"], dv1_warm = time_family_steps("dv1")
+            stamp("phase 5d")
+            # Plan2Explore on Dreamer-V2 and V1, and SAC-AE, float32 at their exps' widths
+            p2e_dv2, p2e_dv1, sac_ae = p2e_dv_path(2, tmp), p2e_dv_path(1, tmp), sac_ae_path(tmp)
+            p2e_dv2["parity"] = family_step_parity("p2e_dv2", actor_rtol=TRAIN_STEP_RTOL)
+            p2e_dv1["parity"] = family_step_parity("p2e_dv1", actor_rtol=TRAIN_STEP_RTOL)
+            sac_ae["parity"] = sac_ae_step_parity()
+            p2e_dv2["timing"], p2e_dv2_warm = time_family_steps("p2e_dv2")
+            p2e_dv1["timing"], p2e_dv1_warm = time_family_steps("p2e_dv1")
+            sac_ae["timing"], sac_ae_warm = time_sac_ae()
+            stamp("phase 5e")
+            # the decoupled topology in one process: DV3 S, PPO and SAC through the
+            # entry points; one learner round of each card vs CPU; round seconds
+            decoupled = decoupled_paths(tmp)
+            decoupled["round_parity"] = {kind: decoupled_round_parity(kind) for kind in ("ppo", "sac", "dv3")}
+            decoupled["rounds"] = time_decoupled_rounds()
+            stamp("phase 7c")
+            # the decoupled topology as two processes (a player and a learner on the
+            # card, joined by the store) beside the thread mode: DV3 S, PPO and SAC
+            two_process = two_process_paths(os.path.join(tmp, "two_process"))
+            stamp("phase 7d")
+            mf = _finish_model_free(model_free_child)
+            ppo, a2c, rppo, anakin, sac, droq, sac_anakin = (
+                mf[k] for k in ("ppo", "a2c", "rppo", "anakin", "sac", "droq", "sac_anakin"))
+            stamp("the model-free child's phases 6-7b and their profiles")
+            profile_gru(gru["rows"] + gru_bf16["rows"], device)
+            stamp("phase 8, the kernel's profiles")
+            profile = profile_ticks(path["ckpt"])
+            train_timing["profile"] = profile_train_steps(warm)
+            bf16["timing"]["profile"] = profile_train_steps(warm_bf16)
+            p2e["timing"]["profile"] = profile_train_steps(p2e_warm, steps=2)
+            dv2["timing"]["profile"] = profile_train_steps(dv2_warm, steps=2)
+            dv1["timing"]["profile"] = profile_train_steps(dv1_warm, steps=2)
+            p2e_dv2["timing"]["profile"] = profile_train_steps(p2e_dv2_warm, steps=2)
+            p2e_dv1["timing"]["profile"] = profile_train_steps(p2e_dv1_warm, steps=2)
+            stamp("phase 8, the Dreamer steps' profiles")
+            sac_ae["timing"]["profile"] = profile_sac_ae_phase(sac_ae_warm)
+            stamp("phase 8")
+            del warm, warm_bf16, p2e_warm, dv2_warm, dv1_warm, p2e_dv2_warm, p2e_dv1_warm, sac_ae_warm
+        finally:
+            if model_free_child["proc"].poll() is None:
+                model_free_child["proc"].kill()
+                model_free_child["proc"].wait()
 
     main_row = next(r for r in gru["rows"] if (r["preset"], r["B"], r["K"], r["H"]) == MAIN_SHAPE)
     train_rows = [r for r in gru["rows"] if (r["preset"], r["B"], r["K"], r["H"]) in TRAIN_SHAPES]
@@ -4456,6 +4759,10 @@ def main() -> int:
                 "dv3_coupled_same_config": decoupled["dv3"]["coupled"]["launches"][LN_GRU.name],
                 **{f"{fam}_decoupled_{name}": decoupled[fam][name]["launches"][LN_GRU.name]
                    for fam in ("ppo", "sac") for name in ("train", "resume", "evaluation")},
+                # the decoupled topology as two processes, by role (DV3's player and
+                # learner add up to the thread mode's run beside them); PPO's and SAC's none
+                **{f"{fam}_two_process_{role}": two_process[fam]["launches"][role]
+                   for fam in ("dv3", "ppo", "sac") for role in ("player", "learner", "thread")},
             },
             "launches_needed_by_path": {
                 **{f"p2e_{name}": p2e[name]["need"] for name in ("train", "resume", "finetune")},
@@ -4466,6 +4773,7 @@ def main() -> int:
                    for fam, res in (("p2e_dv2", p2e_dv2), ("p2e_dv1", p2e_dv1)) for name in ("train", "resume", "finetune")},
                 **{f"dv3_decoupled_{name}": decoupled["dv3"][name]["need"] for name in ("train", "resume")},
                 "dv3_coupled_same_config": decoupled["dv3"]["coupled"]["need"],
+                "dv3_two_process": two_process["dv3"]["need"],
             },
             "launches_by_dtype": {
                 **{name: bf16[name]["by_dtype"] for name in ("train", "resume", "evaluation", "serve")},
@@ -4503,7 +4811,7 @@ def main() -> int:
                  "p2e": p2e, "odv3": odv3, "dv2": dv2, "dv1": dv1, "p2e_dv2": p2e_dv2, "p2e_dv1": p2e_dv1,
                  "sac_ae": sac_ae,
                  "ppo": ppo, "rppo": rppo, "a2c": a2c, "anakin": anakin, "sac": sac, "droq": droq,
-                 "sac_anakin": sac_anakin, "decoupled": decoupled,
+                 "sac_anakin": sac_anakin, "decoupled": decoupled, "two_process": two_process,
                  "kernels": kernels, "phase_done_at_seconds": stamps},
                 f, indent=2,
             )

@@ -7,6 +7,7 @@
 
 from __future__ import annotations
 
+import os
 import sys
 from typing import List, Optional
 
@@ -15,7 +16,28 @@ USAGE = """usage:
   python -m sheeprl_tpu_torch evaluation checkpoint_path=<ckpt or run dir>
   python -m sheeprl_tpu_torch serve checkpoint_path=<ckpt or run dir> [serve.* overrides]
 
-Runs on a CUDA device; pass fabric.accelerator=cpu to run on the CPU."""
+Runs on a CUDA device; pass fabric.accelerator=cpu to run on the CPU.
+
+A decoupled exp (ppo_decoupled, sac_decoupled, dreamer_v3_decoupled) runs as
+two processes, each launched with the same arguments and with
+SHEEPRL_COORDINATOR=host:port SHEEPRL_GANG_PROCESSES=2 SHEEPRL_GANG_RANK=0 (the
+player, which opens the store on that port; port 0 picks a free one and prints
+it) or SHEEPRL_GANG_RANK=1 (the learner)."""
+
+
+def _child_bringup() -> None:
+    """Open the store of a multi-process run from ``SHEEPRL_COORDINATOR``,
+    ``SHEEPRL_GANG_PROCESSES`` and ``SHEEPRL_GANG_RANK``, before the CLI."""
+    coordinator = os.environ.get("SHEEPRL_COORDINATOR")
+    if not coordinator:
+        return
+    from sheeprl_tpu_torch.parallel import distributed
+
+    distributed.initialize(
+        coordinator,
+        int(os.environ.get("SHEEPRL_GANG_PROCESSES", "0") or 0),
+        int(os.environ.get("SHEEPRL_GANG_RANK", "0") or 0),
+    )
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -48,4 +70,12 @@ def main(argv: Optional[List[str]] = None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    _child_bringup()
+    try:
+        code = main()
+    except BaseException as exc:
+        from sheeprl_tpu_torch.parallel.decoupled import release_peer
+
+        release_peer(exc)
+        raise
+    sys.exit(code)

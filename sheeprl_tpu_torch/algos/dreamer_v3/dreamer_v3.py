@@ -706,7 +706,8 @@ def run_dreamer(
                         batch_size=cfg.algo.per_rank_batch_size,
                         sequence_length=cfg.algo.per_rank_sequence_length,
                         uint8_keys=cnn_keys,
-                        device=device,
+                        # a decoupled learner process takes host blocks
+                        device=getattr(trainer, "data_device", None) or device,
                     )
                     metrics = trainer.train(data, cumulative_per_rank_gradient_steps, generator,
                                             want_full_state=pending_ckpt)

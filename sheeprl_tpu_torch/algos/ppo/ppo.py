@@ -237,7 +237,8 @@ def run_on_policy(fabric, cfg: Dict[str, Any], algo: str, make_trainer=None) -> 
         from sheeprl_tpu_torch.algos.a2c.a2c import A2CTrainer
 
         trainer = A2CTrainer(agent, instantiate(cfg.algo.optimizer, agent.parameters()), cfg)
-    if state is not None and "optimizer" in state:
+    # a decoupled run's learner process loads its own (its player's trainer has no optimizer)
+    if state is not None and "optimizer" in state and trainer.optimizer is not None:
         load_optimizer_state(trainer.optimizer, state["optimizer"], ppo_to_torch(agent))
     save_configs(cfg, log_dir)
 

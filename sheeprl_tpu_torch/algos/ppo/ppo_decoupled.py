@@ -1,5 +1,5 @@
-"""PPO, decoupled: a player loop and a learner thread in one process (port of
-the thread mode of ``sheeprl_tpu/algos/ppo/ppo_decoupled.py``).
+"""PPO, decoupled: a player loop and a learner, in one process (the learner in
+a thread) or in two (port of ``sheeprl_tpu/algos/ppo/ppo_decoupled.py``).
 
 The player is the coupled loop, ``run_on_policy``, with :class:`ChannelTrainer`
 in place of ``PPOTrainer``: it owns the envs and a host copy of the agent,
@@ -12,6 +12,12 @@ minibatches and replies with a copy of the agent's state, the optimizer's
 state when asked for, and the mean losses. The two join through
 ``parallel/decoupled.py``'s depth-1 queues, and the player blocks on each
 reply, so acting and training alternate as in the coupled loop.
+
+In a two-process run (``parallel/distributed.py``'s store) process 0 is the
+player and process 1 the learner (:func:`build_learner`): it builds its own
+agent from ``cfg.seed`` as the player does (no initial weights cross), loads
+a resumed run's agent and optimizer state itself, and serves the rounds over
+the store (``parallel/decoupled.py::serve_learner``).
 
 The message is the JAX loop's ``(block, clip_coef, ent_coef,
 want_opt_state)``; a checkpoint asks for the optimizer's state with a message
@@ -29,7 +35,8 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from sheeprl_tpu_torch.algos.ppo.ppo import PPOTrainer, build_optimizer, run_on_policy
-from sheeprl_tpu_torch.parallel.decoupled import LearnerThread, optimizer_snapshot, run_player, snapshot
+from sheeprl_tpu_torch.parallel import distributed
+from sheeprl_tpu_torch.parallel.decoupled import LearnerThread, optimizer_snapshot, run_player, serve_learner, snapshot
 from sheeprl_tpu_torch.utils.utils import gae
 
 
@@ -66,16 +73,49 @@ class PPOLearner:
         return None
 
 
-class ChannelTrainer:
-    """``run_on_policy``'s trainer with the learner in its own thread.
-    ``agent`` is the player's copy, on the host; ``optimizer`` is the
-    learner's, which a resumed run loads before the thread starts."""
+def build_learner(fabric, cfg, state: Optional[Dict[str, Any]] = None) -> PPOLearner:
+    """The learner role as the learner process builds it: the agent from
+    ``cfg.seed`` as ``run_on_policy`` builds the player's (the resumed agent
+    and optimizer state of ``state`` when given), and its optimizer."""
+    from sheeprl_tpu_torch.algos.ppo.agent import build_agent
+    from sheeprl_tpu_torch.envs.spaces import action_space_dims
+    from sheeprl_tpu_torch.interop.flax_to_torch import ppo_to_torch
+    from sheeprl_tpu_torch.interop.optax_to_torch import load_optimizer_state
+    from sheeprl_tpu_torch.utils.env import make_env
 
-    def __init__(self, agent, cfg, total_iters: int):
-        self.learner = PPOLearner(cfg, agent, total_iters)
-        self.optimizer = self.learner.trainer.optimizer
+    env = make_env(cfg, cfg.seed, 0, None, "learner")()
+    observation_space, action_space = env.observation_space, env.action_space
+    env.close()
+    actions_dim, is_continuous = action_space_dims(action_space)
+    fabric.seed_everything(cfg.seed)
+    agent = build_agent(
+        fabric, actions_dim, is_continuous, cfg, observation_space, cfg.seed, state["agent"] if state else None
+    )
+    policy_steps_per_iter = int(cfg.env.num_envs) * int(cfg.algo.rollout_steps)
+    total_iters = cfg.algo.total_steps // policy_steps_per_iter if not cfg.dry_run else 1
+    if state is not None:
+        cfg.algo.per_rank_batch_size = state["batch_size"]
+    learner = PPOLearner(cfg, agent, total_iters)
+    if state is not None and "optimizer" in state:
+        load_optimizer_state(learner.trainer.optimizer, state["optimizer"], ppo_to_torch(agent))
+    return learner
+
+
+class ChannelTrainer:
+    """``run_on_policy``'s trainer with the learner in its own thread, or in
+    the learner process behind ``channel`` (a ``LearnerProcess``). ``agent``
+    is the player's copy, on the host; ``optimizer`` is the learner thread's,
+    which a resumed run loads before the thread starts (None with a learner
+    process, which loads its own)."""
+
+    def __init__(self, agent, cfg, total_iters: int, channel=None):
+        self.optimizer = None
+        if channel is None:
+            learner = PPOLearner(cfg, agent, total_iters)
+            self.optimizer = learner.trainer.optimizer
+            channel = LearnerThread(learner, "ppo-learner")
         self.agent = copy.deepcopy(agent).to("cpu")
-        self.channel = LearnerThread(self.learner, "ppo-learner")
+        self.channel = channel
         self.rollout_steps = int(cfg.algo.rollout_steps)
         self.gamma = float(cfg.algo.gamma)
         self.gae_lambda = float(cfg.algo.gae_lambda)
@@ -110,4 +150,6 @@ class ChannelTrainer:
 
 
 def main(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
-    return run_player(lambda make_trainer: run_on_policy(fabric, cfg, "ppo", make_trainer), ChannelTrainer)
+    if distributed.process_index() >= 1:  # the learner process of a two-process run
+        return serve_learner(cfg, lambda state: build_learner(fabric, cfg, state))
+    return run_player(lambda make_trainer: run_on_policy(fabric, cfg, "ppo", make_trainer), ChannelTrainer, cfg)

@@ -24,9 +24,15 @@ watchdog, gangs, the replay prefetch thread and service backend, sharded and
 asynchronous checkpoints. ``buffer.backend=device`` (the replay ring on the
 card) is for ``sac_anakin`` only, as in the JAX CLI.
 
-The port runs in one process: a launch of more than one is refused. The
-decoupled algorithms (a player loop and a learner thread) take the JAX CLI's
-checks of their topology (``check_topology``).
+The decoupled algorithms run as a player loop and a learner thread in one
+process, or as two processes, a player and a learner, joined by the store that
+``SHEEPRL_COORDINATOR`` opens (``__main__``); they take the JAX CLI's checks of
+their topology (``check_topology``). Every other launch of more than one
+process is refused by name (``check_processes``): a coupled algorithm
+(data-parallel training), three or more processes (a learner slice), and
+torchrun's ``WORLD_SIZE`` without ``SHEEPRL_COORDINATOR``; so are the gang
+(``resilience.distributed.gang.processes >= 2``) and the experience service
+(``buffer.backend=service``).
 """
 
 from __future__ import annotations
@@ -163,18 +169,48 @@ def launch_processes() -> int:
     return max(int(os.environ.get(var) or 1) for var in ("WORLD_SIZE", "SHEEPRL_GANG_PROCESSES"))
 
 
-def check_topology(cfg) -> None:
-    """The JAX CLI's checks of a decoupled algorithm's topology (at least one
-    actor, no ``single_device`` strategy, ``devices >= 1``, a 1-D mesh), and
-    the port's own: one process."""
+def check_processes(cfg) -> None:
+    """The port's checks of a launch of more than one process: exactly two,
+    a player and a learner of a decoupled algorithm, joined by the store that
+    ``SHEEPRL_COORDINATOR`` opened (``__main__``)."""
+    from sheeprl_tpu_torch.parallel import distributed
     from sheeprl_tpu_torch.utils.registry import DECOUPLED
 
     processes = launch_processes()
-    if processes > 1:
+    if processes <= 1:
+        return
+    launch = f"a launch with {processes} processes"
+    if not os.environ.get("SHEEPRL_COORDINATOR"):
         raise NotImplementedError(
-            f"a launch with {processes} processes: the port runs in one process (it has no counterpart of "
-            "jax.distributed yet); launch one process, where the decoupled algorithms run their learner in a thread"
+            f"{launch} without SHEEPRL_COORDINATOR: the port's processes meet through the store that "
+            "SHEEPRL_COORDINATOR=host:port opens (torchrun's rendezvous is not ported); launch each with "
+            "SHEEPRL_COORDINATOR, SHEEPRL_GANG_PROCESSES and SHEEPRL_GANG_RANK"
         )
+    if cfg.algo.name not in DECOUPLED:
+        raise NotImplementedError(
+            f"{launch} of {cfg.algo.name}: a coupled algorithm in more than one process is data-parallel "
+            "training (DDP), not yet ported; launch one process"
+        )
+    if processes > 2:
+        raise NotImplementedError(
+            f"{launch} of {cfg.algo.name}: the port runs a player and one learner process; a learner slice "
+            "of two or more processes shares one data-parallel mesh (DDP), not yet ported"
+        )
+    if distributed.process_count() != processes:
+        raise NotImplementedError(
+            f"{launch} of {cfg.algo.name} but no store is open in this process: launch it through "
+            "`python -m sheeprl_tpu_torch` with SHEEPRL_COORDINATOR, SHEEPRL_GANG_PROCESSES and SHEEPRL_GANG_RANK"
+        )
+
+
+def check_topology(cfg) -> None:
+    """The JAX CLI's checks of a decoupled algorithm's topology (at least one
+    actor, no ``single_device`` strategy, ``devices >= 1``, a 1-D mesh), and
+    the port's own of a launch of more than one process
+    (:func:`check_processes`)."""
+    from sheeprl_tpu_torch.utils.registry import DECOUPLED
+
+    check_processes(cfg)
     if cfg.algo.name not in DECOUPLED:
         return
     if int(os.environ.get("SHEEPRL_NUM_ACTORS", "1")) < 1:

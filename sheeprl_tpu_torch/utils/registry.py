@@ -44,7 +44,7 @@ ALGORITHMS: Dict[str, Tuple[str, str]] = {
     "sac_decoupled": ("sheeprl_tpu_torch.algos.sac.sac_decoupled", "main"),
     "dreamer_v3_decoupled": (f"{_DV3}.dreamer_v3_decoupled", "main"),
 }
-# the JAX registry's ``decoupled`` flag: a player loop and a learner thread
+# the JAX registry's ``decoupled`` flag: a player loop and a learner (thread or process)
 DECOUPLED = frozenset({"ppo_decoupled", "sac_decoupled", "dreamer_v3_decoupled"})
 # ``evaluate(fabric, cfg, state)``
 EVALUATIONS: Dict[str, Tuple[str, str]] = {

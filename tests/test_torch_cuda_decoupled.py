@@ -10,7 +10,11 @@ the JAX package; on the card, from the repo root:
   (the coupled families' bars);
 - the LN-GRU kernel launched from both threads of a decoupled DV3 run is
   counted once a launch: a round of the channel trainer in the learner's
-  thread, then the player's step in this one.
+  thread, then the player's step in this one;
+- two processes that start together on an empty build directory (the
+  player and the learner of a two-process run, each in its own CUDA context)
+  both build and load the kernel, and its call agrees with the plain version
+  in each; one library is left, and no partial file.
 """
 
 from __future__ import annotations
@@ -88,3 +92,48 @@ def test_launches_from_the_learner_and_the_player_threads_are_counted(cuda):
         assert LN_GRU.launches == T + 3 + 1
     finally:
         trainer.close()
+
+
+# each process: the kernel built into the directory it is given, one call at
+# the player's shape (S, B = 4) against the plain version, the error printed
+_BUILD_AND_CALL = """
+import sys
+from pathlib import Path
+
+import torch
+
+import sheeprl_tpu_torch.ops._build as build
+
+build.BUILD_DIR = Path(sys.argv[1])
+sys.path.insert(0, sys.argv[2])
+import chip_smoke
+from sheeprl_tpu_torch.ops import LN_GRU, ln_gru_step, ln_gru_step_plain
+
+args = chip_smoke.gru_case(4, 1024, 512, 0, torch.device("cuda", 0))
+torch.backends.cuda.matmul.allow_tf32 = False
+err = (ln_gru_step(*args) - ln_gru_step_plain(*args)).abs().max().item()
+print("launches", LN_GRU.launches, "max_abs_err", err, flush=True)
+"""
+
+
+@pytest.mark.timeout(600)
+def test_two_processes_building_into_an_empty_directory_both_load_the_kernel(cuda, tmp_path):
+    import os
+    import re
+    import subprocess
+
+    build_dir = tmp_path / "torch_kernels"
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    procs = [subprocess.Popen([sys.executable, "-c", _BUILD_AND_CALL, str(build_dir), str(REPO)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for _ in range(2)]
+    try:
+        logs = [p.communicate(timeout=540)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert [p.returncode for p in procs] == [0, 0], "\n".join(logs)
+    for log in logs:
+        found = re.search(r"launches (\d+) max_abs_err (\S+)", log)
+        assert found and int(found.group(1)) == 1 and float(found.group(2)) <= _smoke().GRU_ATOL, log
+    files = sorted(p.name for p in build_dir.iterdir())
+    assert len(files) == 1 and files[0].endswith(".so") and ".tmp." not in files[0], files

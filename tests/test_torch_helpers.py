@@ -8,6 +8,7 @@ into the port through ``sheeprl_tpu_torch.interop.flax_to_torch``.
 from __future__ import annotations
 
 import functools
+from pathlib import Path
 from typing import Sequence, Tuple
 
 import jax
@@ -371,3 +372,85 @@ def port_dreamer(algo: str = "dreamer_v2", kind: str = "discrete", extra: Sequen
     cfg = compose(dreamer_overrides(algo, kind, extra))
     params = jparams if params is None else params
     return build(Fabric(accelerator="cpu"), *ACTIONS[kind], cfg, obs_space, 3, params), cfg
+
+
+REPO_ROOT = Path(__file__).resolve().parent.parent
+
+
+def two_process_run(args: Sequence[str], cwd, player_extra: Sequence[str] = (), learner_extra: Sequence[str] = (),
+                    timeout: float = 120.0):
+    """``python -m sheeprl_tpu_torch *args`` as the two processes of a
+    decoupled run on the CPU, each single-threaded, in ``cwd``: the player
+    (rank 0) opens the store on a free port, and the learner (rank 1) is
+    started on the port the player printed. Returns ``(return codes, logs,
+    seconds)``; past ``timeout`` both are killed and the logs' tails raised."""
+    import os
+    import re
+    import subprocess
+    import sys
+    import time
+
+    cwd = Path(cwd)
+    cwd.mkdir(parents=True, exist_ok=True)
+    env = {k: v for k, v in os.environ.items() if k not in ("SHEEPRL_COORDINATOR", "SHEEPRL_GANG_RANK", "WORLD_SIZE")}
+    env.update(SUBPROCESS_ENV, PYTHONPATH=str(REPO_ROOT), SHEEPRL_GANG_PROCESSES="2")
+    paths = [cwd / f"rank{rank}.log" for rank in range(2)]
+    procs = []
+
+    def tails() -> str:
+        return "\n".join(f"--- rank {i}:\n{p.read_text()[-3000:]}" for i, p in enumerate(paths) if p.exists())
+
+    def start(rank: int, coordinator: str, extra: Sequence[str]):
+        with open(paths[rank], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "sheeprl_tpu_torch", *args, *extra], cwd=str(cwd), stdout=log,
+                stderr=subprocess.STDOUT, env={**env, "SHEEPRL_COORDINATOR": coordinator, "SHEEPRL_GANG_RANK": str(rank)},
+            ))
+
+    t0 = time.monotonic()
+    try:
+        start(0, "127.0.0.1:0", player_extra)
+        port = None
+        while port is None:
+            found = re.search(r"coordinator listening on \S+:(\d+)", paths[0].read_text())
+            port = found and found.group(1)
+            if port is None and (procs[0].poll() is not None or time.monotonic() - t0 > timeout):
+                raise AssertionError(f"the player opened no store:\n{tails()}")
+            time.sleep(0.02)
+        start(1, f"127.0.0.1:{port}", learner_extra)
+        rcs = [p.wait(timeout=max(1.0, timeout - (time.monotonic() - t0))) for p in procs]
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise AssertionError(f"the two-process run did not end within {timeout} s:\n{tails()}")
+    return rcs, [p.read_text() for p in paths], time.monotonic() - t0
+
+
+def checkpoint_leaves(path) -> dict:
+    """path -> value of every leaf of a checkpoint but its replay buffer."""
+    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                yield from walk(v, f"{prefix}/{k}")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                yield from walk(v, f"{prefix}/{i}")
+        else:
+            yield prefix, node
+
+    return dict(walk({k: v for k, v in load_checkpoint(str(path)).items() if k != "rb"}, ""))
+
+
+def assert_checkpoints_equal(ours, theirs) -> None:
+    """Two checkpoints hold the same leaves, bit for bit."""
+    a, b = checkpoint_leaves(ours), checkpoint_leaves(theirs)
+    assert sorted(a) == sorted(b)
+    for key, value in a.items():
+        if isinstance(value, (torch.Tensor, np.ndarray)):
+            x, y = np.asarray(value), np.asarray(b[key])
+            assert x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes(), key
+        else:
+            assert value == b[key], key
