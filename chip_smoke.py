@@ -4352,6 +4352,237 @@ def two_process_paths(out_dir: str) -> dict:
     return {fam: _compare_modes(entries[fam][0], threads[fam], procs[fam], dv3=fam == "dv3") for fam in entries}
 
 
+# -- the gang (phase 7e) ---------------------------------------------------------------
+# exp=dreamer_v3_decoupled at phase 7c's S config as a gang of two processes
+# (resilience.distributed.gang.processes=2): this process runs `python -m
+# sheeprl_tpu_torch` once, and that process supervises a player and a learner.
+# The learner is SIGKILLed after its second round (its step axis counts
+# gradient steps: 4 a round), after the checkpoint deferred to the first round
+# (step 320); the player must exit 77 within the heartbeat timeout + 10 s, and
+# the gang restart from that checkpoint, the newest manifest-complete one. The
+# resumed attempt prefills again with the policy (80 iterations, as any resumed
+# DV3 run) and trains 4 rounds. Expected: 90-150 s, four process starts.
+GANG_HEARTBEAT_TIMEOUT_S = 5.0
+GANG_ARGS = ("resilience.distributed.gang.processes=2", "resilience.distributed.heartbeat.interval=0.5",
+             f"resilience.distributed.heartbeat.timeout={GANG_HEARTBEAT_TIMEOUT_S:g}",
+             "resilience.distributed.heartbeat.startup_timeout=120", "resilience.distributed.channel.timeout=120",
+             "resilience.distributed.gang.grace=15", "resilience.supervisor.backoff=0.05")
+GANG_KILL_AT = 8  # the learner's gradient steps: after its second round
+GANG_DV3_ITERS = 2 * DEC_LEARNING_STARTS_ITERS + 4 + 1  # resumed at iteration 81: prefill to 161, 4 rounds
+GANG_TIMEOUT_S = 420.0
+# the model-free child's gang: sac_decoupled on Pendulum-v1, SIGTERM to the learner
+GANG_SAC_STEPS = 400
+GANG_SAC_TERM_AT = 200
+
+
+def _run_gang(name: str, overrides: list, run_dir: str) -> dict:
+    """``python -m sheeprl_tpu_torch *overrides`` (the gang's supervisor) from
+    the checkout's root with its run base at ``run_dir``; past
+    ``GANG_TIMEOUT_S`` the supervisor and every child (their command lines hold
+    ``run_dir``) are killed. Returns the exit code, the seconds and the run
+    base's events (``telemetry.jsonl``, and the learner's ``telemetry.rank1.jsonl``)."""
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(run_dir, exist_ok=True)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SHEEPRL_")}
+    env["PYTHONPATH"] = root
+    log_path = os.path.join(run_dir, "supervisor.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, "-m", "sheeprl_tpu_torch", *overrides, f"hydra.run.dir={run_dir}"],
+                                cwd=root, stdout=log, stderr=subprocess.STDOUT, env=env)
+    try:
+        rc = proc.wait(timeout=GANG_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for pid in os.listdir("/proc"):  # the children run in sessions of their own
+            try:
+                if pid.isdigit() and int(pid) != os.getpid() and \
+                        f"hydra.run.dir={run_dir}".encode() in open(f"/proc/{pid}/cmdline", "rb").read():
+                    os.kill(int(pid), signal.SIGKILL)
+            except OSError:
+                continue
+    seconds = time.perf_counter() - t0
+
+    def events(path: str) -> list:
+        return [json.loads(line) for line in open(path)] if os.path.exists(path) else []
+
+    logs = sorted(os.path.join(run_dir, "gang", f) for f in os.listdir(os.path.join(run_dir, "gang"))) \
+        if os.path.isdir(os.path.join(run_dir, "gang")) else []
+    tails = "\n".join(f"--- {os.path.basename(p)}:\n{open(p).read()[-3000:]}" for p in [log_path] + logs)
+    if rc != 0:
+        raise AssertionError(f"{name}: the gang exited {rc} after {seconds:.1f}s\n{tails}")
+    return {"seconds": seconds, "events": events(os.path.join(run_dir, "telemetry.jsonl")),
+            "learner_events": events(os.path.join(run_dir, "telemetry.rank1.jsonl")), "logs": logs, "tails": tails}
+
+
+def _ordered(name: str, events: list, wanted: list) -> list:
+    """The events matching each predicate of ``wanted``, in that order."""
+    found, it = [], iter(events)
+    for want in wanted:
+        for event in it:
+            if want(event):
+                found.append(event)
+                break
+        else:
+            raise AssertionError(f"{name}: event #{len(found)} of the gate is missing from "
+                                 f"{[(e['event'], e.get('status') or e.get('reason')) for e in events]}")
+    return found
+
+
+def _gang_attempts(spawn0: dict, exit0: dict, spawn1: dict, exit1: dict) -> dict:
+    return {"attempt0_seconds": exit0["time"] - spawn0["time"], "attempt1_seconds": exit1["time"] - spawn1["time"]}
+
+
+def _attempt_summary(log_path: str) -> dict:
+    """The run summary an attempt's player printed."""
+    import ast
+    import re
+
+    found = re.search(r"^\[sheeprl\] run summary: (\{.*\})$", open(log_path).read(), re.MULTILINE)
+    if not found:
+        raise AssertionError(f"{log_path}: no run summary\n{open(log_path).read()[-3000:]}")
+    return ast.literal_eval(found.group(1))
+
+
+def gang_path(out_dir: str) -> dict:
+    """Phase 7e: ``exp=dreamer_v3_decoupled`` at S as a gang of two processes
+    whose learner is SIGKILLed: the run base's ``telemetry.jsonl`` holds, in
+    order, the spawn of attempt 0, the player's ``health rank_dead`` (rank 1),
+    attempt 0's exit (a crash, rank 1 the dead one), the restart from the
+    newest manifest-complete checkpoint, the spawn of attempt 1 and its
+    completion; the player exited 77 within the heartbeat timeout + 10 s of
+    the kill; the last checkpoint's manifest is complete; attempt 1's LN-GRU
+    launches, player plus learner, are 79 a gradient step plus one a policy
+    step, and it built no kernel."""
+    from sheeprl_tpu_torch.resilience.discovery import find_latest_checkpoint, read_manifest
+
+    run_dir = os.path.join(out_dir, "dv3_gang")
+    dv3 = [o for o in _dec_overrides("dreamer_v3_decoupled", "") if not o.startswith("hydra.run.dir=")]
+    run = _run_gang("the dreamer_v3_decoupled gang", dv3 + [
+        f"algo.total_steps={TRAIN_ENVS * GANG_DV3_ITERS}", *GANG_ARGS, "resilience.fault.kind=kill_rank",
+        "resilience.fault.rank=1", f"resilience.fault.at_policy_step={GANG_KILL_AT}"], run_dir)
+    spawn0, dead, exit0, restart, spawn1, exit1 = _ordered("the dreamer_v3_decoupled gang", run["events"], [
+        lambda e: e["event"] == "gang" and e.get("status") == "spawn" and e.get("attempt") == 0,
+        lambda e: e["event"] == "health" and e.get("status") == "rank_dead" and e.get("rank") == 1,
+        lambda e: e["event"] == "gang" and e.get("status") == "attempt_exit",
+        lambda e: e["event"] == "restart",
+        lambda e: e["event"] == "gang" and e.get("status") == "spawn" and e.get("attempt") == 1,
+        lambda e: e["event"] == "gang" and e.get("status") == "attempt_exit" and e.get("attempt") == 1,
+    ])
+    kill = next(e for e in run["learner_events"] if e["event"] == "fault")
+    first = os.path.join(run_dir, "version_0")
+    newest = find_latest_checkpoint(first)
+    last = _attempt_summary(os.path.join(run_dir, "gang", "attempt1.rank0.log"))
+    report = last["learner_process"]
+    launches = {role: report["launches"][role][LN_GRU.name] for role in ("player", "learner")}
+    need = GRU_CALLS_PER_GRAD_STEP * last["gradient_steps"] + last["player_calls"] + last["test_player_calls"]
+    last_manifest = read_manifest(last["checkpoint"] if os.path.isabs(last["checkpoint"])
+                                  else os.path.join(os.path.dirname(os.path.abspath(__file__)), last["checkpoint"]))
+    out = {
+        "seconds": run["seconds"], "kill_to_teardown_seconds": exit0["time"] - kill["time"],
+        **_gang_attempts(spawn0, exit0, spawn1, exit1), "exit_codes": exit0["exit_codes"],
+        "dead_ranks": exit0.get("dead_ranks"), "resume_from": restart.get("resume_from"), "newest_complete": newest,
+        "silent_seconds": dead.get("silent_seconds"), "last_checkpoint": last["checkpoint"],
+        "last_manifest": last_manifest, "attempt1_launches": launches, "attempt1_need": need,
+        "attempt1_builds": report.get("builds"), "attempt1_gradient_steps": last["gradient_steps"],
+        "attempt1_round_seconds": report["round_seconds"], "attempt1_first_round_seconds": report["first_round_seconds"],
+    }
+    print(f"[chip-smoke] the dreamer_v3_decoupled gang (S, two processes an attempt): kill to teardown "
+          f"{out['kill_to_teardown_seconds']:.1f}s (heartbeat timeout {GANG_HEARTBEAT_TIMEOUT_S:g}s), attempt 0 "
+          f"{out['attempt0_seconds']:.1f}s, attempt 1 {out['attempt1_seconds']:.1f}s, the whole gang "
+          f"{run['seconds']:.1f}s; exit codes {exit0['exit_codes']}, restart from {out['resume_from']}; attempt 1: "
+          f"{last['gradient_steps']} gradient steps, LN-GRU launches {json.dumps(launches)} (need {need}), builds "
+          f"{json.dumps(out['attempt1_builds'])}, rounds of {report['round_seconds']:.3f}s", flush=True)
+    if exit0.get("outcome") != "crash" or exit0["exit_codes"] != {"0": 77, "1": -9} or \
+            exit0.get("dead_ranks") != {"1": -9}:
+        raise AssertionError(f"the gang's attempt 0 ended {exit0}\n{run['tails']}")
+    if out["kill_to_teardown_seconds"] > GANG_HEARTBEAT_TIMEOUT_S + 10.0:
+        raise AssertionError(f"the player exited {out['kill_to_teardown_seconds']:.1f}s after the kill")
+    resume = restart.get("resume_from") or ""
+    resume = resume if os.path.isabs(resume) else os.path.join(os.path.dirname(os.path.abspath(__file__)), resume)
+    if not newest or os.path.abspath(resume) != os.path.abspath(newest) or not read_manifest(newest)["complete"]:
+        raise AssertionError(f"the gang restarted from {restart.get('resume_from')}, the newest complete: {newest}")
+    if exit1.get("outcome") != "completed" or not (last_manifest and last_manifest.get("complete")):
+        raise AssertionError(f"the gang's attempt 1 ended {exit1}, last manifest {last_manifest}\n{run['tails']}")
+    if not (launches["player"] + launches["learner"] == need and launches["learner"] > 0 and launches["player"] > 0):
+        raise AssertionError(f"the gang's attempt 1: LN-GRU launches {launches}, need {need}")
+    if out["attempt1_builds"] != {"player": 0, "learner": 0}:
+        raise AssertionError(f"the gang's attempt 1 built kernels: {out['attempt1_builds']}")
+    return out
+
+
+def sac_gang_sigterm(out_dir: str) -> dict:
+    """The model-free child's gang: ``exp=sac_decoupled`` on Pendulum-v1 as a
+    gang whose learner alone gets SIGTERM. The player turns its request into
+    the agreed stop step, both exit 75 there, and the gang restarts
+    (``restart_on_preempt``) and completes."""
+    run_dir = os.path.join(out_dir, "sac_gang")
+    run = _run_gang("the sac_decoupled gang", [
+        "exp=sac_decoupled", "env.id=Pendulum-v1", f"algo.total_steps={GANG_SAC_STEPS}",
+        f"checkpoint.every={GANG_SAC_STEPS // 4}", "algo.run_test=False", "env.capture_video=False", *GANG_ARGS,
+        "resilience.fault.kind=sigterm", "resilience.fault.rank=1", f"resilience.fault.at_policy_step={GANG_SAC_TERM_AT}",
+    ], run_dir)
+    spawn0, preempt, emergency, exit0, restart, spawn1, exit1 = _ordered("the sac_decoupled gang", run["events"], [
+        lambda e: e["event"] == "gang" and e.get("status") == "spawn" and e.get("attempt") == 0,
+        lambda e: e["event"] == "preempt" and e.get("requested_by") == [1],
+        lambda e: e["event"] == "checkpoint" and e.get("reason") == "preempt",
+        lambda e: e["event"] == "gang" and e.get("status") == "attempt_exit",
+        lambda e: e["event"] == "restart",
+        lambda e: e["event"] == "gang" and e.get("status") == "spawn" and e.get("attempt") == 1,
+        lambda e: e["event"] == "gang" and e.get("status") == "attempt_exit" and e.get("attempt") == 1,
+    ])
+    out = {"seconds": run["seconds"], **_gang_attempts(spawn0, exit0, spawn1, exit1),
+           "stop_step": preempt.get("stop_step"), "emergency_step": emergency.get("step"),
+           "exit_codes": exit0["exit_codes"], "restart_reason": restart.get("reason")}
+    print(f"[chip-smoke] the sac_decoupled gang, SIGTERM to the learner: stop step {out['stop_step']}, emergency "
+          f"checkpoint at {out['emergency_step']}, exit codes {exit0['exit_codes']}; attempt 0 "
+          f"{out['attempt0_seconds']:.1f}s, attempt 1 {out['attempt1_seconds']:.1f}s", flush=True)
+    if exit0["exit_codes"] != {"0": 75, "1": 75} or exit0.get("outcome") != "preempt" or \
+            restart.get("reason") != "preempt" or exit1.get("outcome") != "completed":
+        raise AssertionError(f"the sac_decoupled gang: {out}\n{run['tails']}")
+    if not emergency["step"] < preempt["stop_step"] <= emergency["step"] + 4:
+        raise AssertionError(f"the sac_decoupled gang's emergency checkpoint is not at the agreed step: {out}")
+    return out
+
+
+def ppo_ckpt_kill(out_dir: str) -> dict:
+    """``exp=ppo`` in this process under ``resilience.supervisor.enabled``
+    with a ``ckpt_kill`` fault: the third iteration's checkpoint write dies
+    between its temporary file and its rename; the supervisor restarts from
+    the second iteration's checkpoint, which discovery still resolves, and
+    the run completes."""
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.resilience import faults
+
+    run_dir = os.path.join(out_dir, "ppo_ckpt_kill")
+    faults.reset_faults()
+    summary = run(["exp=ppo", f"algo.total_steps={4 * PPO_STEPS_PER_ITER}", f"checkpoint.every={PPO_STEPS_PER_ITER}",
+                   "algo.run_test=False", "env.capture_video=False", "resilience.supervisor.enabled=true",
+                   "resilience.supervisor.backoff=0.05", "resilience.fault.kind=ckpt_kill",
+                   f"resilience.fault.at_policy_step={2 * PPO_STEPS_PER_ITER + 1}", f"hydra.run.dir={run_dir}"])
+    events = [json.loads(line) for line in open(os.path.join(run_dir, "telemetry.jsonl"))]
+    fault, restart, done = _ordered("the ppo ckpt_kill run", events, [
+        lambda e: e["event"] == "fault" and e.get("kind") == "ckpt_kill",
+        lambda e: e["event"] == "restart" and e.get("reason") == "crash",
+        lambda e: e["event"] == "supervisor" and e.get("status") == "completed",
+    ])
+    torn = os.path.join(run_dir, "version_0", "checkpoint", f"ckpt_{3 * PPO_STEPS_PER_ITER}_0.ckpt")
+    out = {"resume_from": restart.get("resume_from"), "torn_left": os.path.exists(torn + ".tmp"),
+           "policy_steps": summary["policy_steps"], "checkpoint": summary["checkpoint"]}
+    print(f"[chip-smoke] ppo under the supervisor with ckpt_kill: restarted from {out['resume_from']}, the torn "
+          f"write left {out['torn_left']}, completed at {summary['policy_steps']} steps", flush=True)
+    if not (out["torn_left"] and os.path.basename(out["resume_from"] or "") == f"ckpt_{2 * PPO_STEPS_PER_ITER}_0.ckpt"
+            and summary["policy_steps"] == 4 * PPO_STEPS_PER_ITER):
+        raise AssertionError(f"the ppo ckpt_kill run: {out}")
+    return out
+
+
 def model_free_phases(tmp: str, stamp) -> dict:
     """Phases 6-7b and the model-free part of phase 8: PPO and A2C, recurrent
     PPO, the on-policy Anakin topology, SAC and DroQ, the off-policy Anakin
@@ -4401,6 +4632,10 @@ def model_free_phases(tmp: str, stamp) -> dict:
         raise AssertionError(f"the sac_anakin step failed with xla_deterministic_ops on: {sac_anakin['deterministic']}")
     sac_anakin["timing"], sac_anakin_warm = time_sac_anakin()
     stamp("phase 7b")
+    # the resilience plane without the kernel: a sac_decoupled gang whose
+    # learner gets SIGTERM, and ppo under the supervisor with ckpt_kill
+    resilience = {"sac_gang": sac_gang_sigterm(tmp), "ppo_ckpt_kill": ppo_ckpt_kill(tmp)}
+    stamp("phase 7e, the model-free gang and supervisor")
     ppo["timing"]["profile"] = profile_ppo_train_phase(ppo_warm)
     rppo["timing"]["profile"] = profile_rppo_train_phase(rppo_warm)
     sac["timing"]["profile"] = profile_sac_train_phase(sac_warm)
@@ -4408,7 +4643,7 @@ def model_free_phases(tmp: str, stamp) -> dict:
     sac_anakin["timing"]["profile"] = profile_sac_anakin(sac_anakin_warm)
     stamp("phase 8, the model-free profiles")
     return {"ppo": ppo, "a2c": a2c, "rppo": rppo, "anakin": anakin, "sac": sac, "droq": droq,
-            "sac_anakin": sac_anakin}
+            "sac_anakin": sac_anakin, "resilience": resilience}
 
 
 def serve_step_parity(ckpt: str, precision: str = "32-true") -> dict:
@@ -4668,6 +4903,10 @@ def main() -> int:
             # card, joined by the store) beside the thread mode: DV3 S, PPO and SAC
             two_process = two_process_paths(os.path.join(tmp, "two_process"))
             stamp("phase 7d")
+            # the training resilience plane: DV3 S as a gang of two processes whose
+            # learner is SIGKILLed, restarted from its newest manifest-complete checkpoint
+            gang = gang_path(tmp)
+            stamp("phase 7e")
             mf = _finish_model_free(model_free_child)
             ppo, a2c, rppo, anakin, sac, droq, sac_anakin = (
                 mf[k] for k in ("ppo", "a2c", "rppo", "anakin", "sac", "droq", "sac_anakin"))
@@ -4763,6 +5002,8 @@ def main() -> int:
                 # learner add up to the thread mode's run beside them); PPO's and SAC's none
                 **{f"{fam}_two_process_{role}": two_process[fam]["launches"][role]
                    for fam in ("dv3", "ppo", "sac") for role in ("player", "learner", "thread")},
+                # the gang's restarted attempt, by role (its killed attempt reports none)
+                **{f"dv3_gang_attempt1_{role}": gang["attempt1_launches"][role] for role in ("player", "learner")},
             },
             "launches_needed_by_path": {
                 **{f"p2e_{name}": p2e[name]["need"] for name in ("train", "resume", "finetune")},
@@ -4774,6 +5015,7 @@ def main() -> int:
                 **{f"dv3_decoupled_{name}": decoupled["dv3"][name]["need"] for name in ("train", "resume")},
                 "dv3_coupled_same_config": decoupled["dv3"]["coupled"]["need"],
                 "dv3_two_process": two_process["dv3"]["need"],
+                "dv3_gang_attempt1": gang["attempt1_need"],
             },
             "launches_by_dtype": {
                 **{name: bf16[name]["by_dtype"] for name in ("train", "resume", "evaluation", "serve")},
@@ -4811,7 +5053,8 @@ def main() -> int:
                  "p2e": p2e, "odv3": odv3, "dv2": dv2, "dv1": dv1, "p2e_dv2": p2e_dv2, "p2e_dv1": p2e_dv1,
                  "sac_ae": sac_ae,
                  "ppo": ppo, "rppo": rppo, "a2c": a2c, "anakin": anakin, "sac": sac, "droq": droq,
-                 "sac_anakin": sac_anakin, "decoupled": decoupled, "two_process": two_process,
+                 "sac_anakin": sac_anakin, "decoupled": decoupled, "two_process": two_process, "gang": gang,
+                 "resilience": mf["resilience"],
                  "kernels": kernels, "phase_done_at_seconds": stamps},
                 f, indent=2,
             )

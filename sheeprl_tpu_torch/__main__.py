@@ -22,22 +22,28 @@ A decoupled exp (ppo_decoupled, sac_decoupled, dreamer_v3_decoupled) runs as
 two processes, each launched with the same arguments and with
 SHEEPRL_COORDINATOR=host:port SHEEPRL_GANG_PROCESSES=2 SHEEPRL_GANG_RANK=0 (the
 player, which opens the store on that port; port 0 picks a free one and prints
-it) or SHEEPRL_GANG_RANK=1 (the learner)."""
+it) or SHEEPRL_GANG_RANK=1 (the learner). With
+resilience.distributed.gang.processes=2 one launch does both: it supervises
+the two as a gang and restarts them from the newest manifest-complete
+checkpoint when one fails (logs under <run base>/gang/)."""
 
 
 def _child_bringup() -> None:
     """Open the store of a multi-process run from ``SHEEPRL_COORDINATOR``,
-    ``SHEEPRL_GANG_PROCESSES`` and ``SHEEPRL_GANG_RANK``, before the CLI."""
+    ``SHEEPRL_GANG_PROCESSES`` and ``SHEEPRL_GANG_RANK``, before the CLI
+    (``SHEEPRL_GANG_ATTEMPT`` is the gang supervisor's attempt)."""
     coordinator = os.environ.get("SHEEPRL_COORDINATOR")
     if not coordinator:
         return
     from sheeprl_tpu_torch.parallel import distributed
 
-    distributed.initialize(
-        coordinator,
-        int(os.environ.get("SHEEPRL_GANG_PROCESSES", "0") or 0),
-        int(os.environ.get("SHEEPRL_GANG_RANK", "0") or 0),
-    )
+    processes = int(os.environ.get("SHEEPRL_GANG_PROCESSES", "0") or 0)
+    rank = int(os.environ.get("SHEEPRL_GANG_RANK", "0") or 0)
+    # a gang's attempt scopes the channel's failure marker and the
+    # coordinator's records, so that a restarted gang never reads the last one's
+    attempt = int(os.environ.get("SHEEPRL_GANG_ATTEMPT", "0") or 0)
+    print(f"[sheeprl] process {rank} of {processes}, attempt {attempt}", flush=True)
+    distributed.initialize(coordinator, processes, rank)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -16,6 +16,7 @@ import torch
 from sheeprl_tpu_torch.algos.a2c.loss import policy_loss, value_loss
 from sheeprl_tpu_torch.algos.ppo.agent import PPOAgent, policy_output
 from sheeprl_tpu_torch.optim import clip_grad_global_norm_
+from sheeprl_tpu_torch.resilience.faults import apply_armed_learn_fault
 from sheeprl_tpu_torch.utils.utils import gae
 
 Batch = Dict[str, torch.Tensor]
@@ -38,6 +39,7 @@ class A2CTrainer:
     def train_phase(self, data: Batch, next_values: torch.Tensor) -> torch.Tensor:
         """One update on a [T, E, ...] rollout; returns the policy and value
         losses, [2], on the device."""
+        apply_armed_learn_fault(self.agent)  # resilience.fault=lr_spike: identity unless armed
         returns, advantages = gae(
             data["rewards"], data["values"], data["dones"], next_values,
             self.rollout_steps, self.gamma, self.gae_lambda,

@@ -43,6 +43,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.utils import (
 from sheeprl_tpu_torch.config import instantiate
 from sheeprl_tpu_torch.envs.spaces import env_actions
 from sheeprl_tpu_torch.optim import clip_grad_global_norm_
+from sheeprl_tpu_torch.resilience.faults import apply_armed_learn_fault
 from sheeprl_tpu_torch.utils.distribution import (
     BernoulliSafeMode,
     Independent,
@@ -133,6 +134,7 @@ class DreamerTrainer:
         each metric over them. ``want_full_state`` (a checkpoint is due) is
         for a trainer that defers checkpoints: this one always holds its
         whole state."""
+        apply_armed_learn_fault(self.agent)  # resilience.fault=lr_spike: identity unless armed
         G, T, B = data["rewards"].shape[:3]
         all_metrics = []
         for g in range(G):
@@ -465,8 +467,8 @@ def run_dreamer(
     from sheeprl_tpu_torch.data.prefetch import sample_to_device
     from sheeprl_tpu_torch.envs.spaces import action_space_dims
     from sheeprl_tpu_torch.envs.vector import SyncVectorEnv, episode_stats
-    from sheeprl_tpu_torch.resilience import signals
-    from sheeprl_tpu_torch.utils.checkpoint import InertObject, load_checkpoint, load_run_buffer, save_run_checkpoint
+    from sheeprl_tpu_torch.resilience.monitor import build_resilience
+    from sheeprl_tpu_torch.utils.checkpoint import InertObject, load_checkpoint, load_run_buffer, write_run_checkpoint
     from sheeprl_tpu_torch.utils.env import make_env
     from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
     from sheeprl_tpu_torch.utils.metric import MetricAggregator
@@ -483,6 +485,7 @@ def run_dreamer(
     log_dir = get_log_dir(cfg)
     logger = get_logger(cfg, log_dir)
     print(f"Log dir: {log_dir}", flush=True)
+    resilience = build_resilience(cfg, log_dir)
 
     num_envs = int(cfg.env.num_envs)
     envs = SyncVectorEnv(
@@ -610,6 +613,7 @@ def run_dreamer(
     window_policy_step = window_gradient_step = 0
     window_ckpt_seconds = 0.0
     actor_switch = None
+    preempted = False
 
     for iter_num in range(start_iter, total_iters + 1):
         if window_t0 is None and iter_num > learning_starts:
@@ -679,7 +683,7 @@ def run_dreamer(
                 aggregator.update("Game/ep_len_avg", float(np.mean(lens)))
         env_seconds += time.perf_counter() - t0
 
-        preempted = signals.preemption_requested()
+        preempted = resilience.preempt_requested()
         # computed before the train round, so that a trainer that defers
         # checkpoints ships its whole state with the round
         pending_ckpt = pending_ckpt or preempted or (
@@ -719,6 +723,7 @@ def run_dreamer(
                             aggregator.update(name, value)
                 train_seconds += time.perf_counter() - t0
 
+        resilience.step(policy_step)
         if cfg.metric.log_level > 0 and (
             policy_step - last_log >= cfg.metric.log_every or iter_num == total_iters or cfg.dry_run
         ):
@@ -764,7 +769,7 @@ def run_dreamer(
             }
             ckpt_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
             t0 = time.perf_counter()
-            save_run_checkpoint(
+            write_run_checkpoint(
                 ckpt_path,
                 ckpt_state,
                 replay_buffer=rb if cfg.buffer.checkpoint else None,
@@ -772,6 +777,7 @@ def run_dreamer(
             )
             if window_t0 is not None:
                 window_ckpt_seconds += time.perf_counter() - t0
+            resilience.observe_checkpoint(ckpt_path, policy_step, preempted=preempted)
         if preempted:
             break
 
@@ -789,16 +795,18 @@ def run_dreamer(
             "last_checkpoint": policy_step,
         }
         ckpt_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
-        save_run_checkpoint(
+        write_run_checkpoint(
             ckpt_path,
             ckpt_state,
             replay_buffer=rb if cfg.buffer.checkpoint else None,
             keep_last=int(cfg.checkpoint.get("keep_last") or 0),
         )
+        resilience.observe_checkpoint(ckpt_path, policy_step, preempted=preempted)
     envs.close()
     test_reward = None
     calls_before_test = player.calls
-    if not signals.preemption_requested() and cfg.algo.run_test:
+    preempted = resilience.finalize(policy_step)
+    if not preempted and cfg.algo.run_test:
         test_reward = test(player, cfg, log_dir, greedy=False, logger=logger)
     if logger is not None:
         logger.finalize()
@@ -818,7 +826,7 @@ def run_dreamer(
         "metrics": metrics,
         "test_reward": test_reward,
         "checkpoint": ckpt_path,
-        "preempted": signals.preemption_requested(),
+        "preempted": preempted,
         **({"actor_switch": actor_switch} if finetuning else {}),
     }
 

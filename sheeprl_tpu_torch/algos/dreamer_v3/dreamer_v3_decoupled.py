@@ -94,6 +94,12 @@ class DV3Learner:
     def final_state(self) -> Dict[str, Any]:
         return self.full_state()
 
+    @staticmethod
+    def progress(data: Dict[str, torch.Tensor], cum_steps: int, *_: Any) -> int:
+        """The learner process's step axis after a round: gradient steps (the
+        only counter it sees, as in the JAX learner); its faults fire on it."""
+        return int(cum_steps) + int(data["rewards"].shape[0])
+
 
 def build_learner(fabric, cfg, state: Optional[Dict[str, Any]] = None) -> DV3Learner:
     """The learner role as the learner process builds it: the agent from

@@ -21,6 +21,7 @@ import torch
 from sheeprl_tpu_torch.algos.droq.agent import build_agent
 from sheeprl_tpu_torch.algos.sac.sac import Batch, SACTrainer, run_off_policy
 from sheeprl_tpu_torch.data.prefetch import sample_to_device
+from sheeprl_tpu_torch.resilience.faults import apply_armed_learn_fault
 
 
 class DroQTrainer(SACTrainer):
@@ -49,6 +50,7 @@ class DroQTrainer(SACTrainer):
         """G critic updates with the EMA after each, then the actor and alpha
         updates on ``actor_data`` ([B, ...]). Returns the mean per-critic value
         loss, the policy loss and the alpha loss, [3], on the device."""
+        apply_armed_learn_fault(self.agent)  # resilience.fault=lr_spike: identity unless armed
         qf_losses = []
         for g in range(critic_data["rewards"].shape[0]):
             batch = {k: v[g] for k, v in critic_data.items()}

@@ -48,6 +48,7 @@ from sheeprl_tpu_torch.algos.ppo.loss import entropy_loss, policy_loss, value_lo
 from sheeprl_tpu_torch.algos.ppo.ppo import apply_update, build_optimizer
 from sheeprl_tpu_torch.config import instantiate
 from sheeprl_tpu_torch.envs.device.wrappers import AutoReset, AutoResetState
+from sheeprl_tpu_torch.resilience.faults import apply_armed_learn_fault
 from sheeprl_tpu_torch.utils.prp import draw_round_keys, prp_permutation
 from sheeprl_tpu_torch.utils.timer import timer
 from sheeprl_tpu_torch.utils.utils import gae, normalize_tensor, polynomial_decay, save_configs
@@ -280,6 +281,7 @@ class AnakinProgram:
         """The iteration's updates on the T-major flattened rollout; returns
         the mean policy, value and entropy losses [3] (over each epoch's
         minibatches, then over the epochs)."""
+        apply_armed_learn_fault(self.agent)  # resilience.fault=lr_spike: identity unless armed
         keys = (self.mlp_key, "actions", "logprobs", "values")
         flat = {k: traj[k].reshape(self.num_rows, *traj[k].shape[2:]) for k in keys if k in traj}
         flat["returns"] = returns.reshape(self.num_rows, 1)
@@ -335,8 +337,8 @@ def run_anakin(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
     from sheeprl_tpu_torch.envs.device import make_device_env
     from sheeprl_tpu_torch.interop.flax_to_torch import ppo_to_flax, ppo_to_torch
     from sheeprl_tpu_torch.interop.optax_to_torch import load_optimizer_state
-    from sheeprl_tpu_torch.resilience import signals
-    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_run_checkpoint
+    from sheeprl_tpu_torch.resilience.monitor import build_resilience
+    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, write_run_checkpoint
     from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
     from sheeprl_tpu_torch.utils.metric import MetricAggregator
 
@@ -351,6 +353,7 @@ def run_anakin(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
     log_dir = get_log_dir(cfg)
     logger = get_logger(cfg, log_dir)
     print(f"Log dir: {log_dir}", flush=True)
+    resilience = build_resilience(cfg, log_dir)
 
     num_envs = int(cfg.env.num_envs)
     env = make_device_env(cfg, num_envs, device)
@@ -403,6 +406,7 @@ def run_anakin(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
         env_state, obs, losses = out.env_state, out.obs, out.losses
         stats += out.ep_stats
 
+        resilience.step(policy_step)
         if cfg.metric.log_level > 0 and (
             policy_step - last_log >= cfg.metric.log_every or iter_num == total_iters or cfg.dry_run
         ):
@@ -445,7 +449,7 @@ def run_anakin(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
                 iter_num, initial=initial_ent_coef, final=0.0, max_decay_steps=total_iters, power=1.0
             )
 
-        preempted = signals.preemption_requested()
+        preempted = resilience.preempt_requested()
         if (
             (cfg.checkpoint.every > 0 and policy_step - last_checkpoint >= cfg.checkpoint.every)
             or cfg.dry_run
@@ -463,7 +467,8 @@ def run_anakin(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
             }
             ckpt_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
             with timer("Time/checkpoint_time"):
-                save_run_checkpoint(ckpt_path, ckpt_state, keep_last=int(cfg.checkpoint.get("keep_last") or 0))
+                write_run_checkpoint(ckpt_path, ckpt_state, keep_last=int(cfg.checkpoint.get("keep_last") or 0))
+            resilience.observe_checkpoint(ckpt_path, policy_step, preempted=preempted)
         if preempted:
             break
 
@@ -471,6 +476,7 @@ def run_anakin(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
     rollout_seconds += rollout_s
     train_seconds += train_s
     test_reward = None
+    preempted = resilience.finalize(policy_step)
     if not preempted and cfg.algo.run_test:
         with timer("Time/test_time"):
             test_reward = test(agent, cfg, log_dir, logger)

@@ -30,6 +30,7 @@ from sheeprl_tpu_torch.algos.ppo.loss import entropy_loss, policy_loss, value_lo
 from sheeprl_tpu_torch.algos.ppo.utils import normalize_obs, prepare_obs, test
 from sheeprl_tpu_torch.config import instantiate
 from sheeprl_tpu_torch.optim import clip_grad_global_norm_, linear_schedule, set_scheduled_lr
+from sheeprl_tpu_torch.resilience.faults import apply_armed_learn_fault
 from sheeprl_tpu_torch.utils.timer import timer
 from sheeprl_tpu_torch.utils.utils import gae, normalize_tensor, polynomial_decay, save_configs, sync_actor
 
@@ -137,6 +138,7 @@ class PPOTrainer:
         """The epochs over ``num_rows`` flat rows (the returns and advantages
         among them): one permutation per epoch, each cut into minibatches.
         Returns the mean policy, value and entropy losses, [3], on the device."""
+        apply_armed_learn_fault(self.agent)  # resilience.fault=lr_spike: identity unless armed
         pad = self.num_minibatches * self.batch_size - self.num_rows
         losses = []
         for perm in perms:
@@ -170,8 +172,8 @@ def run_on_policy(fabric, cfg: Dict[str, Any], algo: str, make_trainer=None) -> 
     from sheeprl_tpu_torch.data.buffers import ReplayBuffer
     from sheeprl_tpu_torch.interop.flax_to_torch import ppo_to_flax, ppo_to_torch
     from sheeprl_tpu_torch.interop.optax_to_torch import load_optimizer_state
-    from sheeprl_tpu_torch.resilience import signals
-    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_run_checkpoint
+    from sheeprl_tpu_torch.resilience.monitor import build_resilience
+    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, write_run_checkpoint
     from sheeprl_tpu_torch.utils.env import make_env
     from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
     from sheeprl_tpu_torch.utils.metric import MetricAggregator
@@ -186,6 +188,7 @@ def run_on_policy(fabric, cfg: Dict[str, Any], algo: str, make_trainer=None) -> 
     log_dir = get_log_dir(cfg)
     logger = get_logger(cfg, log_dir)
     print(f"Log dir: {log_dir}", flush=True)
+    resilience = build_resilience(cfg, log_dir)
 
     num_envs = int(cfg.env.num_envs)
     envs = SyncVectorEnv(
@@ -357,6 +360,7 @@ def run_on_policy(fabric, cfg: Dict[str, Any], algo: str, make_trainer=None) -> 
                     aggregator.update("Loss/entropy_loss", losses[2])
         train_seconds += time.perf_counter() - t0
 
+        resilience.step(policy_step)
         if cfg.metric.log_level > 0 and (
             policy_step - last_log >= cfg.metric.log_every or iter_num == total_iters or cfg.dry_run
         ):
@@ -392,7 +396,7 @@ def run_on_policy(fabric, cfg: Dict[str, Any], algo: str, make_trainer=None) -> 
                 iter_num, initial=initial_ent_coef, final=0.0, max_decay_steps=total_iters, power=1.0
             )
 
-        preempted = signals.preemption_requested()
+        preempted = resilience.preempt_requested()
         if (
             (cfg.checkpoint.every > 0 and policy_step - last_checkpoint >= cfg.checkpoint.every)
             or cfg.dry_run
@@ -410,12 +414,14 @@ def run_on_policy(fabric, cfg: Dict[str, Any], algo: str, make_trainer=None) -> 
             }
             ckpt_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
             with timer("Time/checkpoint_time"):
-                save_run_checkpoint(ckpt_path, ckpt_state, keep_last=int(cfg.checkpoint.get("keep_last") or 0))
+                write_run_checkpoint(ckpt_path, ckpt_state, keep_last=int(cfg.checkpoint.get("keep_last") or 0))
+            resilience.observe_checkpoint(ckpt_path, policy_step, preempted=preempted)
         if preempted:
             break
 
     envs.close()
     test_reward = None
+    preempted = resilience.finalize(policy_step)
     if not preempted and cfg.algo.run_test:
         with timer("Time/test_time"):
             test_reward = test(agent, cfg, log_dir, logger)

@@ -48,6 +48,8 @@ class PPOLearner:
         optimizer, schedule = build_optimizer(cfg, agent, total_iters)
         self.trainer = PPOTrainer(agent, optimizer, cfg, schedule)
         self.generator = torch.Generator().manual_seed(int(cfg.seed) + 1)
+        self.policy_steps_per_iter = int(cfg.env.num_envs) * int(cfg.algo.rollout_steps)
+        self.rounds = 0
 
     def draw(self) -> List[torch.Tensor]:
         """This round's permutations, one per epoch."""
@@ -63,6 +65,7 @@ class PPOLearner:
         if flat is not None:
             block = {k: v.to(trainer.device) for k, v in flat.items()}
             losses = trainer.train_rows(block, self.draw(), clip_coef, ent_coef).cpu()
+            self.rounds += 1
         return (
             snapshot(trainer.agent.state_dict(), "cpu"),
             optimizer_snapshot(trainer.optimizer) if want_opt_state else None,
@@ -71,6 +74,11 @@ class PPOLearner:
 
     def final_state(self) -> None:
         return None
+
+    def progress(self, *_: Any) -> int:
+        """The learner process's step axis after a round: the policy steps of
+        the rounds it trained (the JAX learner's ``rounds * policy_steps_per_iter``)."""
+        return self.rounds * self.policy_steps_per_iter
 
 
 def build_learner(fabric, cfg, state: Optional[Dict[str, Any]] = None) -> PPOLearner:

@@ -38,6 +38,7 @@ from sheeprl_tpu_torch.algos.ppo_recurrent.agent import RecurrentPPOAgent, build
 from sheeprl_tpu_torch.algos.ppo_recurrent.utils import normalize_obs, sequence_obs, test
 from sheeprl_tpu_torch.config import instantiate
 from sheeprl_tpu_torch.optim import linear_schedule
+from sheeprl_tpu_torch.resilience.faults import apply_armed_learn_fault
 from sheeprl_tpu_torch.utils.timer import timer
 from sheeprl_tpu_torch.utils.utils import gae, normalize_tensor, polynomial_decay, save_configs, sync_actor
 
@@ -160,6 +161,7 @@ class RecurrentPPOTrainer:
         the trainer's device. Returns the mean policy, value and entropy
         losses, [3], on the device (a skipped minibatch's are 0, as the JAX
         program's masked means give)."""
+        apply_armed_learn_fault(self.agent)  # resilience.fault=lr_spike: identity unless armed
         n = seqs["mask"].shape[1]
         bs = max(1, n // self.num_batches)
         nmb = n // bs
@@ -193,8 +195,8 @@ def main(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
     from sheeprl_tpu_torch.envs.vector import SyncVectorEnv, episode_stats
     from sheeprl_tpu_torch.interop.flax_to_torch import ppo_recurrent_to_flax, ppo_recurrent_to_torch
     from sheeprl_tpu_torch.interop.optax_to_torch import load_optimizer_state
-    from sheeprl_tpu_torch.resilience import signals
-    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_run_checkpoint
+    from sheeprl_tpu_torch.resilience.monitor import build_resilience
+    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, write_run_checkpoint
     from sheeprl_tpu_torch.utils.env import make_env
     from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
     from sheeprl_tpu_torch.utils.metric import MetricAggregator
@@ -214,6 +216,7 @@ def main(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
     log_dir = get_log_dir(cfg)
     logger = get_logger(cfg, log_dir)
     print(f"Log dir: {log_dir}", flush=True)
+    resilience = build_resilience(cfg, log_dir)
 
     num_envs = int(cfg.env.num_envs)
     envs = SyncVectorEnv(
@@ -359,6 +362,7 @@ def main(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
                 aggregator.update("Loss/entropy_loss", losses[2])
         train_seconds += time.perf_counter() - t0
 
+        resilience.step(policy_step)
         if cfg.metric.log_level > 0 and (
             policy_step - last_log >= cfg.metric.log_every or iter_num == total_iters or cfg.dry_run
         ):
@@ -394,7 +398,7 @@ def main(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
                 iter_num, initial=initial_ent_coef, final=0.0, max_decay_steps=total_iters, power=1.0
             )
 
-        preempted = signals.preemption_requested()
+        preempted = resilience.preempt_requested()
         if (
             (cfg.checkpoint.every > 0 and policy_step - last_checkpoint >= cfg.checkpoint.every)
             or cfg.dry_run
@@ -412,12 +416,14 @@ def main(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
             }
             ckpt_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
             with timer("Time/checkpoint_time"):
-                save_run_checkpoint(ckpt_path, ckpt_state, keep_last=int(cfg.checkpoint.get("keep_last") or 0))
+                write_run_checkpoint(ckpt_path, ckpt_state, keep_last=int(cfg.checkpoint.get("keep_last") or 0))
+            resilience.observe_checkpoint(ckpt_path, policy_step, preempted=preempted)
         if preempted:
             break
 
     envs.close()
     test_reward = None
+    preempted = resilience.finalize(policy_step)
     if not preempted and cfg.algo.run_test:
         with timer("Time/test_time"):
             test_reward = test(agent, cfg, log_dir, logger)

@@ -222,8 +222,8 @@ def run_sac_anakin(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
     from sheeprl_tpu_torch.data.prefetch import make_replay_sampler
     from sheeprl_tpu_torch.envs import spaces
     from sheeprl_tpu_torch.envs.device import make_device_env
-    from sheeprl_tpu_torch.resilience import signals
-    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_run_checkpoint
+    from sheeprl_tpu_torch.resilience.monitor import build_resilience
+    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, write_run_checkpoint
     from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
     from sheeprl_tpu_torch.utils.metric import MetricAggregator
     from sheeprl_tpu_torch.utils.timer import timer
@@ -237,6 +237,7 @@ def run_sac_anakin(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
     log_dir = get_log_dir(cfg)
     logger = get_logger(cfg, log_dir)
     print(f"Log dir: {log_dir}", flush=True)
+    resilience = build_resilience(cfg, log_dir)
 
     num_envs = int(cfg.env.num_envs)
     capacity = ring_capacity(int(cfg.buffer.size) if not cfg.dry_run else num_envs, num_envs)
@@ -308,6 +309,7 @@ def run_sac_anakin(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
         sampler.note_writes(program.rollout_steps)
         stats += out.ep_stats
 
+        resilience.step(policy_step)
         if cfg.metric.log_level > 0 and (
             policy_step - last_log >= cfg.metric.log_every or iter_num == total_iters or cfg.dry_run
         ):
@@ -337,7 +339,7 @@ def run_sac_anakin(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
                     aggregator.reset()
             last_log = policy_step
 
-        preempted = signals.preemption_requested()
+        preempted = resilience.preempt_requested()
         if (
             (cfg.checkpoint.every > 0 and policy_step - last_checkpoint >= cfg.checkpoint.every)
             or cfg.dry_run
@@ -355,7 +357,7 @@ def run_sac_anakin(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
             }
             ckpt_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
             with timer("Time/checkpoint_time"):
-                save_run_checkpoint(
+                write_run_checkpoint(
                     ckpt_path,
                     ckpt_state,
                     # the ring's snapshot (cursor and fill included), its newest
@@ -363,6 +365,7 @@ def run_sac_anakin(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
                     replay_buffer=sampler.sync_to_host() if cfg.buffer.checkpoint else None,
                     keep_last=int(cfg.checkpoint.get("keep_last") or 0),
                 )
+            resilience.observe_checkpoint(ckpt_path, policy_step, preempted=preempted)
         if preempted:
             break
 
@@ -370,6 +373,7 @@ def run_sac_anakin(fabric, cfg: Dict[str, Any]) -> Dict[str, Any]:
         seconds[i] += s
     sampler.close()
     test_reward = None
+    preempted = resilience.finalize(policy_step)
     if not preempted and cfg.algo.run_test:
         with timer("Time/test_time"):
             test_reward = test(agent.actor, cfg, log_dir, logger)

@@ -38,6 +38,7 @@ from sheeprl_tpu_torch.algos.sac.loss import critic_loss, entropy_loss, policy_l
 from sheeprl_tpu_torch.algos.sac.utils import flat_obs, prepare_obs, test
 from sheeprl_tpu_torch.config import instantiate
 from sheeprl_tpu_torch.data.prefetch import sample_to_device
+from sheeprl_tpu_torch.resilience.faults import apply_armed_learn_fault
 from sheeprl_tpu_torch.utils.utils import sync_actor
 
 Batch = Dict[str, torch.Tensor]
@@ -143,6 +144,7 @@ class SACTrainer:
         block: critic -> EMA (when the iteration's gate is open) -> actor ->
         alpha. Returns the mean value, policy and alpha losses, [3], on the
         device."""
+        apply_armed_learn_fault(self.agent)  # resilience.fault=lr_spike: identity unless armed
         do_ema = iter_num % self.target_period == 0
         losses = []
         for g in range(data["rewards"].shape[0]):
@@ -248,8 +250,8 @@ def run_off_policy(fabric, cfg: Dict[str, Any], name: str, build_agent, trainer_
     from sheeprl_tpu_torch.data.buffers import ReplayBuffer
     from sheeprl_tpu_torch.envs import spaces
     from sheeprl_tpu_torch.envs.vector import SyncVectorEnv, episode_stats
-    from sheeprl_tpu_torch.resilience import signals
-    from sheeprl_tpu_torch.utils.checkpoint import InertObject, load_checkpoint, load_run_buffer, save_run_checkpoint
+    from sheeprl_tpu_torch.resilience.monitor import build_resilience
+    from sheeprl_tpu_torch.utils.checkpoint import InertObject, load_checkpoint, load_run_buffer, write_run_checkpoint
     from sheeprl_tpu_torch.utils.env import make_env
     from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
     from sheeprl_tpu_torch.utils.metric import MetricAggregator
@@ -263,6 +265,7 @@ def run_off_policy(fabric, cfg: Dict[str, Any], name: str, build_agent, trainer_
     log_dir = get_log_dir(cfg)
     logger = get_logger(cfg, log_dir)
     print(f"Log dir: {log_dir}", flush=True)
+    resilience = build_resilience(cfg, log_dir)
 
     num_envs = int(cfg.env.num_envs)
     envs = SyncVectorEnv([make_env(cfg, cfg.seed + i, 0, log_dir, "train", vector_env_idx=i) for i in range(num_envs)])
@@ -410,6 +413,7 @@ def run_off_policy(fabric, cfg: Dict[str, Any], name: str, build_agent, trainer_
                             aggregator.update(loss_name, value)
                 train_seconds += time.perf_counter() - t0
 
+        resilience.step(policy_step)
         if cfg.metric.log_level > 0 and (
             policy_step - last_log >= cfg.metric.log_every or iter_num == total_iters or cfg.dry_run
         ):
@@ -436,7 +440,7 @@ def run_off_policy(fabric, cfg: Dict[str, Any], name: str, build_agent, trainer_
                     aggregator.reset()
             last_log = policy_step
 
-        preempted = signals.preemption_requested()
+        preempted = resilience.preempt_requested()
         if (
             (cfg.checkpoint.every > 0 and policy_step - last_checkpoint >= cfg.checkpoint.every)
             or cfg.dry_run
@@ -456,12 +460,13 @@ def run_off_policy(fabric, cfg: Dict[str, Any], name: str, build_agent, trainer_
             ckpt_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
             t0 = time.perf_counter()
             with timer("Time/checkpoint_time"):
-                save_run_checkpoint(
+                write_run_checkpoint(
                     ckpt_path,
                     ckpt_state,
                     replay_buffer=rb if cfg.buffer.checkpoint else None,
                     keep_last=int(cfg.checkpoint.get("keep_last") or 0),
                 )
+            resilience.observe_checkpoint(ckpt_path, policy_step, preempted=preempted)
             if window_t0 is not None:
                 window_ckpt_seconds += time.perf_counter() - t0
         if preempted:
@@ -470,6 +475,7 @@ def run_off_policy(fabric, cfg: Dict[str, Any], name: str, build_agent, trainer_
     window_seconds = time.perf_counter() - window_t0 - window_ckpt_seconds if window_t0 is not None else 0.0
     envs.close()
     test_reward = None
+    preempted = resilience.finalize(policy_step)
     if not preempted and cfg.algo.run_test:
         with timer("Time/test_time"):
             test_reward = trainer.test(cfg, log_dir, logger)

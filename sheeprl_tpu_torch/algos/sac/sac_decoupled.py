@@ -53,9 +53,10 @@ class SACLearner:
     its optimizers) and the noise's generator. :meth:`round` is one message
     of the protocol."""
 
-    def __init__(self, trainer: SACTrainer, seed: int):
+    def __init__(self, trainer: SACTrainer, seed: int, policy_steps_per_iter: int = 1):
         self.trainer = trainer
         self.generator = torch.Generator(trainer.device).manual_seed(int(seed) + 1)
+        self.policy_steps_per_iter = int(policy_steps_per_iter)
 
     def draw(self, G: int, batch_size: int) -> Dict[str, torch.Tensor]:
         """This round's normal noise (``SACTrainer.draw_noise``)."""
@@ -79,6 +80,11 @@ class SACLearner:
     def final_state(self) -> None:
         return None
 
+    def progress(self, data: Any, iter_num: int, *_: Any) -> int:
+        """The learner process's step axis after a round: the player's policy
+        step (the JAX learner's ``iter_num * policy_steps_per_iter``)."""
+        return int(iter_num) * self.policy_steps_per_iter
+
 
 def build_learner(fabric, cfg, state: Optional[Dict[str, Any]] = None) -> SACLearner:
     """The learner role as the learner process builds it: the agent from
@@ -99,7 +105,7 @@ def build_learner(fabric, cfg, state: Optional[Dict[str, Any]] = None) -> SACLea
     # a JAX checkpoint written before learning started holds no optimizer state
     if state is not None and state.get("opt_state") is not None:
         trainer.load_opt_state(state["opt_state"])
-    return SACLearner(trainer, int(cfg.seed))
+    return SACLearner(trainer, int(cfg.seed), int(cfg.env.num_envs))
 
 
 class ChannelTrainer(SACTrainer):

@@ -42,6 +42,7 @@ from sheeprl_tpu_torch.algos.sac_ae.agent import SACAEAgent, build_agent
 from sheeprl_tpu_torch.algos.sac_ae.utils import prepare_obs, preprocess_obs, test
 from sheeprl_tpu_torch.config import instantiate
 from sheeprl_tpu_torch.data.prefetch import sample_to_device
+from sheeprl_tpu_torch.resilience.faults import apply_armed_learn_fault
 
 
 def param_groups(agent: SACAEAgent) -> Dict[str, list]:
@@ -202,6 +203,7 @@ class SACAETrainer(SACTrainer):
         block from the run's gradient step ``cum`` (module docstring). Returns
         the mean value, policy, alpha and reconstruction losses, [4], on the
         device."""
+        apply_armed_learn_fault(self.agent)  # resilience.fault=lr_spike: identity unless armed
         losses = []
         for g in range(data["rewards"].shape[0]):
             batch = {k: v[g] for k, v in data.items()}

@@ -19,10 +19,20 @@ finetunes from an exploration checkpoint of either package, taking the
 exploration run's environment settings from the config.yaml beside it.
 
 Config keys the port keeps but does not act on yet accept only their off
-values: telemetry, the profiler, the supervisor, fault injection, the
-watchdog, gangs, the replay prefetch thread and service backend, sharded and
-asynchronous checkpoints. ``buffer.backend=device`` (the replay ring on the
-card) is for ``sac_anakin`` only, as in the JAX CLI.
+values: telemetry, the profiler, the replay prefetch thread and service
+backend, sharded and asynchronous checkpoints. ``buffer.backend=device`` (the
+replay ring on the card) is for ``sac_anakin`` only, as in the JAX CLI.
+
+The resilience plane runs as in the JAX CLI (``resilience/``): the preemption
+handler, the fault kinds of training (``check_resilience``), the progress
+watchdog, ``resilience.supervisor.enabled`` (a crashed or preempted run
+restarts in this process from its newest valid checkpoint), and
+``resilience.distributed.gang.processes=2`` for a decoupled algorithm, which
+makes this process the gang's supervisor: it spawns the player and the
+learner as ``python -m sheeprl_tpu_torch`` children and restarts the whole
+gang from its newest manifest-complete checkpoint when one of them fails. A
+process that tears itself down because its peer died exits 77; a watchdog
+abort exits 76; a preempted run 75.
 
 The decoupled algorithms run as a player loop and a learner thread in one
 process, or as two processes, a player and a learner, joined by the store that
@@ -30,13 +40,14 @@ process, or as two processes, a player and a learner, joined by the store that
 their topology (``check_topology``). Every other launch of more than one
 process is refused by name (``check_processes``): a coupled algorithm
 (data-parallel training), three or more processes (a learner slice), and
-torchrun's ``WORLD_SIZE`` without ``SHEEPRL_COORDINATOR``; so are the gang
-(``resilience.distributed.gang.processes >= 2``) and the experience service
+torchrun's ``WORLD_SIZE`` without ``SHEEPRL_COORDINATOR``; so are a gang of a
+coupled algorithm or of three or more processes, and the experience service
 (``buffer.backend=service``).
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import sys
 from pathlib import Path
@@ -123,19 +134,12 @@ def unported_settings(cfg) -> List[str]:
     """The settings of ``cfg`` that ask for something not yet ported."""
     metric = cfg.get("metric") or {}
     telemetry = metric.get("telemetry") or {}
-    resilience = cfg.get("resilience") or {}
     buffer = cfg.get("buffer") or {}
     checkpoint = cfg.get("checkpoint") or {}
     checks = {
         "metric.telemetry.enabled": bool(telemetry.get("enabled")),
         "metric.telemetry.http_port": telemetry.get("http_port") is not None,
         "metric.profiler.mode": str((metric.get("profiler") or {}).get("mode", "off")) != "off",
-        "resilience.supervisor.enabled": bool((resilience.get("supervisor") or {}).get("enabled")),
-        "resilience.fault.kind": bool((resilience.get("fault") or {}).get("kind")),
-        "resilience.watchdog.enabled": bool((resilience.get("watchdog") or {}).get("enabled")),
-        "resilience.distributed.gang.processes >= 2": int(
-            (((resilience.get("distributed") or {}).get("gang") or {}).get("processes") or 0)
-        ) >= 2,
         # the thread samples ahead for the replay loops; the on-policy loops do not read the key
         "buffer.prefetch.enabled (the prefetch thread)": bool((buffer.get("prefetch") or {}).get("enabled"))
         and str((cfg.get("algo") or {}).get("name", "")) not in ("ppo", "a2c", "ppo_recurrent", "ppo_anakin",
@@ -203,6 +207,61 @@ def check_processes(cfg) -> None:
         )
 
 
+def check_resilience(cfg) -> None:
+    """The JAX CLI's checks of the ``resilience`` group, before the run
+    launches: a fault kind that training drives (``env_step`` is refused by
+    name) at a step and a rank that exist, the restart budget, the watchdog's
+    timeout, the heartbeat's timeout against its interval, and the gang's
+    size. A gang is the decoupled topology's two processes: a gang of a
+    coupled algorithm is data-parallel training, and one of three or more
+    processes a learner slice, both refused by name."""
+    from sheeprl_tpu_torch.resilience.faults import normalize_fault_cfg
+    from sheeprl_tpu_torch.utils.registry import DECOUPLED
+
+    rcfg = cfg.get("resilience") or {}
+    fault = normalize_fault_cfg(rcfg, scope="training")
+    if fault is not None and fault["at"] < 0:
+        raise ValueError("resilience.fault.at_policy_step must be >= 0")
+    if fault is not None and fault["rank"] is not None and fault["rank"] < 0:
+        raise ValueError("resilience.fault.rank must be >= 0 (a process index)")
+    if int((rcfg.get("supervisor") or {}).get("max_restarts", 3) or 0) < 0:
+        raise ValueError("resilience.supervisor.max_restarts must be >= 0")
+    watchdog = rcfg.get("watchdog") or {}
+    if bool(watchdog.get("enabled", False)) and float(watchdog.get("timeout") or 0) <= 0:
+        raise ValueError("resilience.watchdog.timeout must be > 0 when the watchdog is enabled")
+    dcfg = rcfg.get("distributed") or {}
+    gang = int((dcfg.get("gang") or {}).get("processes") or 0)
+    if gang == 1 or gang < 0:
+        raise ValueError(
+            "resilience.distributed.gang.processes must be 0 (off) or >= 2 "
+            "(a 1-process run is what the in-process resilience.supervisor is for)"
+        )
+    if gang >= 2 and fault is not None and fault["rank"] is not None and fault["rank"] >= gang:
+        raise ValueError(
+            f"resilience.fault.rank={fault['rank']} targets no process of a {gang}-process gang — "
+            "the fault would never fire"
+        )
+    heartbeat = dcfg.get("heartbeat") or {}
+    interval, timeout = float(heartbeat.get("interval") or 2.0), float(heartbeat.get("timeout") or 60.0)
+    if bool(heartbeat.get("enabled", True)) and timeout <= interval:
+        raise ValueError(
+            "resilience.distributed.heartbeat.timeout must exceed heartbeat.interval "
+            f"(got timeout={timeout}, interval={interval})"
+        )
+    if gang >= 2 and cfg.algo.name not in DECOUPLED:
+        raise NotImplementedError(
+            f"resilience.distributed.gang.processes >= 2 of {cfg.algo.name}: a gang of a coupled algorithm is "
+            "data-parallel training (DDP), not yet ported; the gang runs the decoupled algorithms "
+            f"({', '.join(sorted(DECOUPLED))})"
+        )
+    if gang > 2:
+        raise NotImplementedError(
+            f"resilience.distributed.gang.processes >= 2 ({gang}) of {cfg.algo.name}: the port's gang is a player "
+            "and one learner process; a learner slice of two or more processes shares one data-parallel mesh "
+            "(DDP), not yet ported"
+        )
+
+
 def check_topology(cfg) -> None:
     """The JAX CLI's checks of a decoupled algorithm's topology (at least one
     actor, no ``single_device`` strategy, ``devices >= 1``, a 1-D mesh), and
@@ -240,6 +299,7 @@ def check_configs(cfg) -> Callable:
 
     main = load_entrypoint(ALGORITHMS, cfg.algo.name, "training loop")
     check_topology(cfg)
+    check_resilience(cfg)
     check_buffer_backend(cfg)
     unported_precision(cfg)
     unported = unported_settings(cfg)
@@ -339,26 +399,64 @@ def run_algorithm(cfg) -> Any:
 
 def run(args: Optional[Sequence[str]] = None) -> Any:
     """``python -m sheeprl_tpu_torch exp=... [overrides]``. Returns the loop's
-    summary; a run stopped by SIGTERM/SIGINT (after its emergency checkpoint)
-    exits with code 75."""
-    from sheeprl_tpu_torch.config import compose
-    from sheeprl_tpu_torch.resilience import signals
+    summary (the last attempt's under a supervisor; None for a gang's
+    supervisor, which trains nothing itself). The dispatch is the JAX CLI's:
+    a gang (``resilience.distributed.gang.processes >= 2``, in a process that
+    is not one of its children), then the in-process supervisor, then a plain
+    run. A run stopped by SIGTERM/SIGINT (after its emergency checkpoint)
+    exits 75, a process whose peer was declared dead 77, a watchdog's abort
+    76."""
+    from sheeprl_tpu_torch.config import compose, dotdict
+    from sheeprl_tpu_torch.resilience import distributed, signals
+    from sheeprl_tpu_torch.resilience.supervisor import supervise, supervisor_enabled
+    from sheeprl_tpu_torch.resilience.watchdog import WatchdogError, stop_all_watchdogs
 
     overrides = list(args if args is not None else sys.argv[1:])
     cfg = compose(overrides)
+    # before any resume merge: a supervisor's retries rebuild from it, so that
+    # the launch's typed overrides survive every attempt
+    argv_cfg = dotdict(copy.deepcopy(cfg.as_dict()))
     if cfg.checkpoint.resume_from:
         cfg = resume_from_checkpoint(cfg, overrides=overrides)
     installed = bool((cfg.get("resilience") or {}).get("handler", True)) and signals.install_preemption_handler()
+    summaries: List[Any] = []
+
+    def run_fn(c) -> None:
+        summaries.append(run_algorithm(c))
+
     try:
-        summary = run_algorithm(cfg)
-        preempted = signals.preemption_requested()
+        if distributed.gang_processes(cfg) >= 2 and not os.environ.get("SHEEPRL_GANG_RANK"):
+            # this process never trains: it spawns and supervises the gang
+            check_configs(cfg)
+            outcome = distributed.supervise_gang(cfg, overrides)
+        elif supervisor_enabled(cfg):
+            outcome = supervise(cfg, run_fn, lambda c: resume_from_checkpoint(c, overrides=overrides),
+                                argv_cfg=argv_cfg)
+        else:
+            run_fn(cfg)
+            outcome = "preempted" if signals.preemption_requested() else "completed"
+    except distributed.RankFailureError as err:
+        # a peer died and this process tore itself down: the distinct code
+        # tells the gang's supervisor not to blame this rank
+        print(f"[sheeprl-resilience] {err}", file=sys.stderr, flush=True)
+        raise SystemExit(signals.RANK_FAILED_EXIT_CODE) from err
+    except WatchdogError as err:
+        print(f"[sheeprl-resilience] the progress watchdog aborted the run: {err!r}", file=sys.stderr, flush=True)
+        raise SystemExit(signals.WATCHDOG_EXIT_CODE) from err
     finally:
+        # a crash that unwound past the loop's finalize() leaves its watchdog
+        # (an abort-mode one would os._exit a later run) and its coordinator
+        stop_all_watchdogs()
+        coord = distributed.active_coordinator()
+        if coord is not None:
+            coord.close()
         if installed:
             signals.uninstall_preemption_handler()
+    summary = summaries[-1] if summaries else None
     if isinstance(summary, dict):
         shown = {k: v for k, v in summary.items() if k != "metrics"}
         print(f"[sheeprl] run summary: {shown}", flush=True)
-    if preempted:
+    if outcome == "preempted":
         raise SystemExit(signals.PREEMPTED_EXIT_CODE)
     return summary
 

@@ -99,6 +99,14 @@ def kernel_launches() -> Dict[str, int]:
     return {spec.name: spec.launches for spec in KERNELS}
 
 
+def kernel_builds() -> int:
+    """The kernel libraries this process compiled with ``nvcc`` (0 when every
+    one it loaded was already built)."""
+    from sheeprl_tpu_torch.ops._build import build_snapshot
+
+    return int(build_snapshot()["builds"])
+
+
 def learner_loop(learner, data_q: "queue.Queue", reply_q: "queue.Queue", error: Dict[str, Any]) -> None:
     """The learner thread's body: ``learner.round(*message)`` for each message
     until the ``None`` sentinel, which ``learner.final_state()`` answers."""
@@ -291,10 +299,11 @@ class LearnerProcess:
             pass
 
     def report(self) -> Dict[str, Any]:
-        """Each role's kernel launches, and the exchanges' seconds after the
-        first (which waits for the learner process to start): a round's mean,
-        the learner's mean in ``round``, and the rest's share (the handoff:
-        host copies, pickling and the store, both ways)."""
+        """Each role's kernel launches and kernel builds, and the exchanges'
+        seconds after the first (which waits for the learner process to
+        start): a round's mean, the learner's mean in ``round``, and the
+        rest's share (the handoff: host copies, pickling and the store, both
+        ways)."""
         learner = self.learner or {"seconds": [], "launches": {}}
         ours, theirs = sum(self.seconds[1:]), sum(learner["seconds"][1:])
         steady = max(len(self.seconds) - 1, 1)
@@ -305,6 +314,7 @@ class LearnerProcess:
             "learner_round_seconds": theirs / steady,
             "handoff_share": (ours - theirs) / ours if ours > 0 else 0.0,
             "launches": {"player": kernel_launches(), "learner": dict(learner["launches"])},
+            "builds": {"player": kernel_builds(), "learner": int(learner.get("builds", 0))},
         }
 
 
@@ -316,8 +326,27 @@ def serve_learner(cfg, build_learner: Callable[[Optional[Dict[str, Any]]], Any])
     states and Moments are the learner's to restore), builds the learner with
     ``build_learner(state)``, and answers each round with
     ``learner.round(*message)`` until the sentinel, which it answers with
-    ``(learner.final_state(), {"seconds", "launches"})``. A failure publishes
-    the marker first, then replies ``None`` unless the channel failed."""
+    ``(learner.final_state(), {"seconds", "launches", "builds"})``. A failure publishes
+    the marker first, then replies ``None`` unless the channel failed.
+
+    The process's resilience facade (``resilience/monitor.py``'s
+    ``PeerResilience``: heartbeats, faults aimed at rank 1, its SIGTERM
+    published as a request the player's coordinator turns into the agreed
+    stop step, a dead player raising ``RankFailureError``) is stepped after
+    each reply, at ``learner.progress(*message)``: the learner's own step
+    axis, as the JAX learner roles count it."""
+    from sheeprl_tpu_torch.resilience.monitor import build_resilience
+
+    # the facade comes up before the first blocking wait: its heartbeats tell
+    # the player "starting" from "dead", and its verdict ends this side's waits
+    resilience = build_resilience(cfg)
+    try:
+        _serve_rounds(cfg, build_learner, resilience)
+    finally:
+        resilience.finalize()
+
+
+def _serve_rounds(cfg, build_learner: Callable[[Optional[Dict[str, Any]]], Any], resilience) -> None:
     from sheeprl_tpu_torch.parallel.distributed import BroadcastChannel, ChannelError, publish_channel_error
     from sheeprl_tpu_torch.resilience.distributed import channel_options
     from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
@@ -341,7 +370,8 @@ def serve_learner(cfg, build_learner: Callable[[Optional[Dict[str, Any]]], Any])
             message = data.get()
             if message is None:
                 final = learner.final_state()
-                replies.put(host_copy((final, {"seconds": seconds, "launches": kernel_launches()})))
+                replies.put(host_copy((final, {"seconds": seconds, "launches": kernel_launches(),
+                                               "builds": kernel_builds()})))
                 return
             t0 = time.perf_counter()
             reply = learner.round(*message)
@@ -349,6 +379,8 @@ def serve_learner(cfg, build_learner: Callable[[Optional[Dict[str, Any]]], Any])
                 torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
             replies.put(host_copy(reply))
+            # its faults fire, its SIGTERM is published, a dead peer raises
+            resilience.step(learner.progress(*message))
     except BaseException as exc:
         publish_channel_error(f"{stage}: {exc!r:.300}", kv=replies.kv)
         if not isinstance(exc, ChannelError):

@@ -20,7 +20,14 @@ waits in ``poll_s`` slices up to ``timeout_s``, and between slices runs
 ``abort_check`` and looks for a peer's failure marker
 (:func:`publish_channel_error`): a slice that ends with no message is a
 ``wait`` that timed out, which leaves the store's connection usable. A
-``put`` retries a store write with backoff.
+``put`` retries a store write with backoff. On a process other than 0 a
+closed connection means the master, process 0, is gone: the op raises
+``RankFailureError`` (the CLI exits 77), as a declared-dead peer does.
+
+The coordinator of a multi-process run (``resilience/distributed.py``) talks
+to the same store over a connection of its own (:func:`control_kv`), so its
+heartbeats never queue behind a channel's wait; while it runs, a wait's slice
+is capped at its heartbeat interval (``abort_poll``).
 
 The JAX object-plane helpers (``host_allsum``, ``host_broadcast_object``,
 ``host_allgather_object``, ``barrier``, ``replicated_to_host``) serve the
@@ -44,6 +51,13 @@ STORE_TIMEOUT_S = 300.0
 _store: Any = None
 _world = 1
 _rank = 0
+_address: Optional[Tuple[str, int]] = None
+# (store, the coordinator's own connection to it): control_kv
+_control: Any = None
+
+# the channel_drop fault's hook (resilience/faults.py): a source's put asks it
+# first, and a True loses that put on the wire (the sequence still advances)
+_channel_drop_hook: Any = None
 
 
 def process_count() -> int:
@@ -71,7 +85,7 @@ def initialize(coordinator: Optional[str], num_processes: Optional[int], process
     """Open this process's store: the master for ``process_id`` 0, a client
     otherwise. A no-op without a coordinator, for one process, or when the
     store is already open."""
-    global _store, _world, _rank
+    global _store, _world, _rank, _address
     if _store is not None or not coordinator:
         return
     num_processes = int(num_processes or 0)
@@ -89,7 +103,26 @@ def initialize(coordinator: Optional[str], num_processes: Optional[int], process
         print(f"[sheeprl] coordinator listening on {host}:{_store.port}", flush=True)
     else:
         _store = TCPStore(host, port, num_processes, False, timeout=timeout)
-    _world, _rank = num_processes, rank
+    _world, _rank, _address = num_processes, rank, (host, int(_store.port))
+
+
+def control_kv(timeout_s: float = 10.0) -> Optional["StoreKV"]:
+    """A second connection to this run's store, for the coordinator's threads
+    (``resilience/distributed.py``), or None outside a multi-process run. One
+    client serialises its operations, and a channel's bounded ``get`` holds
+    its connection in ``wait`` for up to ``poll_s``: the heartbeats must not
+    queue behind it. Opened once, on first use."""
+    global _control
+    if _store is None or _address is None:
+        return None
+    if _control is None or _control[0] is not _store:
+        from torch.distributed import TCPStore
+
+        host, port = _address
+        client = TCPStore(host, port, _world, False, timeout=datetime.timedelta(seconds=timeout_s),
+                          wait_for_workers=False)
+        _control = (_store, StoreKV(client))
+    return _control[1]
 
 
 class ChannelError(RuntimeError):
@@ -110,7 +143,9 @@ class ChannelPeerError(ChannelError):
 
 class StoreKV:
     """A store seen as the JAX package's key-value surface: ``set`` a string,
-    ``get`` it back (None when the key is missing, without blocking)."""
+    ``get`` it back (None when the key is missing, without blocking),
+    ``get_many`` several, ``delete`` one. A store cannot list its keys, so
+    readers name every key they read (the JAX package lists a prefix)."""
 
     def __init__(self, store: Any):
         self.store = store
@@ -122,6 +157,13 @@ class StoreKV:
         if not self.store.check([key]):
             return None
         return self.store.get(key).decode()
+
+    def get_many(self, keys) -> Dict[str, str]:
+        """The keys of ``keys`` that exist, with their values."""
+        return {key: value for key, value in ((key, self.get(key)) for key in keys) if value is not None}
+
+    def delete(self, key: str) -> None:
+        self.store.delete_key(key)
 
 
 def _default_kv() -> Optional[StoreKV]:
@@ -175,6 +217,14 @@ def _is_timeout(exc: BaseException) -> bool:
     return isinstance(exc, DistStoreError) and "timeout" in str(exc).lower()
 
 
+def _is_connection_loss(exc: BaseException) -> bool:
+    """Whether a store error is the connection to the master closing: the
+    master is process 0, so process 0 is gone."""
+    from torch.distributed import DistNetworkError
+
+    return isinstance(exc, DistNetworkError)
+
+
 class BroadcastChannel:
     """One role's messages to the others over the store, with a queue's
     ``put``/``get``: ``put`` writes on the source (``src``) and only advances
@@ -190,11 +240,14 @@ class BroadcastChannel:
     _nonces: Dict[int, Tuple[Any, Dict[int, int]]] = {}
 
     def __init__(self, src: int, *, timeout_s: Optional[float] = None, poll_s: Optional[float] = None,
-                 abort_check: Any = None, store: Any = None, rank: Optional[int] = None):
+                 abort_check: Any = None, abort_poll: Any = None, store: Any = None, rank: Optional[int] = None):
         self.src = int(src)
         self.timeout_s = float(timeout_s if timeout_s is not None else self.TIMEOUT_S)
         self.poll_s = float(poll_s if poll_s is not None else self.POLL_S)
         self.abort_check = abort_check
+        # abort_poll() caps a wait's slice while a coordinator runs (its
+        # heartbeat interval), so a declared-dead peer ends the wait promptly
+        self.abort_poll = abort_poll
         self.store = store if store is not None else _store
         if self.store is None:
             raise ChannelError("BroadcastChannel needs a store: initialize() a multi-process run first")
@@ -213,10 +266,14 @@ class BroadcastChannel:
         try:
             if self.rank == self.src:
                 payload = pickle.dumps(msg, protocol=pickle.HIGHEST_PROTOCOL)
-                if self._seq > 1:
+                stale = self._chunks.pop(self._seq - 2, None)
+                if stale is not None:
                     old = self._tag(self._seq - 2)
-                    for key in [f"{old}/c{i}" for i in range(self._chunks.pop(self._seq - 2))] + [f"{old}/n"]:
+                    for key in [f"{old}/c{i}" for i in range(stale)] + [f"{old}/n"]:
                         self._retry(lambda key=key: self.store.delete_key(key))
+                if _channel_drop_hook is not None and _channel_drop_hook():
+                    self._seq += 1  # lost on the wire: no payload lands
+                    return
                 tag = self._tag(self._seq)
                 n = max(1, -(-len(payload) // CHUNK_BYTES))
                 view = memoryview(payload)
@@ -227,6 +284,7 @@ class BroadcastChannel:
                 self._chunks[self._seq] = n
             self._seq += 1
         except BaseException as exc:
+            self._raise_if_master_gone(exc)
             raise ChannelError(f"channel put (src={self.src}) failed") from exc
 
     def get(self) -> Any:
@@ -245,7 +303,17 @@ class BroadcastChannel:
 
             if isinstance(exc, RankFailureError):
                 raise
+            self._raise_if_master_gone(exc)
             raise ChannelError(f"channel get (src={self.src}) failed") from exc
+
+    def _raise_if_master_gone(self, exc: BaseException) -> None:
+        """On a process other than 0, a closed connection to the store means
+        process 0 (the master) is gone: a peer's death, which ends this
+        process with :class:`~sheeprl_tpu_torch.resilience.distributed.RankFailureError`."""
+        if self.rank != 0 and _is_connection_loss(exc):
+            from sheeprl_tpu_torch.resilience.distributed import RankFailureError
+
+            raise RankFailureError(f"rank 0 of this run is gone (the store's connection closed: {exc})"[:400]) from exc
 
     def _bounded_get(self, key: str) -> bytes:
         """Wait for ``key`` in ``poll_s`` slices up to ``timeout_s``; between
@@ -263,9 +331,14 @@ class BroadcastChannel:
                     f"channel get (src={self.src}) timed out after {self.timeout_s:g}s waiting for {key!r}: "
                     "the source rank is slow, hung or dead"
                 )
+            slice_s = min(self.poll_s, remaining)
+            cap = self.abort_poll() if self.abort_poll is not None else None
+            if cap is not None:
+                slice_s = min(slice_s, cap)
             try:
-                self.store.wait([key], datetime.timedelta(seconds=max(min(self.poll_s, remaining), 0.05)))
+                self.store.wait([key], datetime.timedelta(seconds=max(slice_s, 0.05)))
             except Exception as exc:
+                self._raise_if_master_gone(exc)
                 if not _is_timeout(exc):
                     raise
                 continue  # the slice ran out: check again and keep waiting

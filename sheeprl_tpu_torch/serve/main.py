@@ -90,7 +90,7 @@ def _check_unported(cfg) -> None:
             f"serve.reload.source={source}: not yet ported to sheeprl_tpu_torch (the fleet weight plane); "
             "serve.reload follows a checkpoint directory"
         )
-    normalize_fault_cfg(cfg.get("resilience"))  # raises for the kinds serve does not drive
+    normalize_fault_cfg(cfg.get("resilience"), scope="serving")  # raises for the kinds serve does not drive
 
 
 def build_serve_cfg(overrides: Sequence[str]):

@@ -15,7 +15,10 @@ checkpoint the port uses ``state["agent"]`` only.
 :func:`save_run_checkpoint` is the training loop's checkpoint: the replay
 buffer rides along with its last rows marked truncated (so a resumed run never
 joins an episode across the gap), and only the newest ``keep_last``
-checkpoints stay.
+checkpoints stay. The loops write it through :func:`write_run_checkpoint`,
+which pauses the progress watchdogs and, in a multi-process run, brackets the
+write with the step's consistency manifest. The ``ckpt_kill`` fault raises
+between the temporary file and its rename (``_fault_hook``).
 
 A memory-mapped buffer is pickled as references to its files (at the exp's
 size they hold ~12 GB), so the files belong to the checkpoints once one
@@ -37,13 +40,18 @@ import hashlib
 import io
 import os
 import pickle
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 SHA_SIDECAR_SUFFIX = ".sha256"
 MEMMAP_SIDECAR_SUFFIX = ".memmap"
+
+# the ckpt_kill fault's hook (resilience/faults.py): called as
+# ``hook(stage, path)`` between the temporary write and the rename, where a
+# kill leaves the torn ``.tmp`` artifact that discovery skips
+_fault_hook: Optional[Callable[[str, str], None]] = None
 
 # modules whose classes load as placeholders (their objects are not used)
 _INERT_MODULES = ("jax", "jaxlib", "flax", "optax", "chex", "orbax", "ml_dtypes", "sheeprl_tpu")
@@ -100,6 +108,8 @@ def save_checkpoint(path: str, state: Dict[str, Any]) -> None:
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         pickle.dump(_to_host(state), f, protocol=pickle.HIGHEST_PROTOCOL)
+    if _fault_hook is not None:
+        _fault_hook("pickle:pre-rename", path)
     # a stale sidecar must never outlive the file it described
     try:
         os.remove(path + SHA_SIDECAR_SUFFIX)
@@ -268,6 +278,20 @@ def save_run_checkpoint(path: str, state: Dict[str, Any], replay_buffer=None, ke
     else:
         save_checkpoint(path, state)
     _delete_old_checkpoints(os.path.dirname(path), keep_last, path)
+
+
+def write_run_checkpoint(path: str, state: Dict[str, Any], replay_buffer=None, keep_last: int = 0,
+                         ranks=(0,)) -> None:
+    """:func:`save_run_checkpoint` as a training loop writes it: the progress
+    watchdogs pause over the write (a long write is progress, not a stall),
+    and in a multi-process run the step's consistency manifest brackets it
+    (``resilience/distributed.py::checkpoint_manifest``; ``ranks`` share the
+    save: the player alone in the decoupled topology)."""
+    from sheeprl_tpu_torch.resilience.distributed import checkpoint_manifest
+    from sheeprl_tpu_torch.resilience.watchdog import watchdogs_paused
+
+    with watchdogs_paused(), checkpoint_manifest(path, ranks=ranks):
+        save_run_checkpoint(path, state, replay_buffer=replay_buffer, keep_last=keep_last)
 
 
 def load_run_buffer(state: Dict[str, Any]):

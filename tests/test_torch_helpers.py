@@ -454,3 +454,42 @@ def assert_checkpoints_equal(ours, theirs) -> None:
             assert x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes(), key
         else:
             assert value == b[key], key
+
+
+def gang_run(args: Sequence[str], cwd, token: str, timeout: float = 150.0):
+    """``python -m sheeprl_tpu_torch *args`` on the CPU in ``cwd``, single
+    threaded: with ``resilience.distributed.gang.processes=2`` the process is
+    the gang's supervisor, and its children run in sessions of their own.
+    Returns ``(return code, seconds)``; past ``timeout`` the supervisor and
+    every process whose command line holds ``token`` (the run's name) are
+    killed and the gang logs' tails raised."""
+    import os
+    import signal
+    import subprocess
+    import sys
+    import time
+
+    cwd = Path(cwd)
+    cwd.mkdir(parents=True, exist_ok=True)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("SHEEPRL_COORDINATOR", "SHEEPRL_GANG_RANK", "SHEEPRL_GANG_PROCESSES", "WORLD_SIZE")}
+    env.update(SUBPROCESS_ENV, PYTHONPATH=str(REPO_ROOT))
+    log = cwd / "supervisor.log"
+    t0 = time.monotonic()
+    with open(log, "w") as fh:
+        proc = subprocess.Popen([sys.executable, "-m", "sheeprl_tpu_torch", *args], cwd=str(cwd), stdout=fh,
+                                stderr=subprocess.STDOUT, env=env)
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        for pid in os.listdir("/proc"):
+            try:
+                if pid.isdigit() and token.encode() in Path(f"/proc/{pid}/cmdline").read_bytes():
+                    os.kill(int(pid), signal.SIGKILL)
+            except OSError:
+                continue
+        tails = "\n".join(f"--- {p.name}:\n{p.read_text()[-3000:]}" for p in sorted(cwd.rglob("*.log")))
+        raise AssertionError(f"the gang did not end within {timeout} s:\n{tails}")
+    return rc, time.monotonic() - t0

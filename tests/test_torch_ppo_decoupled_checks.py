@@ -33,22 +33,28 @@ def test_a_decoupled_algorithm_refuses_what_the_jax_cli_refuses(algo, monkeypatc
     assert callable(check_configs(compose([f"exp={coupled}", "fabric.strategy=single_device"])))
 
 
+COUPLED = ["ppo", "sac", "dreamer_v3"]
+
+
 @pytest.mark.parametrize(
-    "env,override,names",
+    "env,override,names,algos",
     [
-        ({"WORLD_SIZE": "2"}, None, "a launch with 2 processes"),
-        ({}, "resilience.distributed.gang.processes=2", "resilience.distributed.gang.processes >= 2"),
-        ({}, "buffer.backend=service", "buffer.backend=service"),
+        ({"WORLD_SIZE": "2"}, None, "a launch with 2 processes", DECOUPLED),
+        # a gang of a decoupled algorithm runs (tests/test_torch_gang.py); of a
+        # coupled one it is data-parallel training
+        ({}, "resilience.distributed.gang.processes=2", "resilience.distributed.gang.processes >= 2 of .* coupled",
+         COUPLED),
+        ({}, "buffer.backend=service", "buffer.backend=service", DECOUPLED),
     ],
     ids=["two-processes", "gang", "service"],
 )
-def test_a_launch_of_more_than_one_process_is_refused_by_name(env, override, names, monkeypatch):
+def test_a_launch_of_more_than_one_process_is_refused_by_name(env, override, names, algos, monkeypatch):
     from sheeprl_tpu_torch.cli import check_configs
     from sheeprl_tpu_torch.config import compose
 
     for key, value in env.items():
         monkeypatch.setenv(key, value)
-    for algo in DECOUPLED:
+    for algo in algos:
         with pytest.raises(NotImplementedError, match=names):
             check_configs(compose([f"exp={algo}", *([override] if override else [])]))
 
@@ -76,7 +82,8 @@ def test_a_decoupled_algorithm_takes_two_processes_once_the_store_is_open(store_
 
 def test_every_other_launch_of_more_than_one_process_stays_refused(store_up, monkeypatch):
     """With the store open: a coupled algorithm (data-parallel training),
-    three processes (a learner slice), the gang and the service; without it:
+    three processes (a learner slice), a gang of three and the service (a gang
+    of two is how a gang's children run); without it:
     a coordinator whose store this process did not open, and torchrun's
     ``WORLD_SIZE`` with no coordinator."""
     from sheeprl_tpu_torch.cli import check_configs
@@ -86,7 +93,7 @@ def test_every_other_launch_of_more_than_one_process_stays_refused(store_up, mon
     for exp in ("ppo", "sac", "dreamer_v3", "ppo_recurrent", "ppo_anakin"):
         with pytest.raises(NotImplementedError, match=f"2 processes of {exp}: a coupled algorithm .* \\(DDP\\)"):
             check_configs(compose([f"exp={exp}"]))
-    for override, names in (("resilience.distributed.gang.processes=2", "resilience.distributed.gang.processes >= 2"),
+    for override, names in (("resilience.distributed.gang.processes=3", "resilience.distributed.gang.processes >= 2"),
                             ("buffer.backend=service", "buffer.backend=service")):
         for algo in DECOUPLED:
             with pytest.raises(NotImplementedError, match=names):
